@@ -1,0 +1,530 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``liorf_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, one card, < 20 minutes
+
+Builds the CUDA k-NN kernels from ``liorf_tpu_torch/csrc`` with nvcc, holds
+each against its plain PyTorch version on the card at the shapes the
+pipeline gives it, then drives the streaming SLAM pipeline
+(``LiorfPipeline``: push_imu / process_scan / trajectory_arrays) at the
+repo's bench size and on the loop-closure course, and checks the outputs.
+
+Each phase prints one JSON line. Any failed check raises, so the exit code is
+non-zero and the closing ``{"ok": true, ...}`` line is never printed. There is
+no CPU fallback: without a CUDA device the script exits with code 5.
+
+Options (for shorter runs while developing):
+    --phases device,kernels,main_path,split,loop_path[,profile]
+                      "profile" (not run by default) traces 8 warm frames with
+                      torch.profiler: device-busy share and kernel time by name
+    --ptxas           print ptxas' register / shared-memory report
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.stderr.write("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU\n")
+    sys.exit(5)
+
+from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
+from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
+from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig  # noqa: E402
+from liorf_tpu_torch.sensors.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+SEED = 0
+MAIN_FRAMES = 60  # main path, at the bench size
+LOOP_FRAMES = 64  # loop course
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): the bounds below are
+# stated against these, with the card's power limit printed beside them.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
+# tolerance of kernel vs plain version (both use the same rounded arithmetic,
+# so the observed error is expected to be 0)
+D2_RTOL, D2_ATOL = 1e-4, 1e-3
+
+# The repo's bench size (bench.py): 32 rings x 900 points = 28.8k points/scan.
+BENCH_CAPS = dict(
+    scan_capacity=16384,
+    raw_capacity=32768,
+    map_capacity=131072,
+    kf_cloud_capacity=8192,
+    near_kf_capacity=32,
+    imu_window=64,
+    point_filter_num=1,
+    downsampleRate=1,
+)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median time of fn() in ms, by CUDA events, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase: device
+# ---------------------------------------------------------------------------
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def phase_device(ptxas: bool) -> str:
+    smi = nvidia_smi_line()
+    nvcc = subprocess.run(
+        [knn_cuda._find_nvcc(), "--version"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[-2:]
+    knn_cuda.load_library(("-Xptxas", "-v") if ptxas else ())
+    emit(
+        "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        nvcc=" | ".join(nvcc), python=sys.version.split()[0],
+        kernel_build_seconds=knn_cuda.build_seconds,
+        tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+        tf32_cudnn=torch.backends.cudnn.allow_tf32,
+    )
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must be off")
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# phase: kernels
+# ---------------------------------------------------------------------------
+
+def compare_knn(d_k, i_k, d_p, i_p) -> dict:
+    """Kernel vs plain: distances within tolerance, indices equal off ties,
+    missing neighbours (+inf, 0) in the same places."""
+    fin_k, fin_p = torch.isfinite(d_k), torch.isfinite(d_p)
+    check(bool((fin_k == fin_p).all()), "missing-neighbour pattern differs")
+    check(bool((i_k[~fin_k] == 0).all()), "missing neighbour must carry index 0")
+    check(bool(torch.isinf(d_k[~fin_k]).all()), "missing neighbour must carry +inf")
+    dk, dp = d_k[fin_k], d_p[fin_p]
+    err = (dk - dp).abs()
+    max_abs = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= D2_ATOL + D2_RTOL * dp.abs()).all()), f"d2 disagrees: {max_abs}")
+    differ = (i_k != i_p) & fin_k
+    # a differing index is allowed only on an exact tie of the distances
+    bad = differ & (d_k != d_p)
+    check(int(bad.sum()) == 0, f"{int(bad.sum())} indices differ off ties")
+    return dict(
+        max_abs_err=max_abs,
+        index_agreement=float(1.0 - differ.sum().item() / max(int(fin_k.sum()), 1)),
+        tie_index_differences=int(differ.sum()),
+        missing=int((~fin_k).sum()),
+    )
+
+
+def k1_inputs(n: int, c: int, gen: torch.Generator):
+    q = (torch.rand((n, 3), generator=gen, device=DEV) - 0.5) * 100.0
+    cand = q[:, None, :] + torch.randn((n, c, 3), generator=gen, device=DEV)
+    # duplicate-distance ties: candidates 1 and 2 repeat candidate 0, and the
+    # second half of every 8th row mirrors its first half
+    cand[:, 1] = cand[:, 0]
+    cand[:, 2] = cand[:, 0]
+    cand[::8, c // 2 :] = cand[::8, : c - c // 2]
+    invalid = torch.rand((n, c), generator=gen, device=DEV) < 0.10
+    invalid[5] = True  # one row with no valid candidate
+    invalid[6, 3:] = True  # one row with fewer than k
+    cand = torch.where(invalid[..., None], torch.full_like(cand, 1e30), cand).contiguous()
+    idx = torch.randint(0, 131072, (n, c), generator=gen, device=DEV, dtype=torch.int32)
+    return q.contiguous(), cand, idx
+
+
+def bench_k1(n: int, c: int, k: int, gen) -> dict:
+    q, cand, idx = k1_inputs(n, c, gen)
+    d_k, i_k = knn_cuda.topk_candidates(q, cand, idx, k)
+    torch.cuda.synchronize()
+    d_p, i_p = knn_cuda.topk_candidates_plain(q, cand, idx, k)
+    res = compare_knn(d_k, i_k, d_p, i_p)
+    check(bool(torch.isinf(d_k[5]).all()), "all-invalid row must be all missing")
+    check(int(torch.isfinite(d_k[6]).sum()) <= 3, "short row must have missing tail")
+
+    def library():
+        d = (cand - q[:, None, :]).square_().sum(-1)
+        return torch.topk(d, k, dim=1, largest=False)
+
+    # What the function must move: the queries, every candidate's coordinates
+    # once, the k winners' indices (the other N*(C-k) indices decide nothing),
+    # and the two outputs.
+    bytes_moved = n * 12 + n * c * 12 + n * k * 4 + n * k * 8
+    flops = n * c * 8
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    res.update(
+        shape=[n, c], k=k,
+        ms=cuda_ms(lambda: knn_cuda.topk_candidates(q, cand, idx, k)),
+        plain_ms=cuda_ms(lambda: knn_cuda.topk_candidates_plain(q, cand, idx, k)),
+        library_ms=cuda_ms(library),
+        library_call="(cand - q).square().sum(-1) then torch.topk(largest=False)",
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved, flops=flops,
+    )
+    return res
+
+
+def bench_k2(n: int, m: int, k: int, gen) -> dict:
+    tgt = (torch.rand((m, 3), generator=gen, device=DEV) - 0.5) * 60.0
+    qry = (torch.rand((n, 3), generator=gen, device=DEV) - 0.5) * 60.0
+    tgt[m // 2 :: 64] = tgt[: (m - m // 2 + 63) // 64]  # duplicated targets: exact ties
+    tmask = torch.rand((m,), generator=gen, device=DEV) > 0.10
+    qmask = torch.rand((n,), generator=gen, device=DEV) > 0.10
+    d_k, i_k = knn_cuda.knn_bruteforce(tgt, tmask, qry, qmask, k)
+    torch.cuda.synchronize()
+    d_p, i_p = knn_cuda.knn_bruteforce_plain(tgt, tmask, qry, qmask, k)
+    res = compare_knn(d_k, i_k, d_p, i_p)
+    check(bool(torch.isinf(d_k[~qmask]).all()), "masked queries must be missing")
+    # an all-masked map: everything missing
+    d0, i0 = knn_cuda.knn_bruteforce(tgt, torch.zeros_like(tmask), qry, qmask, k)
+    check(bool(torch.isinf(d0).all()) and bool((i0 == 0).all()), "all-masked map")
+
+    far = torch.where(tmask[:, None], tgt, torch.full_like(tgt, 1e6))
+
+    def library():
+        return torch.topk(torch.cdist(qry, far), k, dim=1, largest=False)
+
+    bytes_moved = m * 13 + n * 13 + n * k * 8
+    flops = n * m * 8
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    res.update(
+        shape=[n, m], k=k,
+        ms=cuda_ms(lambda: knn_cuda.knn_bruteforce(tgt, tmask, qry, qmask, k)),
+        plain_ms=cuda_ms(lambda: knn_cuda.knn_bruteforce_plain(tgt, tmask, qry, qmask, k)),
+        library_ms=cuda_ms(library),
+        library_call="torch.cdist then torch.topk(largest=False)",
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved, flops=flops,
+    )
+    return res
+
+
+def phase_kernels() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    bucket = knn.exact_bucket(1.0, 0.3)
+    out = {
+        "topk_candidates": bench_k1(16384, 27 * bucket, 5, gen),
+        "knn_bruteforce": bench_k2(16384, 16384, 1, gen),
+        "knn_bruteforce_k5": bench_k2(16384, 16384, 5, gen),
+        # ragged sizes: no multiple of any tile
+        "topk_candidates_ragged": bench_k1(1001, 27 * 8 + 5, 3, gen),
+        "knn_bruteforce_ragged": bench_k2(1001, 3333, 8, gen),
+    }
+    emit("kernels", tolerance=dict(rtol=D2_RTOL, atol=D2_ATOL), **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases: main_path, loop_path
+# ---------------------------------------------------------------------------
+
+def run_pipeline(pipe: LiorfPipeline, syn: SyntheticDataset, n_frames: int):
+    imu = syn.imu_stream()
+    ii = 0
+    frame_ms, results = [], []
+    for f in range(n_frames):
+        scan = syn.scan(f)
+        while ii < len(imu) and imu[ii].stamp <= scan.end_time + 0.02:
+            pipe.push_imu(imu[ii])
+            ii += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(pipe.process_scan(scan))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    return results, frame_ms
+
+
+def percentile(xs, p):
+    return float(np.percentile(np.asarray(xs), p))
+
+
+def phase_main_path(n_frames: int = MAIN_FRAMES):
+    cfg = SlamConfig(
+        **BENCH_CAPS, mappingSurfLeafSize=0.3, surroundingKeyframeMapLeafSize=0.3,
+        loopClosureEnableFlag=True,
+    )
+    syn = SyntheticDataset(
+        SyntheticConfig(n_frames=n_frames, n_rings=32, points_per_ring=900, seed=SEED)
+    )
+    pipe = LiorfPipeline(cfg)  # device=None: the card
+    check(pipe.device.type == "cuda", "pipeline must default to the GPU")
+    knn_cuda.reset_launch_counts()
+    results, frame_ms = run_pipeline(pipe, syn, n_frames)
+    counts = knn_cuda.launch_counts()
+
+    _, poses = pipe.trajectory_arrays()
+    _, gt = syn.ground_truth()
+    check(poses.shape == (n_frames, 6), f"trajectory shape {poses.shape}")
+    check(bool(np.isfinite(poses).all()), "trajectory not finite")
+    ate = ate_rmse(poses[:, 3:6].astype(np.float64), gt[:n_frames])
+    gn_iters = [r.gn_iters for r in results]
+    steady = frame_ms[1:]  # frame 0 is the bootstrap
+    emit(
+        "main_path", frames=n_frames, points_per_scan=32 * 900, ate_rmse_m=ate,
+        keyframes=pipe.store.count, graph_edges=len(pipe.edges),
+        gn_iters_total=int(sum(gn_iters)), gn_iters_per_frame_mean=float(np.mean(gn_iters[1:])),
+        k1_launches=counts["topk_candidates"], k2_launches=counts["knn_bruteforce"],
+        ms_per_frame_p50=percentile(steady, 50), ms_per_frame_p99=percentile(steady, 99),
+        ms_per_frame_mean=float(np.mean(steady)),
+        degenerate_frames=int(sum(r.degenerate for r in results)),
+        num_matched_mean=float(np.mean([r.num_matched for r in results[1:]])),
+    )
+    check(ate < 0.3, f"ATE {ate} m >= 0.3 m")
+    check(pipe.store.count >= 2, "fewer than 2 keyframes")
+    check(counts["topk_candidates"] > 0, "K1 never launched on the main path")
+    check(
+        counts["topk_candidates"] == sum(gn_iters),
+        f"K1 launches {counts['topk_candidates']} != GN iterations {sum(gn_iters)}",
+    )
+    return pipe, counts
+
+
+def phase_split(pipe: LiorfPipeline) -> None:
+    """Where a frame's time goes: the stages of one frame, each timed alone by
+    CUDA events at the main path's shapes, on the pipeline's final state."""
+    from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
+    from liorf_tpu_torch.imu import fusion, preintegration
+    from liorf_tpu_torch.ops import plane_fit, scan_match, scancontext
+
+    cfg, fp = pipe.cfg, pipe.frame_params
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    grid = pipe.grid
+    # a scan-shaped query set: valid map points, jittered
+    n = cfg.scan_capacity
+    pick = torch.nonzero(grid.mask)[:, 0]
+    pick = pick[torch.randint(0, len(pick), (n,), generator=gen, device=DEV)]
+    world = grid.xyz[pick] + 0.05 * torch.randn((n, 3), generator=gen, device=DEV)
+    mask = torch.ones(n, dtype=torch.bool, device=DEV)
+    pose = torch.zeros(6, device=DEV)
+    norm_q = torch.sqrt(torch.sqrt(torch.linalg.norm(world, dim=-1) + 1e-12))
+    raw = torch.cat([world, world + 0.1], dim=0)[: cfg.raw_cap].contiguous()
+    raw_mask = torch.ones(raw.shape[0], dtype=torch.bool, device=DEV)
+    S = torch.randn((n, 3, 3), generator=gen, device=DEV)
+    S = S @ S.transpose(-1, -2)
+    K = cfg.imu_window
+    acc = torch.randn((K, 3), generator=gen, device=DEV) + torch.tensor([0, 0, 9.8], device=DEV)
+    gyr = 0.1 * torch.randn((K, 3), generator=gen, device=DEV)
+    dts = torch.full((K,), 0.01, device=DEV)
+    imask = torch.arange(K, device=DEV) < 10
+    z3 = torch.zeros(3, device=DEV)
+    pre = preintegration.preintegrate(acc, gyr, dts, imask, z3, z3, fp.fusion.imu)
+    filt = fusion.init_filter(torch.eye(3, device=DEV), z3, fp.fusion)
+    no = torch.zeros((), dtype=torch.bool, device=DEV)
+    stamp = pipe.last_scan_stamp
+    kf_pose = pipe.store.poses[pipe.store.count - 1].copy()
+
+    stages = {
+        "gn_iteration (_build_system: knn_grid + fit_planes + H,g)": lambda: scan_match._build_system(
+            pose, world, mask, norm_q, grid, fp.match),
+        "knn_grid (27-run gather + K1)": lambda: knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket),
+        "eigh [16384,3,3]": lambda: torch.linalg.eigh(S),
+        "fit_planes": lambda: plane_fit.fit_planes(grid.xyz[pick.reshape(-1, 1).expand(-1, 5)], mask[:, None].expand(-1, 5)),
+        "voxel_downsample scan (raw -> scan_capacity)": lambda: voxel_downsample_xyz(raw, raw_mask, fp.leaf, fp.scan_cap),
+        "scancontext descriptor": lambda: scancontext.make_descriptor(raw, raw_mask),
+        "preintegrate": lambda: preintegration.preintegrate(acc, gyr, dts, imask, z3, z3, fp.fusion.imu),
+        "fusion_step": lambda: fusion.fusion_step(filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
+        "pose graph solve (window)": lambda: pipe._solve_graph(full=False),
+        "pose graph solve (full)": lambda: pipe._solve_graph(full=True),
+        "local-map rebuild (assemble_local_map + grid)": lambda: pipe._rebuild_grid(kf_pose, stamp),
+    }
+    out = {name: cuda_ms(fn, reps=10, warm=2) for name, fn in stages.items()}
+    emit("split", keyframes=pipe.store.count, ms=out)
+
+
+def phase_profile(warm: int = 12, traced: int = 8) -> None:
+    """Device-busy share of a warm frame and the kernels that fill it, from a
+    torch.profiler trace of `traced` frames at the main path's size. The
+    profiler stretches the host's time but not the device's, so the share is
+    the traced window's device time over the wall time of the `traced`
+    untraced frames just before it, in the same run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = SlamConfig(
+        **BENCH_CAPS, mappingSurfLeafSize=0.3, surroundingKeyframeMapLeafSize=0.3,
+        loopClosureEnableFlag=True,
+    )
+    n = warm + 2 * traced
+    syn = SyntheticDataset(SyntheticConfig(n_frames=n, n_rings=32, points_per_ring=900, seed=SEED))
+    pipe = LiorfPipeline(cfg)
+    imu = syn.imu_stream()
+    scans = [syn.scan(f) for f in range(n)]
+    ii = 0
+
+    def feed(f):
+        nonlocal ii
+        while ii < len(imu) and imu[ii].stamp <= scans[f].end_time + 0.02:
+            pipe.push_imu(imu[ii])
+            ii += 1
+        return pipe.process_scan(scans[f])
+
+    for f in range(warm):
+        feed(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    untraced = [feed(f) for f in range(warm, warm + traced)]
+    torch.cuda.synchronize()
+    untraced_wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = [feed(f) for f in range(warm + traced, n)]
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): the CPU-side op rows carry
+    # the same device time again
+    rows = [
+        (e.key, e.count, e.self_device_time_total / 1e3)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows)
+    emit(
+        "profile", frames=traced, keyframes_in_window=int(sum(r.is_keyframe for r in results)),
+        traced_wall_ms=wall_ms, device_busy_ms=device_ms,
+        untraced_frames=traced, untraced_wall_ms=untraced_wall_ms,
+        keyframes_in_untraced_window=int(sum(r.is_keyframe for r in untraced)),
+        device_busy_share=device_ms / untraced_wall_ms,
+        device_launches=int(sum(r[1] for r in rows)),
+        top=[dict(name=k[:80], calls=c, device_ms=ms) for k, c, ms in rows[:12]],
+        note="share = traced window's device time / wall time of the untraced window before it",
+    )
+
+
+def phase_loop_path(n_frames: int = LOOP_FRAMES):
+    """The repo's loop course (tests/test_loop_efficacy.py): a self-revisiting
+    circle with a biased, noisy IMU; loop closure on."""
+    cfg = SlamConfig(
+        **BENCH_CAPS, mappingSurfLeafSize=0.4, surroundingKeyframeMapLeafSize=0.4,
+        loopClosureEnableFlag=True, loopClosureFrequency=2.0,
+        historyKeyframeSearchTimeDiff=2.0, historyKeyframeSearchNum=5,
+    )
+    syn = SyntheticDataset(
+        SyntheticConfig(
+            n_frames=n_frames, n_rings=16, points_per_ring=360, speed=3.0, yaw_rate=1.2,
+            gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01, seed=SEED,
+        )
+    )
+    pipe = LiorfPipeline(cfg)
+    knn_cuda.reset_launch_counts()
+    results, frame_ms = run_pipeline(pipe, syn, n_frames)
+    counts = knn_cuda.launch_counts()
+    _, poses = pipe.trajectory_arrays()
+    _, gt = syn.ground_truth()
+    loop_edges = [e for e in pipe.edges if e["j"] - e["i"] != 1]
+    pending = len(pipe.pending_loops)
+    ate = ate_rmse(poses[:, 3:6].astype(np.float64), gt[:n_frames])
+    emit(
+        "loop_path", frames=n_frames, keyframes=pipe.store.count,
+        loop_factors_in_graph=len(loop_edges), loop_factors_pending=pending,
+        loop_pairs=sorted(pipe.loop_detector.loop_index_container.items()),
+        k1_launches=counts["topk_candidates"], k2_launches=counts["knn_bruteforce"],
+        ate_rmse_m=ate, ms_per_frame_p50=percentile(frame_ms[1:], 50),
+        ms_per_frame_p99=percentile(frame_ms[1:], 99),
+    )
+    check(bool(np.isfinite(poses).all()), "loop trajectory not finite")
+    check(len(loop_edges) + pending >= 1, "no loop factor landed")
+    check(counts["knn_bruteforce"] > 0, "K2 never launched on the loop path")
+    check(counts["topk_candidates"] == sum(r.gn_iters for r in results), "K1 count != GN iterations")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="device,kernels,main_path,split,loop_path")
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args()
+    phases = args.phases.split(",")
+    full = {"device", "kernels", "main_path", "loop_path"} <= set(phases)
+
+    t_start = time.perf_counter()
+    smi = phase_device(args.ptxas)
+    kern = phase_kernels() if "kernels" in phases else None
+    main_counts = loop_counts = None
+    if "main_path" in phases:
+        pipe, main_counts = phase_main_path()
+        if "split" in phases:
+            phase_split(pipe)
+        del pipe
+    if "profile" in phases:
+        phase_profile()
+    if "loop_path" in phases:
+        loop_counts = phase_loop_path()
+    torch.cuda.synchronize()
+    emit("done", seconds=time.perf_counter() - t_start, phases=phases)
+    if not full:
+        # a partial run is for development: it proves nothing as a whole
+        print("partial run: no result line", file=sys.stderr)
+        sys.exit(4)
+
+    def row(name, key, replaces, launches):
+        r = kern[key]
+        return {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        }
+
+    # launches: K1 from the main path's run, K2 from the loop path's run (the
+    # only path that reaches it); each counted from 0 just before its path.
+    kernels = [
+        row("topk_candidates", "topk_candidates", "liorf_tpu/ops/knn_pallas.py:132",
+            main_counts["topk_candidates"]),
+        row("knn_bruteforce", "knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187",
+            loop_counts["knn_bruteforce"]),
+    ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was never launched by its path")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,310 @@
+"""Keyframe pose-graph optimization: batched Gauss-Newton with PCG.
+
+Replacement for GTSAM's ISAM2 in the reference back-end
+(``liorf/src/mapOptmization.cpp:68-73,1386-1533``). The graph holds SE(3)
+keyframe poses with three factor families, mirroring the reference:
+
+* prior on the first pose (``addOdomFactor``, :1390-1394);
+* between factors — the odometry chain and loop closures (:1396-1400,
+  :1482-1501), loops optionally with a Cauchy robust kernel (:711-719);
+* GPS unary position factors (``addGPSFactor``, :1470-1474).
+
+Instead of incremental Bayes-tree updates, the solver runs batched
+Gauss-Newton: residuals/Jacobians for every factor are built with batched
+forward-mode autodiff (``torch.func``), the normal equations are solved by
+preconditioned conjugate gradients with a block-Jacobi preconditioner, and
+all gather/scatter is over fixed-capacity masked arrays. A trailing-window
+mode (freeze all but the last W nodes) provides the cheap per-keyframe
+incremental step; full solves run when loops/GPS land, like the reference's
+5x ``isam->update()`` burst (:1521-1531).
+
+Tangent convention: [omega, v] with right-multiplicative retraction
+(R <- R exp(w), t <- t + R v) from ``core.se3``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch.func import jacfwd, vmap
+
+from ..core import se3
+from ..core.device import resolve_device
+
+
+class PoseGraph(NamedTuple):
+    # nodes
+    Rs: torch.Tensor  # [K, 3, 3]
+    ts: torch.Tensor  # [K, 3]
+    node_mask: torch.Tensor  # [K]
+    # between factors (odometry + loops)
+    e_i: torch.Tensor  # [E] int64
+    e_j: torch.Tensor  # [E] int64
+    e_Rm: torch.Tensor  # [E, 3, 3] measured relative rotation (i -> j)
+    e_tm: torch.Tensor  # [E, 3] measured relative translation (in i's frame)
+    e_sqrt_info: torch.Tensor  # [E, 6] diagonal sqrt information [rot, trans]
+    e_cauchy: torch.Tensor  # [E] Cauchy scale c (<=0 disables the robust kernel)
+    e_mask: torch.Tensor  # [E]
+    # GPS unary factors
+    g_i: torch.Tensor  # [G] int64
+    g_t: torch.Tensor  # [G, 3] measured position
+    g_sqrt_info: torch.Tensor  # [G, 3]
+    g_mask: torch.Tensor  # [G]
+    # prior on one node
+    prior_i: torch.Tensor  # [] int64
+    prior_R: torch.Tensor  # [3, 3]
+    prior_t: torch.Tensor  # [3]
+    prior_sqrt_info: torch.Tensor  # [6]
+
+
+def empty_graph(num_nodes: int, num_edges: int, num_gps: int, device=None) -> PoseGraph:
+    """All-masked graph of the given capacities; ``device=None`` means
+    ``cuda`` and raises when there is none."""
+    device = resolve_device(device, "empty_graph")
+    f32 = dict(dtype=torch.float32, device=device)
+    i64 = dict(dtype=torch.int64, device=device)
+    b = dict(dtype=torch.bool, device=device)
+    eye = torch.eye(3, **f32)
+    return PoseGraph(
+        Rs=eye.expand(num_nodes, 3, 3).clone(),
+        ts=torch.zeros((num_nodes, 3), **f32),
+        node_mask=torch.zeros((num_nodes,), **b),
+        e_i=torch.zeros((num_edges,), **i64),
+        e_j=torch.zeros((num_edges,), **i64),
+        e_Rm=eye.expand(num_edges, 3, 3).clone(),
+        e_tm=torch.zeros((num_edges, 3), **f32),
+        e_sqrt_info=torch.ones((num_edges, 6), **f32),
+        e_cauchy=torch.zeros((num_edges,), **f32),
+        e_mask=torch.zeros((num_edges,), **b),
+        g_i=torch.zeros((num_gps,), **i64),
+        g_t=torch.zeros((num_gps, 3), **f32),
+        g_sqrt_info=torch.ones((num_gps, 3), **f32),
+        g_mask=torch.zeros((num_gps,), **b),
+        prior_i=torch.zeros((), **i64),
+        prior_R=eye.clone(),
+        prior_t=torch.zeros((3,), **f32),
+        # reference prior variances (1e-2, 1e-2, pi^2) rot, 1e8 trans
+        # (mapOptmization.cpp:1390) -> sqrt information = 1/sigma
+        prior_sqrt_info=torch.tensor(
+            [10.0, 10.0, 1.0 / math.pi, 1e-4, 1e-4, 1e-4], **f32
+        ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# factor residuals (per-factor, batched; Jacobians via forward-mode autodiff)
+# ---------------------------------------------------------------------------
+
+def _between_residual(xi_i, xi_j, Ri, ti, Rj, tj, Rm, tm):
+    """Whitening-free between residual on the tangent perturbation."""
+    Ri2, ti2 = se3.se3_retract(Ri, ti, xi_i)
+    Rj2, tj2 = se3.se3_retract(Rj, tj, xi_j)
+    r_R = se3.so3_log(Rm.T @ (Ri2.T @ Rj2))
+    r_t = Ri2.T @ (tj2 - ti2) - tm
+    return torch.cat([r_R, r_t])
+
+
+def _gps_residual(xi_i, Ri, ti, target):
+    _, ti2 = se3.se3_retract(Ri, ti, xi_i)
+    return ti2 - target
+
+
+def _prior_residual(xi_i, Ri, ti, R0, t0):
+    Ri2, ti2 = se3.se3_retract(Ri, ti, xi_i)
+    return torch.cat([se3.so3_log(R0.T @ Ri2), ti2 - t0])
+
+
+def _between_rJ(Ri, ti, Rj, tj, Rm, tm):
+    def one(Ri, ti, Rj, tj, Rm, tm):
+        z = torch.zeros(6, dtype=Ri.dtype, device=Ri.device)
+
+        def f(a, b):
+            r = _between_residual(a, b, Ri, ti, Rj, tj, Rm, tm)
+            return r, r
+
+        (Ji, Jj), r = jacfwd(f, argnums=(0, 1), has_aux=True)(z, z)
+        return r, Ji, Jj
+
+    return vmap(one)(Ri, ti, Rj, tj, Rm, tm)
+
+
+def _gps_rJ(Ri, ti, tgt):
+    def one(Ri, ti, tgt):
+        z = torch.zeros(6, dtype=Ri.dtype, device=Ri.device)
+
+        def f(a):
+            r = _gps_residual(a, Ri, ti, tgt)
+            return r, r
+
+        J, r = jacfwd(f, has_aux=True)(z)
+        return r, J
+
+    return vmap(one)(Ri, ti, tgt)
+
+
+def _linearize(graph: PoseGraph):
+    """Build whitened residuals + Jacobian blocks for every factor."""
+    # between
+    Ri = graph.Rs[graph.e_i]
+    ti = graph.ts[graph.e_i]
+    Rj = graph.Rs[graph.e_j]
+    tj = graph.ts[graph.e_j]
+    r_e, Ji, Jj = _between_rJ(Ri, ti, Rj, tj, graph.e_Rm, graph.e_tm)
+    r_e = r_e * graph.e_sqrt_info
+    Ji = Ji * graph.e_sqrt_info[:, :, None]
+    Jj = Jj * graph.e_sqrt_info[:, :, None]
+    # robust Cauchy via IRLS: weight = 1 / (1 + ||r||^2 / c^2)
+    rn2 = torch.sum(r_e * r_e, dim=-1)
+    c2 = graph.e_cauchy * graph.e_cauchy
+    w_rob = torch.where(
+        graph.e_cauchy > 0, 1.0 / (1.0 + rn2 / torch.clamp(c2, min=1e-12)), 1.0
+    )
+    w = torch.sqrt(w_rob) * graph.e_mask.to(r_e.dtype)
+    r_e = r_e * w[:, None]
+    Ji = Ji * w[:, None, None]
+    Jj = Jj * w[:, None, None]
+
+    # gps
+    r_g, Jg = _gps_rJ(graph.Rs[graph.g_i], graph.ts[graph.g_i], graph.g_t)
+    wg = graph.g_mask.to(r_g.dtype)
+    r_g = r_g * graph.g_sqrt_info * wg[:, None]
+    Jg = Jg * graph.g_sqrt_info[:, :, None] * wg[:, None, None]
+
+    # prior
+    Rp = graph.Rs[graph.prior_i]
+    tp = graph.ts[graph.prior_i]
+    z = torch.zeros(6, dtype=Rp.dtype, device=Rp.device)
+
+    def f(a):
+        r = _prior_residual(a, Rp, tp, graph.prior_R, graph.prior_t)
+        return r, r
+
+    Jp, r_p = jacfwd(f, has_aux=True)(z)
+    r_p = r_p * graph.prior_sqrt_info
+    Jp = Jp * graph.prior_sqrt_info[:, None]
+
+    return (r_e, Ji, Jj), (r_g, Jg), (r_p, Jp)
+
+
+def _build_normal_terms(graph: PoseGraph, free_mask):
+    """Linearize and return (rhs [K,6], matvec fn, block-diag [K,6,6])."""
+    K = graph.Rs.shape[0]
+    (r_e, Ji, Jj), (r_g, Jg), (r_p, Jp) = _linearize(graph)
+    fm = free_mask.to(r_e.dtype)
+    e_i, e_j, g_i, p_i = graph.e_i, graph.e_j, graph.g_i, graph.prior_i.reshape(1)
+
+    # mask Jacobian columns of frozen nodes (treat them as constants)
+    Ji = Ji * fm[e_i][:, None, None]
+    Jj = Jj * fm[e_j][:, None, None]
+    Jg = Jg * fm[g_i][:, None, None]
+    Jp = Jp * fm[graph.prior_i]
+
+    def jt(J, r):  # J^T r per factor
+        return torch.einsum("eri,er->ei", J, r)
+
+    # rhs = -J^T r scattered per node (index_add_ in place of .at[].add,
+    # pose_graph.py:192-214 of the JAX package; accumulation order differs)
+    rhs = torch.zeros((K, 6), dtype=r_e.dtype, device=r_e.device)
+    rhs.index_add_(0, e_i, -jt(Ji, r_e))
+    rhs.index_add_(0, e_j, -jt(Jj, r_e))
+    rhs.index_add_(0, g_i, -jt(Jg, r_g))
+    rhs.index_add_(0, p_i, -(Jp.T @ r_p)[None])
+
+    # block-diagonal of H for the Jacobi preconditioner
+    diag = torch.zeros((K, 6, 6), dtype=r_e.dtype, device=r_e.device)
+    diag.index_add_(0, e_i, torch.einsum("eri,erj->eij", Ji, Ji))
+    diag.index_add_(0, e_j, torch.einsum("eri,erj->eij", Jj, Jj))
+    diag.index_add_(0, g_i, torch.einsum("gri,grj->gij", Jg, Jg))
+    diag.index_add_(0, p_i, (Jp.T @ Jp)[None])
+
+    def matvec(x):  # x: [K, 6]
+        yi = torch.einsum("eri,ei->er", Ji, x[e_i])
+        yj = torch.einsum("eri,ei->er", Jj, x[e_j])
+        y_e = yi + yj
+        y_g = torch.einsum("gri,gi->gr", Jg, x[g_i])
+        y_p = Jp @ x[graph.prior_i]
+        out = torch.zeros_like(x)
+        out.index_add_(0, e_i, jt(Ji, y_e))
+        out.index_add_(0, e_j, jt(Jj, y_e))
+        out.index_add_(0, g_i, jt(Jg, y_g))
+        out.index_add_(0, p_i, (Jp.T @ y_p)[None])
+        return out
+
+    return rhs, matvec, diag
+
+
+def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float):
+    """Block-Jacobi preconditioned CG for (H + damping I) x = rhs.
+
+    A fixed number of iterations in a Python loop (a ``lax.scan`` in
+    pose_graph.py:252 of the JAX package); nothing inside reads the device.
+    """
+    eye = torch.eye(6, dtype=rhs.dtype, device=rhs.device)
+    blocks = precond_blocks + eye[None] * (damping + 1e-6)
+    Minv, _ = torch.linalg.inv_ex(blocks)  # [K, 6, 6]; no host sync
+
+    def apply_M(r):
+        return torch.einsum("kij,kj->ki", Minv, r)
+
+    def A(x):
+        return matvec(x) + damping * x
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = apply_M(r)
+    p = z
+    rz = torch.sum(r * z)
+
+    for _ in range(iters):
+        Ap = A(p)
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_M(r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, 0.0)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+class SolveParams(NamedTuple):
+    gn_iters: int = 6
+    pcg_iters: int = 64
+    damping: float = 1e-4
+    # kept for config parity with the JAX package; only its distributed
+    # solvers read it
+    inner_iters: int = 0
+
+
+def solve(
+    graph: PoseGraph,
+    free_from=0,
+    params: SolveParams = SolveParams(),
+) -> PoseGraph:
+    """Optimize node poses; nodes with index < free_from stay frozen.
+
+    ``free_from=0`` is a full batch relaxation (the loop/GPS path);
+    ``free_from=count-W`` gives the cheap trailing-window incremental step.
+    """
+    K = graph.Rs.shape[0]
+    idx = torch.arange(K, device=graph.Rs.device)
+    free_mask = graph.node_mask & (idx >= free_from)
+
+    # fixed-length Python loop in place of lax.scan (pose_graph.py:289)
+    for _ in range(params.gn_iters):
+        rhs, matvec, diag = _build_normal_terms(graph, free_mask)
+        dx = _pcg(matvec, rhs, diag, params.pcg_iters, params.damping)
+        dx = dx * free_mask[:, None].to(dx.dtype)
+        Rs, ts = se3.se3_retract(graph.Rs, graph.ts, dx)
+        graph = graph._replace(Rs=Rs, ts=ts)
+    return graph
+
+
+def graph_error(graph: PoseGraph) -> torch.Tensor:
+    """Total whitened squared error (for tests/diagnostics)."""
+    (r_e, _, _), (r_g, _), (r_p, _) = _linearize(graph)
+    return torch.sum(r_e * r_e) + torch.sum(r_g * r_g) + torch.sum(r_p * r_p)

@@ -1,0 +1,325 @@
+"""On-manifold IMU preintegration (Forster et al., TRO 2017).
+
+Replacement for GTSAM's ``PreintegratedImuMeasurements`` used by the
+reference (``liorf/src/imuPreintegration.cpp:176-177,214-228,359-375``):
+Delta-R/v/p accumulation, first-order bias Jacobians, and 9x9 covariance
+propagation over a fixed-capacity masked window of IMU samples, in log-depth
+batched form (no per-sample Python loop on the frame path).
+
+Conventions: gravity acts in -z with magnitude ``imuGravity``
+(``MakeSharedU``, imuPreintegration.cpp:213); acc/gyro samples are already
+rotated into the lidar-aligned frame (``imuConverter``, utility.h:257-290).
+Tangent ordering for the covariance: [dtheta, dv, dp].
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import se3
+
+
+class ImuParams(NamedTuple):
+    acc_noise: float = 3.9939570888238808e-03  # continuous sigma [m/s^2/sqrt(Hz)]
+    gyr_noise: float = 1.5636343949698187e-03  # [rad/s/sqrt(Hz)]
+    acc_bias_rw: float = 6.4356659353532566e-05  # bias random walk sigma
+    gyr_bias_rw: float = 3.5640318696367613e-05
+    int_noise: float = 1e-4  # integration position noise (imuPreintegration.cpp:216)
+    gravity: float = 9.80511
+
+
+class Preintegrated(NamedTuple):
+    dR: torch.Tensor  # [3, 3]
+    dv: torch.Tensor  # [3]
+    dp: torch.Tensor  # [3]
+    dt: torch.Tensor  # [] total time
+    # first-order bias Jacobians (linearized at bias_lin)
+    dR_dbg: torch.Tensor  # [3, 3]
+    dv_dba: torch.Tensor  # [3, 3]
+    dv_dbg: torch.Tensor  # [3, 3]
+    dp_dba: torch.Tensor  # [3, 3]
+    dp_dbg: torch.Tensor  # [3, 3]
+    cov: torch.Tensor  # [9, 9] on [dtheta, dv, dp]
+    bias_acc_lin: torch.Tensor  # [3] linearization point
+    bias_gyr_lin: torch.Tensor  # [3]
+
+
+def _so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian Jr(w) = Jl(-w)."""
+    return se3.so3_left_jacobian(-w)
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (M @ v[..., None])[..., 0]
+
+
+def prefix_products(mats: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products P[i] = M[0] @ ... @ M[i] of [K, n, n].
+
+    Log-step doubling (Hillis-Steele) in place of
+    ``lax.associative_scan(matmul)`` (preintegration.py:94 of the JAX
+    package): ceil(log2 K) rounds of one batched matmul each.
+    """
+    out = mats
+    d = 1
+    K = mats.shape[0]
+    while d < K:
+        out = torch.cat([out[:d], out[:-d] @ out[d:]], dim=0)
+        d *= 2
+    return out
+
+
+def _compose(L, R):
+    """Monoid product of two preintegrated segments, L earlier than R
+    (batched over a leading axis); operand order as preintegration.py:132-148
+    of the JAX package."""
+    (dR_a, dv_a, dp_a, T_a, dRbg_a, dvba_a, dvbg_a, dpba_a, dpbg_a, A_a, Q_a) = L
+    (dR_b, dv_b, dp_b, T_b, dRbg_b, dvba_b, dvbg_b, dpba_b, dpbg_b, A_b, Q_b) = R
+    Tb = T_b[..., None]
+    dR = dR_a @ dR_b
+    dv = dv_a + _mv(dR_a, dv_b)
+    dp = dp_a + dv_a * Tb + _mv(dR_a, dp_b)
+    hat_dv_b = se3.hat(dv_b)
+    hat_dp_b = se3.hat(dp_b)
+    dRbg = dR_b.transpose(-1, -2) @ dRbg_a + dRbg_b
+    dvba = dvba_a + dR_a @ dvba_b
+    dvbg = dvbg_a + dR_a @ dvbg_b - dR_a @ hat_dv_b @ dRbg_a
+    dpba = dpba_a + dvba_a * Tb[..., None] + dR_a @ dpba_b
+    dpbg = dpbg_a + dvbg_a * Tb[..., None] + dR_a @ dpbg_b - dR_a @ hat_dp_b @ dRbg_a
+    A_ = A_b @ A_a
+    Q_ = A_b @ Q_a @ A_b.transpose(-1, -2) + Q_b
+    return (dR, dv, dp, T_a + T_b, dRbg, dvba, dvbg, dpba, dpbg, A_, Q_)
+
+
+def preintegrate(
+    acc: torch.Tensor,  # [K, 3]
+    gyr: torch.Tensor,  # [K, 3]
+    dts: torch.Tensor,  # [K] per-sample integration interval
+    mask: torch.Tensor,  # [K]
+    bias_acc: torch.Tensor,  # [3]
+    bias_gyr: torch.Tensor,  # [3]
+    params: ImuParams,
+) -> Preintegrated:
+    """Integrate a masked window of IMU samples (log-depth parallel form).
+
+    Preintegration is a monoid: two preintegrated segments A (earlier) and
+    B (later) compose as
+
+        dR = dR_A dR_B,  dv = dv_A + dR_A dv_B,
+        dp = dp_A + dv_A T_B + dR_A dp_B,  T = T_A + T_B,
+
+    with the first-order bias Jacobians and the covariance recursion
+    (e' = A e + n) composing associatively alongside. Masked samples are the
+    monoid identity. ``preintegrate_sequential`` is the oracle."""
+    dtype, dev = acc.dtype, acc.device
+    K = acc.shape[0]
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    sg2 = params.gyr_noise**2
+    sa2 = params.acc_noise**2
+    si2 = params.int_noise**2
+
+    a = acc - bias_acc
+    w = gyr - bias_gyr
+    dt = torch.where(mask, dts, 0.0)
+    wdt = w * dt[:, None]
+    dR_inc = se3.so3_exp(wdt)  # [K, 3, 3]
+    Jr = _so3_right_jacobian(wdt)
+
+    # pass 1: accumulated rotation BEFORE each step (exclusive prefix)
+    prods = prefix_products(dR_inc)
+    pre_R = torch.cat([eye[None], prods[:-1]], dim=0)  # [K, 3, 3]
+
+    # --- per-step (leaf) segments, local frame ---
+    dtc = dt[:, None]
+    dv_l = a * dtc
+    dp_l = 0.5 * a * dtc * dtc
+    dR_dbg_l = -Jr * dtc[..., None]
+    dv_dba_l = -eye[None] * dtc[..., None]
+    dv_dbg_l = torch.zeros((K, 3, 3), dtype=dtype, device=dev)
+    dp_dba_l = -0.5 * eye[None] * (dtc * dtc)[..., None]
+    dp_dbg_l = torch.zeros((K, 3, 3), dtype=dtype, device=dev)
+
+    # covariance leaves use the accumulated pre-step rotation (exactly the
+    # sequential A_i/B_i); masked steps are (A=I, Q=0)
+    Ra_hat = pre_R @ se3.hat(a)  # [K,3,3]
+    A = torch.zeros((K, 9, 9), dtype=dtype, device=dev)
+    A[:, 0:3, 0:3] = dR_inc.transpose(-1, -2)
+    A[:, 3:6, 0:3] = -Ra_hat * dtc[..., None]
+    A[:, 3:6, 3:6] = eye[None]
+    A[:, 6:9, 0:3] = -0.5 * Ra_hat * (dtc * dtc)[..., None]
+    A[:, 6:9, 3:6] = eye[None] * dtc[..., None]
+    A[:, 6:9, 6:9] = eye[None]
+    B = torch.zeros((K, 9, 6), dtype=dtype, device=dev)
+    B[:, 0:3, 0:3] = Jr * dtc[..., None]
+    B[:, 3:6, 3:6] = pre_R * dtc[..., None]
+    B[:, 6:9, 3:6] = 0.5 * pre_R * (dtc * dtc)[..., None]
+    safe_dt = torch.where(dt > 0, dt, 1.0)
+    noise = torch.cat(
+        [(sg2 / safe_dt)[:, None].expand(K, 3), (sa2 / safe_dt)[:, None].expand(K, 3)],
+        dim=-1,
+    ).to(dtype)
+    Q = (B * noise[:, None, :]) @ B.transpose(-1, -2)
+    Q[:, 6:9, 6:9] += eye[None] * (si2 * dt)[:, None, None]
+
+    segs = (
+        dR_inc, dv_l, dp_l, dt,
+        dR_dbg_l, dv_dba_l, dv_dbg_l, dp_dba_l, dp_dbg_l, A, Q,
+    )
+    # Pairwise tree reduction in place of the second lax.associative_scan
+    # (preintegration.py:154-157 of the JAX package uses only its last
+    # element): neighbours are composed in order, an odd tail is carried.
+    n = K
+    while n > 1:
+        even = n - (n % 2)
+        merged = _compose(
+            tuple(x[0:even:2] for x in segs), tuple(x[1:even:2] for x in segs)
+        )
+        if n % 2:
+            merged = tuple(torch.cat([m, x[even:n]], dim=0) for m, x in zip(merged, segs))
+        segs = merged
+        n = segs[0].shape[0]
+    (dR, dv, dp, T, dR_dbg, dv_dba, dv_dbg, dp_dba, dp_dbg, _, cov) = (
+        x[0] for x in segs
+    )
+    return Preintegrated(
+        dR=dR, dv=dv, dp=dp, dt=T,
+        dR_dbg=dR_dbg, dv_dba=dv_dba, dv_dbg=dv_dbg, dp_dba=dp_dba, dp_dbg=dp_dbg,
+        cov=cov, bias_acc_lin=bias_acc, bias_gyr_lin=bias_gyr,
+    )
+
+
+def preintegrate_sequential(
+    acc: torch.Tensor,  # [K, 3]
+    gyr: torch.Tensor,  # [K, 3]
+    dts: torch.Tensor,  # [K] per-sample integration interval
+    mask: torch.Tensor,  # [K]
+    bias_acc: torch.Tensor,  # [3]
+    bias_gyr: torch.Tensor,  # [3]
+    params: ImuParams,
+) -> Preintegrated:
+    """Sequential preintegration — the direct transcription of the Forster
+    recursions; the oracle for the parallel form (tests only: it loops over
+    the samples in Python)."""
+    dtype, dev = acc.dtype, acc.device
+    eye = torch.eye(3, dtype=dtype, device=dev)
+
+    sg2 = params.gyr_noise**2
+    sa2 = params.acc_noise**2
+    si2 = params.int_noise**2
+
+    dR = eye
+    dv = torch.zeros(3, dtype=dtype, device=dev)
+    dp = torch.zeros(3, dtype=dtype, device=dev)
+    T = torch.zeros((), dtype=dtype, device=dev)
+    dR_dbg = dv_dba = dv_dbg = dp_dba = dp_dbg = torch.zeros((3, 3), dtype=dtype, device=dev)
+    cov = torch.zeros((9, 9), dtype=dtype, device=dev)
+
+    for i in range(acc.shape[0]):
+        if not bool(mask[i]):
+            continue
+        a = acc[i] - bias_acc
+        w = gyr[i] - bias_gyr
+        dt = dts[i]
+
+        dR_inc = se3.so3_exp(w * dt)
+        Jr = _so3_right_jacobian(w * dt)
+        a_hat = se3.hat(a)
+        Ra = dR @ a  # acceleration rotated into the start frame
+
+        # covariance propagation BEFORE state update (uses pre-update dR)
+        A = torch.zeros((9, 9), dtype=dtype, device=dev)
+        A[0:3, 0:3] = dR_inc.T
+        A[3:6, 0:3] = -(dR @ a_hat) * dt
+        A[3:6, 3:6] = eye
+        A[6:9, 0:3] = -0.5 * (dR @ a_hat) * dt * dt
+        A[6:9, 3:6] = eye * dt
+        A[6:9, 6:9] = eye
+        B = torch.zeros((9, 6), dtype=dtype, device=dev)
+        B[0:3, 0:3] = Jr * dt
+        B[3:6, 3:6] = dR * dt
+        B[6:9, 3:6] = 0.5 * dR * dt * dt
+        safe_dt = torch.where(dt > 0, dt, 1.0)
+        noise = torch.cat(
+            [(sg2 / safe_dt).expand(3), (sa2 / safe_dt).expand(3)]
+        ).to(dtype)
+        cov_new = A @ cov @ A.T + (B * noise[None, :]) @ B.T
+        # si2 * dt (NOT safe_dt): a valid sample with dt == 0 integrates
+        # nothing and must inject no noise — parity with the parallel form
+        cov_new[6:9, 6:9] += eye * si2 * dt
+
+        # bias Jacobians (Forster eqs. around (70))
+        dp_dba_new = dp_dba + dv_dba * dt - 0.5 * dR * dt * dt
+        dp_dbg_new = dp_dbg + dv_dbg * dt - 0.5 * (dR @ a_hat) @ dR_dbg * dt * dt
+        dv_dba_new = dv_dba - dR * dt
+        dv_dbg_new = dv_dbg - (dR @ a_hat) @ dR_dbg * dt
+        dR_dbg_new = dR_inc.T @ dR_dbg - Jr * dt
+
+        # state update
+        dp = dp + dv * dt + 0.5 * Ra * dt * dt
+        dv = dv + Ra * dt
+        dR = dR @ dR_inc
+        T = T + dt
+        dR_dbg, dv_dba, dv_dbg, dp_dba, dp_dbg, cov = (
+            dR_dbg_new, dv_dba_new, dv_dbg_new, dp_dba_new, dp_dbg_new, cov_new,
+        )
+
+    return Preintegrated(
+        dR=dR, dv=dv, dp=dp, dt=T,
+        dR_dbg=dR_dbg, dv_dba=dv_dba, dv_dbg=dv_dbg, dp_dba=dp_dba, dp_dbg=dp_dbg,
+        cov=cov, bias_acc_lin=bias_acc, bias_gyr_lin=bias_gyr,
+    )
+
+
+class NavState(NamedTuple):
+    R: torch.Tensor  # [3, 3] body -> world
+    p: torch.Tensor  # [3]
+    v: torch.Tensor  # [3]
+
+
+def bias_corrected_deltas(preint: Preintegrated, bias_acc, bias_gyr):
+    """First-order bias-corrected (dR, dv, dp)."""
+    dba = bias_acc - preint.bias_acc_lin
+    dbg = bias_gyr - preint.bias_gyr_lin
+    dR = preint.dR @ se3.so3_exp(preint.dR_dbg @ dbg)
+    dv = preint.dv + preint.dv_dba @ dba + preint.dv_dbg @ dbg
+    dp = preint.dp + preint.dp_dba @ dba + preint.dp_dbg @ dbg
+    return dR, dv, dp
+
+
+def _gravity(params: ImuParams, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor([0.0, 0.0, -params.gravity], dtype=like.dtype, device=like.device)
+
+
+def predict(
+    state: NavState, preint: Preintegrated, bias_acc, bias_gyr, params: ImuParams
+) -> NavState:
+    """Propagate a NavState through the preintegrated window
+    (GTSAM ``PreintegratedImuMeasurements::predict`` semantics)."""
+    g = _gravity(params, state.p)
+    dR, dv, dp = bias_corrected_deltas(preint, bias_acc, bias_gyr)
+    T = preint.dt
+    p = state.p + state.v * T + 0.5 * g * T * T + state.R @ dp
+    v = state.v + g * T + state.R @ dv
+    R = state.R @ dR
+    return NavState(R=R, p=p, v=v)
+
+
+def residual(
+    state_i: NavState,
+    state_j: NavState,
+    bias_acc,
+    bias_gyr,
+    preint: Preintegrated,
+    params: ImuParams,
+) -> torch.Tensor:
+    """15->9 IMU factor residual [r_theta, r_v, r_p] (Forster eq. 45)."""
+    g = _gravity(params, state_i.p)
+    dR, dv, dp = bias_corrected_deltas(preint, bias_acc, bias_gyr)
+    T = preint.dt
+    Ri_T = state_i.R.T
+    r_R = se3.so3_log(dR.T @ (Ri_T @ state_j.R))
+    r_v = Ri_T @ (state_j.v - state_i.v - g * T) - dv
+    r_p = Ri_T @ (state_j.p - state_i.p - state_i.v * T - 0.5 * g * T * T) - dp
+    return torch.cat([r_R, r_v, r_p])

@@ -1,0 +1,167 @@
+"""Batched k-nearest-neighbor search without trees.
+
+Replacement for PCL's ``KdTreeFLANN`` 5-NN queries in the scan-matcher hot
+loop (``liorf/src/mapOptmization.cpp:1087``) and radius searches over
+keyframe positions (``:983-984, 745-746``).
+
+* ``SpatialHashGrid`` — the production path. The map is sorted once per
+  frame by an *exact* packed cell key on a recentered, clipped grid
+  (no hash collisions); each query gathers its 3x3x3 neighbor cells'
+  points (fixed per-cell budget) and reduces a masked top-k. O(N * 27B)
+  instead of O(N * M). The top-k tail is kernel K1
+  (``knn_cuda.topk_candidates``).
+
+* ``knn_bruteforce`` — exact search over all targets, kernel K2
+  (``knn_cuda.knn_bruteforce``), re-exported here under the JAX package's name.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .knn_cuda import knn_bruteforce, topk_candidates  # noqa: F401
+
+# Exact cell packing: 10 bits per axis -> grid of 1024^3 cells around the
+# recenter origin. With cell_size >= 0.5 m that covers a >=256 m half-extent,
+# larger than the 50 m local-map radius + lidar range used by the reference.
+_BITS = 10
+_HALF = 1 << (_BITS - 1)  # 512
+_SENTINEL = 2**31 - 1
+
+
+class SpatialHashGrid(NamedTuple):
+    xyz: torch.Tensor  # [M, 3] map points sorted by cell key
+    keys: torch.Tensor  # [M] int32 packed cell key per sorted point (sentinel for invalid)
+    mask: torch.Tensor  # [M] validity of sorted points
+    origin: torch.Tensor  # [3] recenter origin
+    cell_size: torch.Tensor  # [] float
+
+
+def _pack_cells(cell: torch.Tensor, in_range: torch.Tensor) -> torch.Tensor:
+    """[..., 3] int cell coords (already offset to [0, 1024)) -> int32 key."""
+    key = (cell[..., 0] << (2 * _BITS)) | (cell[..., 1] << _BITS) | cell[..., 2]
+    return torch.where(in_range, key, _SENTINEL)
+
+
+def _cell_coords(xyz: torch.Tensor, origin: torch.Tensor, cell_size):
+    rel = (xyz - origin) / cell_size
+    cell = torch.floor(rel).to(torch.int32) + _HALF
+    in_range = torch.all((cell >= 0) & (cell < (1 << _BITS)), dim=-1)
+    return torch.clamp(cell, 0, (1 << _BITS) - 1), in_range
+
+
+def build_grid(
+    xyz: torch.Tensor, mask: torch.Tensor, origin: torch.Tensor, cell_size: float
+) -> SpatialHashGrid:
+    """Sort map points by exact packed cell key. One sort per frame."""
+    cell, in_range = _cell_coords(xyz, origin, cell_size)
+    keys = _pack_cells(cell, in_range & mask)
+    order = torch.argsort(keys, stable=True)  # jnp.argsort is stable (knn.py:68)
+    return SpatialHashGrid(
+        xyz=xyz[order].contiguous(),
+        keys=keys[order].contiguous(),
+        mask=(mask & in_range)[order],
+        origin=origin,
+        cell_size=torch.as_tensor(cell_size, dtype=xyz.dtype, device=xyz.device),
+    )
+
+
+def exact_bucket(cell_size: float, leaf: float, margin: float = 1.6) -> int:
+    """Per-cell candidate budget that cannot truncate a voxel-downsampled
+    locally-planar surface.
+
+    After voxel downsampling at ``leaf`` there is at most one point per
+    voxel; a plane crossing a grid cell of ``cell_size`` intersects at most
+    ``span^2`` voxels where ``span = ceil(cell/leaf) + 1`` (the +1 covers
+    voxel-grid misalignment with the cell grid). ``margin`` budgets cells
+    holding more than one surface (edges/corners where planes meet).
+    Rounded up to a multiple of 8.
+
+    At the bench operating point (cell 1.0 m, leaf 0.3 m) this yields 40.
+    """
+    span = math.ceil(cell_size / max(leaf, 1e-6)) + 1
+    return max(8, math.ceil(span * span * margin / 8) * 8)
+
+
+# 3x3x3 neighbor offsets, precomputed as key deltas (static python ints).
+_NEIGHBOR_OFFSETS = [
+    (dx << (2 * _BITS)) + (dy << _BITS) + dz
+    for dx in (-1, 0, 1)
+    for dy in (-1, 0, 1)
+    for dz in (-1, 0, 1)
+]
+
+
+def _neighbor_runs(grid: SpatialHashGrid, queries, query_mask):
+    """Start / end of the sorted run of each query's 27 neighbor cells."""
+    cell, in_range = _cell_coords(queries, grid.origin, grid.cell_size)
+    base_key = _pack_cells(cell, in_range & query_mask)  # [N]
+    # int32 arithmetic wraps for masked queries (sentinel + offset), as in
+    # the JAX original; their candidates are masked out below.
+    offsets = torch.tensor(_NEIGHBOR_OFFSETS, dtype=torch.int32, device=queries.device)
+    nbr_keys = base_key[:, None] + offsets  # [N, 27]
+    starts = torch.searchsorted(grid.keys, nbr_keys, right=False, out_int32=True)
+    ends = torch.searchsorted(grid.keys, nbr_keys, right=True, out_int32=True)
+    return starts, ends
+
+
+def cell_overflow_count(
+    grid: SpatialHashGrid,
+    queries: torch.Tensor,
+    query_mask: torch.Tensor,
+    bucket: int,
+) -> torch.Tensor:
+    """Number of (query, neighbor-cell) runs longer than ``bucket`` — i.e.
+    how many candidate gathers :func:`knn_grid` would truncate. 0 means the
+    search was provably exact for every query this frame."""
+    starts, ends = _neighbor_runs(grid, queries, query_mask)
+    return torch.sum(((ends - starts) > bucket) & query_mask[:, None])
+
+
+def knn_grid(
+    grid: SpatialHashGrid,
+    queries: torch.Tensor,
+    query_mask: torch.Tensor,
+    k: int = 5,
+    bucket: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k-NN of queries [N, 3] against the grid.
+
+    Returns (dists2 [N, k], idx [N, k] int32) — indices into the grid's
+    *sorted* point array; missing neighbors have dist2 = +inf and idx = 0.
+
+    Each query inspects its 27 neighbor cells; per cell up to `bucket`
+    sorted points are gathered. Cells holding more than `bucket` points are
+    truncated — size the budget with :func:`exact_bucket` and check with
+    :func:`cell_overflow_count`.
+    """
+    n = queries.shape[0]
+    starts, ends = _neighbor_runs(grid, queries, query_mask)
+    counts = torch.clamp(ends - starts, max=bucket)
+
+    # Candidate indices: [N, 27, bucket]
+    offs = torch.arange(bucket, dtype=torch.int32, device=queries.device)
+    cand = starts[..., None] + offs
+    cand_valid = offs < counts[..., None]
+    cand = torch.where(cand_valid, cand, 0).reshape(n, 27 * bucket)
+    cand_valid = cand_valid.reshape(n, 27 * bucket)
+
+    cand_xyz = grid.xyz[cand]  # [N, C, 3]
+    # invalid candidates pushed to "infinity" via their coordinates, exactly
+    # what the TPU path hands its kernel (knn.py:171-173 of the JAX package);
+    # kernel K1 on CUDA tensors, its plain version on CPU tensors.
+    sel = (cand_valid & query_mask[:, None])[..., None]
+    cand_xyz = torch.where(sel, cand_xyz, 1e30)
+    return topk_candidates(queries.contiguous(), cand_xyz, cand, k=k)
+
+
+def radius_mask(
+    points: torch.Tensor, mask: torch.Tensor, center: torch.Tensor, radius: float
+) -> torch.Tensor:
+    """Boolean mask of points within radius of center (replaces kd-tree
+    radiusSearch over keyframe positions, mapOptmization.cpp:983-984)."""
+    d2 = torch.sum((points - center) ** 2, dim=-1)
+    return mask & (d2 <= radius * radius)

@@ -1,0 +1,153 @@
+"""The port stands alone: it imports torch and numpy, never JAX and nothing
+of the JAX package, imports without CUDA, and refuses to run on the CPU
+unless asked to."""
+
+import ast
+import importlib
+import pathlib
+import pkgutil
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "liorf_tpu_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "liorf_tpu", "flax", "optax")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [(name, line) for name, line in _imported_roots(path) if name in FORBIDDEN]
+    assert not bad, f"{path}: forbidden imports {bad}"
+    # dynamic imports would dodge the AST walk
+    text = path.read_text()
+    assert "import_module(\"jax" not in text and "__import__(\"jax" not in text
+
+
+def test_every_module_imports_without_cuda():
+    import liorf_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(liorf_tpu_torch.__path__, "liorf_tpu_torch.")]
+    assert len(names) > 25
+    for name in names:
+        importlib.import_module(name)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_pipeline_exports():
+    from liorf_tpu_torch import pipeline
+
+    assert {"SlamConfig", "load_config", "LiorfPipeline"} <= set(dir(pipeline))
+    assert not hasattr(pipeline, "make_pipeline")
+
+
+def test_default_device_is_cuda_and_raises_without_one():
+    from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig
+
+    cfg = SlamConfig(scan_capacity=256, map_capacity=1024, kf_cloud_capacity=256)
+    if torch.cuda.is_available():
+        assert LiorfPipeline(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LiorfPipeline(cfg)
+    assert LiorfPipeline(cfg, device="cpu").device.type == "cpu"
+
+
+def _state_constructors():
+    import numpy as np
+
+    from liorf_tpu_torch import convert
+    from liorf_tpu_torch.core.pointcloud import make_cloud
+    from liorf_tpu_torch.graph.pose_graph import empty_graph
+    from liorf_tpu_torch.mapping.keyframes import KeyframeStore
+
+    z3 = np.zeros((4, 3), np.float32)
+    grid = dict(xyz=z3, keys=np.zeros(4, np.int32), mask=np.ones(4, bool),
+                origin=np.zeros(3, np.float32), cell_size=np.float32(1.0))
+    return {
+        "KeyframeStore": lambda **kw: KeyframeStore(cloud_capacity=8, initial_kf_capacity=2, **kw).device,
+        "empty_graph": lambda **kw: empty_graph(2, 2, 1, **kw).Rs.device,
+        "make_cloud": lambda **kw: make_cloud(z3, **kw).xyz.device,
+        "convert.grid_from_arrays": lambda **kw: convert.grid_from_arrays(grid, **kw).xyz.device,
+        "convert.keyframe_store_from_arrays": lambda **kw: convert.keyframe_store_from_arrays(
+            dict(poses=np.zeros((2, 6)), times=np.zeros(2), clouds=np.zeros((2, 8, 3)),
+                 cloud_masks=np.zeros((2, 8), bool), sc_descs=np.zeros((2, 20, 60)),
+                 sc_keys=np.zeros((2, 20))), 0, **kw).device,
+    }
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["KeyframeStore", "empty_graph", "make_cloud", "convert.grid_from_arrays",
+     "convert.keyframe_store_from_arrays"],
+)
+def test_state_constructors_default_to_cuda(name):
+    """Every constructor of device state follows the pipeline's rule: no
+    device named means the GPU, and raises here where there is none, so that
+    nothing (loop verification on a hand-built store, say) runs on the CPU
+    unasked."""
+    make = _state_constructors()[name]
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert make(device="cpu").type == "cpu"
+
+
+def test_make_cloud_keeps_a_tensors_device():
+    from liorf_tpu_torch.core.pointcloud import make_cloud
+
+    assert make_cloud(torch.zeros((4, 3))).xyz.device.type == "cpu"
+
+
+def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
+    """The wrappers dispatch on the tensor's device only: a CUDA tensor goes
+    to the kernel (or raises), never to the plain version. Checked here
+    without a card by faking the device type of the argument."""
+    from liorf_tpu_torch.ops import knn_cuda
+
+    class FakeDev:
+        type = "cuda"
+
+    class FakeCudaTensor:
+        device = FakeDev()
+        shape = (4, 3)
+
+    called = []
+    monkeypatch.setattr(knn_cuda, "knn_bruteforce_plain", lambda *a, **k: called.append(1))
+    monkeypatch.setattr(knn_cuda, "topk_candidates_plain", lambda *a, **k: called.append(1))
+    idx = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(Exception):
+        knn_cuda.topk_candidates(FakeCudaTensor(), torch.zeros((4, 8, 3)), idx, k=2)
+    with pytest.raises(Exception):
+        knn_cuda.knn_bruteforce(
+            torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool), FakeCudaTensor(),
+            torch.ones(4, dtype=torch.bool), k=1,
+        )
+    assert not called
+
+
+def test_config_yaml_shared_with_jax_package():
+    from liorf_tpu.pipeline.config import load_config as jload
+    from liorf_tpu_torch.pipeline.config import load_config as tload
+
+    paths = sorted((ROOT / "configs").glob("*.yaml"))
+    assert paths
+    for p in paths:
+        a, b = jload(str(p)), tload(str(p))
+        da, db = vars(a), vars(b)
+        da.pop("savePCDDirectory"), db.pop("savePCDDirectory")
+        assert da == db
