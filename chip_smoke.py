@@ -4,10 +4,12 @@
     python3 chip_smoke.py            # every phase, one card, < 20 minutes
 
 Builds the CUDA k-NN kernels from ``liorf_tpu_torch/csrc`` with nvcc, holds
-each against its plain PyTorch version on the card at the shapes the
-pipeline gives it, then drives the streaming SLAM pipeline
+each against its plain PyTorch version on the card (bit for bit) at the
+shapes the pipeline gives it, then drives the streaming SLAM pipeline
 (``LiorfPipeline``: push_imu / process_scan / trajectory_arrays) at the
 repo's bench size and on the loop-closure course, and checks the outputs.
+K1 (``knn_grid_topk``) is timed at the main path's shapes on the main path's
+own final grid, right after that path.
 
 Each phase prints one JSON line. Any failed check raises, so the exit code is
 non-zero and the closing ``{"ok": true, ...}`` line is never printed. There is
@@ -55,6 +57,7 @@ KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
+# (on top of it the script requires torch.equal of distances and indices)
 
 # The repo's bench size (bench.py): 32 rings x 900 points = 28.8k points/scan.
 BENCH_CAPS = dict(
@@ -78,8 +81,12 @@ def check(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median time of fn() in ms, by CUDA events, after warm-up."""
+def cuda_ms(fn, reps: int = 20, warm: int = 3, batch: int = 1) -> float:
+    """Median time of fn() in ms, by CUDA events, after warm-up. With
+    batch > 1 each sample is `batch` calls back to back, divided by `batch`:
+    the device time of a kernel once the host keeps ahead of it. With
+    batch = 1 a sample is one call from an idle device, the host's time to
+    reach the launch included (how the port's first kernels were timed)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -88,11 +95,47 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
+_L2_FLUSH = None  # 256 MB: writing it evicts the 50 MB L2 (~0.08 ms)
+
+
+def cold_l2_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median device time of one fn() after the L2 cache was overwritten: a
+    256 MB write runs just before each timed call, and the first event is
+    recorded behind it, so the host's time to reach the launch hides under
+    the write and the kernel finds its inputs in HBM."""
+    global _L2_FLUSH
+    if _L2_FLUSH is None:
+        _L2_FLUSH = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        _L2_FLUSH.fill_(1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn) -> dict:
+    """A kernel's time three ways: back to back (`ms`, the kernel's own, its
+    inputs warm in L2), one call after the L2 was overwritten
+    (`ms_cold_l2`), and one call from an idle device (`ms_single_call`, the
+    first slice's method, the wrapper's host time included)."""
+    return dict(ms=cuda_ms(fn, reps=10, batch=20), ms_cold_l2=cold_l2_ms(fn),
+                ms_single_call=cuda_ms(fn))
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +186,8 @@ def compare_knn(d_k, i_k, d_p, i_p) -> dict:
     # a differing index is allowed only on an exact tie of the distances
     bad = differ & (d_k != d_p)
     check(int(bad.sum()) == 0, f"{int(bad.sum())} indices differ off ties")
+    # both kernels repeat their plain version's arithmetic: nothing may differ
+    check(torch.equal(d_k, d_p) and torch.equal(i_k, i_p), "kernel and plain version differ")
     return dict(
         max_abs_err=max_abs,
         index_agreement=float(1.0 - differ.sum().item() / max(int(fin_k.sum()), 1)),
@@ -151,50 +196,71 @@ def compare_knn(d_k, i_k, d_p, i_p) -> dict:
     )
 
 
-def k1_inputs(n: int, c: int, gen: torch.Generator):
-    q = (torch.rand((n, 3), generator=gen, device=DEV) - 0.5) * 100.0
-    cand = q[:, None, :] + torch.randn((n, c, 3), generator=gen, device=DEV)
-    # duplicate-distance ties: candidates 1 and 2 repeat candidate 0, and the
-    # second half of every 8th row mirrors its first half
-    cand[:, 1] = cand[:, 0]
-    cand[:, 2] = cand[:, 0]
-    cand[::8, c // 2 :] = cand[::8, : c - c // 2]
-    invalid = torch.rand((n, c), generator=gen, device=DEV) < 0.10
-    invalid[5] = True  # one row with no valid candidate
-    invalid[6, 3:] = True  # one row with fewer than k
-    cand = torch.where(invalid[..., None], torch.full_like(cand, 1e30), cand).contiguous()
-    idx = torch.randint(0, 131072, (n, c), generator=gen, device=DEV, dtype=torch.int32)
-    return q.contiguous(), cand, idx
+def synthetic_grid(m: int, gen: torch.Generator):
+    """A planar map of m points with one over-full cell, duplicate points,
+    masked and out-of-range points (the sentinel run)."""
+    xyz = (torch.rand((m, 3), generator=gen, device=DEV) - 0.5) * 40.0
+    xyz[: m // 2, 2] = 0.0
+    xyz[m // 2 :, 0] = 4.0
+    xyz[:100] = torch.rand((100, 3), generator=gen, device=DEV) + 2.0  # one dense cell
+    xyz[200:300] = xyz[300:400]  # duplicates: exact ties
+    xyz[400:420, 1] = 900.0  # out of the 1024-cell range
+    mask = torch.rand((m,), generator=gen, device=DEV) > 0.05
+    return knn.build_grid(xyz, mask, torch.tensor([0.25, -0.5, 0.125], device=DEV), 1.0)
 
 
-def bench_k1(n: int, c: int, k: int, gen) -> dict:
-    q, cand, idx = k1_inputs(n, c, gen)
-    d_k, i_k = knn_cuda.topk_candidates(q, cand, idx, k)
+def grid_queries(grid, n: int, gen: torch.Generator, ragged: bool):
+    """Scan-shaped queries: valid map points, jittered, as a scan near the
+    map gives them; the ragged set adds out-of-range and masked queries."""
+    pick = torch.nonzero(grid.mask)[:, 0]
+    pick = pick[torch.randint(0, len(pick), (n,), generator=gen, device=DEV)]
+    q = grid.xyz[pick] + 0.05 * torch.randn((n, 3), generator=gen, device=DEV)
+    mask = torch.ones(n, dtype=torch.bool, device=DEV)
+    if ragged:
+        q[:3] = torch.tensor([[700.0, 0.0, 0.0], [0.0, -800.0, 0.0], [0.0, 0.0, 1e9]], device=DEV)
+        mask[3::10] = False
+    return q.contiguous(), mask
+
+
+def bench_k1(grid, q, mask, k: int, bucket: int, timed: bool = True) -> dict:
+    n, m = q.shape[0], grid.xyz.shape[0]
+    d_k, i_k = knn_cuda.knn_grid_topk(grid, q, mask, k, bucket)
     torch.cuda.synchronize()
-    d_p, i_p = knn_cuda.topk_candidates_plain(q, cand, idx, k)
+    d_p, i_p = knn_cuda.knn_grid_topk_plain(grid, q, mask, k, bucket)
     res = compare_knn(d_k, i_k, d_p, i_p)
-    check(bool(torch.isinf(d_k[5]).all()), "all-invalid row must be all missing")
-    check(int(torch.isfinite(d_k[6]).sum()) <= 3, "short row must have missing tail")
+    check(bool(torch.isinf(d_k[~mask]).all()), "masked queries must be missing")
+    starts, ends = knn_cuda._neighbor_runs(grid, q, mask)
+    lens = torch.clamp(ends - starts, max=bucket) * mask[:, None]
+    sum_runs = int(lens.sum())
+    res.update(shape=[n, m], k=k, bucket=bucket, sum_runs=sum_runs,
+               truncated_runs=int(((ends - starts) > bucket)[mask].sum()))
+    if not timed:
+        return res
+
+    offs = torch.arange(bucket, dtype=torch.int32, device=DEV)
 
     def library():
-        d = (cand - q[:, None, :]).square_().sum(-1)
-        return torch.topk(d, k, dim=1, largest=False)
+        s, e = knn_cuda._neighbor_runs(grid, q, mask)
+        valid = offs < torch.clamp(e - s, max=bucket)[..., None]
+        valid = (valid & mask[:, None, None]).reshape(n, -1)
+        cand = torch.where(valid, (s[..., None] + offs).reshape(n, -1), 0)
+        d = (grid.xyz[cand] - q[:, None, :]).square().sum(-1)
+        return torch.topk(torch.where(valid, d, torch.inf), k, dim=1, largest=False)
 
-    # What the function must move: the queries, every candidate's coordinates
-    # once, the k winners' indices (the other N*(C-k) indices decide nothing),
-    # and the two outputs.
-    bytes_moved = n * 12 + n * c * 12 + n * k * 4 + n * k * 8
-    flops = n * c * 8
+    # What the function must move: queries and their mask, the sorted grid's
+    # coordinates and keys once, origin and cell size, the outputs; what it
+    # computes: 8 flop for each point of the (truncated) runs this input has.
+    bytes_moved = n * 12 + n + m * 16 + 16 + n * k * 8
+    flops = 8 * sum_runs
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     res.update(
-        shape=[n, c], k=k,
-        ms=cuda_ms(lambda: knn_cuda.topk_candidates(q, cand, idx, k)),
-        plain_ms=cuda_ms(lambda: knn_cuda.topk_candidates_plain(q, cand, idx, k)),
-        library_ms=cuda_ms(library),
-        library_call="(cand - q).square().sum(-1) then torch.topk(largest=False)",
+        **kernel_ms(lambda: knn_cuda.knn_grid_topk(grid, q, mask, k, bucket)),
+        plain_ms=cuda_ms(lambda: knn_cuda.knn_grid_topk_plain(grid, q, mask, k, bucket), reps=5, batch=4),
+        library_ms=cuda_ms(library, reps=5, batch=4),
+        library_call="searchsorted runs, gather, (cand - q).square().sum(-1), torch.topk(largest=False)",
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=bytes_moved, flops=flops,
+        bytes=bytes_moved, flops=flops, l2_candidate_bytes=12 * sum_runs,
     )
     return res
 
@@ -224,9 +290,9 @@ def bench_k2(n: int, m: int, k: int, gen) -> dict:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     res.update(
         shape=[n, m], k=k,
-        ms=cuda_ms(lambda: knn_cuda.knn_bruteforce(tgt, tmask, qry, qmask, k)),
-        plain_ms=cuda_ms(lambda: knn_cuda.knn_bruteforce_plain(tgt, tmask, qry, qmask, k)),
-        library_ms=cuda_ms(library),
+        **kernel_ms(lambda: knn_cuda.knn_bruteforce(tgt, tmask, qry, qmask, k)),
+        plain_ms=cuda_ms(lambda: knn_cuda.knn_bruteforce_plain(tgt, tmask, qry, qmask, k), reps=5, batch=4),
+        library_ms=cuda_ms(library, reps=5, batch=4),
         library_call="torch.cdist then torch.topk(largest=False)",
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -235,19 +301,38 @@ def bench_k2(n: int, m: int, k: int, gen) -> dict:
     return res
 
 
-def phase_kernels() -> dict:
+def phase_kernels(main_size_k1: bool) -> dict:
+    """Both kernels against their plain versions. K1 at the main path's size
+    is measured on the main path's own grid after that path
+    (phase_k1_main_grid); here it runs on ragged synthetic grids, and at full
+    width on a synthetic stand-in only when the main path is not run."""
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     bucket = knn.exact_bucket(1.0, 0.3)
+    ragged = synthetic_grid(3001, gen)
     out = {
-        "topk_candidates": bench_k1(16384, 27 * bucket, 5, gen),
         "knn_bruteforce": bench_k2(16384, 16384, 1, gen),
         "knn_bruteforce_k5": bench_k2(16384, 16384, 5, gen),
         # ragged sizes: no multiple of any tile
-        "topk_candidates_ragged": bench_k1(1001, 27 * 8 + 5, 3, gen),
         "knn_bruteforce_ragged": bench_k2(1001, 3333, 8, gen),
+        "knn_grid_topk_ragged_k3": bench_k1(ragged, *grid_queries(ragged, 1001, gen, True), 3, 8, False),
+        "knn_grid_topk_ragged_k8": bench_k1(ragged, *grid_queries(ragged, 1001, gen, True), 8, 8, False),
     }
+    check(out["knn_grid_topk_ragged_k3"]["truncated_runs"] > 0, "ragged grid must overflow a cell")
+    if main_size_k1:
+        big = synthetic_grid(BENCH_CAPS["map_capacity"], gen)
+        out["knn_grid_topk"] = bench_k1(big, *grid_queries(big, BENCH_CAPS["scan_capacity"], gen, False), 5, bucket)
     emit("kernels", tolerance=dict(rtol=D2_RTOL, atol=D2_ATOL), **out)
     return out
+
+
+def phase_k1_main_grid(pipe: LiorfPipeline) -> dict:
+    """K1 at the main path's shapes on the main path's final grid, queried
+    by a jittered scan-shaped set (as phase_split does)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    q, mask = grid_queries(pipe.grid, pipe.cfg.scan_capacity, gen, False)
+    res = bench_k1(pipe.grid, q, mask, 5, pipe.frame_params.match.knn_bucket)
+    emit("kernels_main_grid", knn_grid_topk=res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +385,7 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
         "main_path", frames=n_frames, points_per_scan=32 * 900, ate_rmse_m=ate,
         keyframes=pipe.store.count, graph_edges=len(pipe.edges),
         gn_iters_total=int(sum(gn_iters)), gn_iters_per_frame_mean=float(np.mean(gn_iters[1:])),
-        k1_launches=counts["topk_candidates"], k2_launches=counts["knn_bruteforce"],
+        k1_launches=counts["knn_grid_topk"], k2_launches=counts["knn_bruteforce"],
         ms_per_frame_p50=percentile(steady, 50), ms_per_frame_p99=percentile(steady, 99),
         ms_per_frame_mean=float(np.mean(steady)),
         degenerate_frames=int(sum(r.degenerate for r in results)),
@@ -308,10 +393,10 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
     )
     check(ate < 0.3, f"ATE {ate} m >= 0.3 m")
     check(pipe.store.count >= 2, "fewer than 2 keyframes")
-    check(counts["topk_candidates"] > 0, "K1 never launched on the main path")
+    check(counts["knn_grid_topk"] > 0, "K1 never launched on the main path")
     check(
-        counts["topk_candidates"] == sum(gn_iters),
-        f"K1 launches {counts['topk_candidates']} != GN iterations {sum(gn_iters)}",
+        counts["knn_grid_topk"] == sum(gn_iters),
+        f"K1 launches {counts['knn_grid_topk']} != GN iterations {sum(gn_iters)}",
     )
     return pipe, counts
 
@@ -353,7 +438,7 @@ def phase_split(pipe: LiorfPipeline) -> None:
     stages = {
         "gn_iteration (_build_system: knn_grid + fit_planes + H,g)": lambda: scan_match._build_system(
             pose, world, mask, norm_q, grid, fp.match),
-        "knn_grid (27-run gather + K1)": lambda: knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket),
+        "knn_grid (one K1 launch)": lambda: knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket),
         "eigh [16384,3,3]": lambda: torch.linalg.eigh(S),
         "fit_planes": lambda: plane_fit.fit_planes(grid.xyz[pick.reshape(-1, 1).expand(-1, 5)], mask[:, None].expand(-1, 5)),
         "voxel_downsample scan (raw -> scan_capacity)": lambda: voxel_downsample_xyz(raw, raw_mask, fp.leaf, fp.scan_cap),
@@ -365,7 +450,22 @@ def phase_split(pipe: LiorfPipeline) -> None:
         "local-map rebuild (assemble_local_map + grid)": lambda: pipe._rebuild_grid(kf_pose, stamp),
     }
     out = {name: cuda_ms(fn, reps=10, warm=2) for name, fn in stages.items()}
-    emit("split", keyframes=pipe.store.count, ms=out)
+    # what one knn_grid call puts on the device, by kernel name
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket)
+        torch.cuda.synchronize()
+    launched = [
+        dict(name=e.key[:80], calls=e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    emit("split", keyframes=pipe.store.count, ms=out, knn_grid_device_kernels=launched)
+    check(
+        len(launched) == 1 and launched[0]["calls"] == 1 and "knn_grid_kernel" in launched[0]["name"],
+        f"one knn_grid call must be one K1 launch, got {launched}",
+    )
 
 
 def phase_profile(warm: int = 12, traced: int = 8) -> None:
@@ -454,14 +554,14 @@ def phase_loop_path(n_frames: int = LOOP_FRAMES):
         "loop_path", frames=n_frames, keyframes=pipe.store.count,
         loop_factors_in_graph=len(loop_edges), loop_factors_pending=pending,
         loop_pairs=sorted(pipe.loop_detector.loop_index_container.items()),
-        k1_launches=counts["topk_candidates"], k2_launches=counts["knn_bruteforce"],
+        k1_launches=counts["knn_grid_topk"], k2_launches=counts["knn_bruteforce"],
         ate_rmse_m=ate, ms_per_frame_p50=percentile(frame_ms[1:], 50),
         ms_per_frame_p99=percentile(frame_ms[1:], 99),
     )
     check(bool(np.isfinite(poses).all()), "loop trajectory not finite")
     check(len(loop_edges) + pending >= 1, "no loop factor landed")
     check(counts["knn_bruteforce"] > 0, "K2 never launched on the loop path")
-    check(counts["topk_candidates"] == sum(r.gn_iters for r in results), "K1 count != GN iterations")
+    check(counts["knn_grid_topk"] == sum(r.gn_iters for r in results), "K1 count != GN iterations")
     return counts
 
 
@@ -477,10 +577,12 @@ def main() -> None:
 
     t_start = time.perf_counter()
     smi = phase_device(args.ptxas)
-    kern = phase_kernels() if "kernels" in phases else None
+    kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = None
     if "main_path" in phases:
         pipe, main_counts = phase_main_path()
+        if kern is not None:
+            kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
         if "split" in phases:
             phase_split(pipe)
         del pipe
@@ -495,22 +597,26 @@ def main() -> None:
         print("partial run: no result line", file=sys.stderr)
         sys.exit(4)
 
-    def row(name, key, replaces, launches):
-        r = kern[key]
+    def row(name, replaces, launches, **extra):
+        r = kern[name]
         return {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "ms_cold_l2": r["ms_cold_l2"],
+            "ms_single_call": r["ms_single_call"],
+            **extra,
         }
 
     # launches: K1 from the main path's run, K2 from the loop path's run (the
     # only path that reaches it); each counted from 0 just before its path.
+    k1 = kern["knn_grid_topk"]
     kernels = [
-        row("topk_candidates", "topk_candidates", "liorf_tpu/ops/knn_pallas.py:132",
-            main_counts["topk_candidates"]),
-        row("knn_bruteforce", "knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187",
-            loop_counts["knn_bruteforce"]),
+        row("knn_grid_topk",
+            "liorf_tpu/ops/knn_pallas.py:132 + the gather at liorf_tpu/ops/knn.py:151-173",
+            main_counts["knn_grid_topk"], sum_runs=k1["sum_runs"],
+            l2_candidate_bytes=k1["l2_candidate_bytes"]),
+        row("knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187", loop_counts["knn_bruteforce"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")

@@ -8,8 +8,8 @@ keyframe positions (``:983-984, 745-746``).
   frame by an *exact* packed cell key on a recentered, clipped grid
   (no hash collisions); each query gathers its 3x3x3 neighbor cells'
   points (fixed per-cell budget) and reduces a masked top-k. O(N * 27B)
-  instead of O(N * M). The top-k tail is kernel K1
-  (``knn_cuda.topk_candidates``).
+  instead of O(N * M). On the card the whole query, cell runs included, is
+  one launch of kernel K1 (``knn_cuda.knn_grid_topk``).
 
 * ``knn_bruteforce`` — exact search over all targets, kernel K2
   (``knn_cuda.knn_bruteforce``), re-exported here under the JAX package's name.
@@ -22,14 +22,9 @@ from typing import NamedTuple
 
 import torch
 
+# the exact cell packing lives beside kernel K1, which recomputes it
+from .knn_cuda import _cell_coords, _neighbor_runs, _pack_cells, knn_grid_topk
 from .knn_cuda import knn_bruteforce, topk_candidates  # noqa: F401
-
-# Exact cell packing: 10 bits per axis -> grid of 1024^3 cells around the
-# recenter origin. With cell_size >= 0.5 m that covers a >=256 m half-extent,
-# larger than the 50 m local-map radius + lidar range used by the reference.
-_BITS = 10
-_HALF = 1 << (_BITS - 1)  # 512
-_SENTINEL = 2**31 - 1
 
 
 class SpatialHashGrid(NamedTuple):
@@ -38,19 +33,6 @@ class SpatialHashGrid(NamedTuple):
     mask: torch.Tensor  # [M] validity of sorted points
     origin: torch.Tensor  # [3] recenter origin
     cell_size: torch.Tensor  # [] float
-
-
-def _pack_cells(cell: torch.Tensor, in_range: torch.Tensor) -> torch.Tensor:
-    """[..., 3] int cell coords (already offset to [0, 1024)) -> int32 key."""
-    key = (cell[..., 0] << (2 * _BITS)) | (cell[..., 1] << _BITS) | cell[..., 2]
-    return torch.where(in_range, key, _SENTINEL)
-
-
-def _cell_coords(xyz: torch.Tensor, origin: torch.Tensor, cell_size):
-    rel = (xyz - origin) / cell_size
-    cell = torch.floor(rel).to(torch.int32) + _HALF
-    in_range = torch.all((cell >= 0) & (cell < (1 << _BITS)), dim=-1)
-    return torch.clamp(cell, 0, (1 << _BITS) - 1), in_range
 
 
 def build_grid(
@@ -86,28 +68,6 @@ def exact_bucket(cell_size: float, leaf: float, margin: float = 1.6) -> int:
     return max(8, math.ceil(span * span * margin / 8) * 8)
 
 
-# 3x3x3 neighbor offsets, precomputed as key deltas (static python ints).
-_NEIGHBOR_OFFSETS = [
-    (dx << (2 * _BITS)) + (dy << _BITS) + dz
-    for dx in (-1, 0, 1)
-    for dy in (-1, 0, 1)
-    for dz in (-1, 0, 1)
-]
-
-
-def _neighbor_runs(grid: SpatialHashGrid, queries, query_mask):
-    """Start / end of the sorted run of each query's 27 neighbor cells."""
-    cell, in_range = _cell_coords(queries, grid.origin, grid.cell_size)
-    base_key = _pack_cells(cell, in_range & query_mask)  # [N]
-    # int32 arithmetic wraps for masked queries (sentinel + offset), as in
-    # the JAX original; their candidates are masked out below.
-    offsets = torch.tensor(_NEIGHBOR_OFFSETS, dtype=torch.int32, device=queries.device)
-    nbr_keys = base_key[:, None] + offsets  # [N, 27]
-    starts = torch.searchsorted(grid.keys, nbr_keys, right=False, out_int32=True)
-    ends = torch.searchsorted(grid.keys, nbr_keys, right=True, out_int32=True)
-    return starts, ends
-
-
 def cell_overflow_count(
     grid: SpatialHashGrid,
     queries: torch.Tensor,
@@ -138,24 +98,8 @@ def knn_grid(
     truncated — size the budget with :func:`exact_bucket` and check with
     :func:`cell_overflow_count`.
     """
-    n = queries.shape[0]
-    starts, ends = _neighbor_runs(grid, queries, query_mask)
-    counts = torch.clamp(ends - starts, max=bucket)
-
-    # Candidate indices: [N, 27, bucket]
-    offs = torch.arange(bucket, dtype=torch.int32, device=queries.device)
-    cand = starts[..., None] + offs
-    cand_valid = offs < counts[..., None]
-    cand = torch.where(cand_valid, cand, 0).reshape(n, 27 * bucket)
-    cand_valid = cand_valid.reshape(n, 27 * bucket)
-
-    cand_xyz = grid.xyz[cand]  # [N, C, 3]
-    # invalid candidates pushed to "infinity" via their coordinates, exactly
-    # what the TPU path hands its kernel (knn.py:171-173 of the JAX package);
-    # kernel K1 on CUDA tensors, its plain version on CPU tensors.
-    sel = (cand_valid & query_mask[:, None])[..., None]
-    cand_xyz = torch.where(sel, cand_xyz, 1e30)
-    return topk_candidates(queries.contiguous(), cand_xyz, cand, k=k)
+    # one launch of kernel K1 on the card, its plain version on the CPU
+    return knn_grid_topk(grid, queries.contiguous(), query_mask.contiguous(), k=k, bucket=bucket)
 
 
 def radius_mask(

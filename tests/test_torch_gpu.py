@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU (marker ``gpu``): the CUDA kernels against
-their plain versions for every k, and the scan matcher on the card against
-the CPU. They skip where there is no card; run them on a GPU machine with
+their plain versions for every k on ragged shapes, and the scan matcher on
+the card against the CPU. They skip where there is no card; run them on a GPU machine with
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
@@ -24,22 +24,47 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _ragged_grid(dev, gen, m, bucket):
+    """A planar map with one over-full cell, duplicate points, masked and
+    out-of-range points (the sentinel run), built by the port's build_grid."""
+    xyz = (torch.rand((m, 3), generator=gen, device=dev) - 0.5) * 20
+    xyz[: m // 2, 2] = 0.0
+    xyz[m // 2 :, 0] = 4.0
+    xyz[:100] = torch.rand((100, 3), generator=gen, device=dev) + 2.0  # one dense cell
+    xyz[200:300] = xyz[300:400]  # duplicates: exact ties
+    xyz[400:420, 1] = 900.0  # out of range
+    mask = torch.rand((m,), generator=gen, device=dev) > 0.05
+    return tknn.build_grid(xyz, mask, torch.tensor([0.25, -0.5, 0.125], device=dev), 1.0)
+
+
+def _grid_queries(dev, gen, grid, n):
+    pick = torch.randint(0, grid.xyz.shape[0], (n,), generator=gen, device=dev)
+    q = grid.xyz[pick] + 0.05 * torch.randn((n, 3), generator=gen, device=dev)
+    q[:7] = torch.tensor([[700.0, 0, 0], [0, -800.0, 0], [0, 0, 1e9], [2.5, 2.5, 2.5],
+                          [-600.0, 0, 0], [1.0, 1.0, 1.0], [0, 0, 0]], device=dev)
+    mask = torch.rand((n,), generator=gen, device=dev) > 0.1
+    mask[:5] = True
+    return q.contiguous(), mask
+
+
 @pytest.mark.parametrize("k", range(1, 9))
-def test_topk_candidates_kernel_vs_plain(dev, k):
+def test_knn_grid_topk_kernel_vs_plain(dev, k):
+    """The fused K1 against knn_grid_topk_plain on ragged grids: bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(k)
-    n, c = 777, 27 * 8 + k
-    q = torch.randn((n, 3), generator=gen, device=dev) * 10
-    cand = q[:, None, :] + torch.randn((n, c, 3), generator=gen, device=dev)
-    cand[:, 1] = cand[:, 0]  # ties
-    bad = torch.rand((n, c), generator=gen, device=dev) < 0.2
-    bad[3] = True
-    cand = torch.where(bad[..., None], torch.full_like(cand, 1e30), cand).contiguous()
-    idx = torch.randint(0, 9999, (n, c), generator=gen, device=dev, dtype=torch.int32)
-    before = knn_cuda.topk_candidates.launches
-    d_k, i_k = knn_cuda.topk_candidates(q, cand, idx, k)
-    assert knn_cuda.topk_candidates.launches == before + 1
-    d_p, i_p = knn_cuda.topk_candidates_plain(q, cand, idx, k)
-    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    for m, n, bucket in ((3001 + k, 777, 8), (20000, 1001, 40), (1, 33, 4)):
+        grid = _ragged_grid(dev, gen, m, bucket) if m > 500 else tknn.build_grid(
+            torch.zeros((m, 3), device=dev), torch.ones(m, dtype=torch.bool, device=dev),
+            torch.zeros(3, device=dev), 1.0)
+        q, mask = _grid_queries(dev, gen, grid, n)
+        before = knn_cuda.knn_grid_topk.launches
+        d_k, i_k = knn_cuda.knn_grid_topk(grid, q, mask, k, bucket)
+        assert knn_cuda.knn_grid_topk.launches == before + 1
+        d_p, i_p = knn_cuda.knn_grid_topk_plain(grid, q, mask, k, bucket)
+        assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p), (m, n, bucket)
+        # the same through knn.knn_grid, which takes the kernel on the card
+        d_g, i_g = tknn.knn_grid(grid, q, mask, k, bucket)
+        assert knn_cuda.knn_grid_topk.launches == before + 2
+        assert torch.equal(d_g, d_p) and torch.equal(i_g, i_p)
 
 
 @pytest.mark.parametrize("k", range(1, 9))
@@ -58,13 +83,36 @@ def test_knn_bruteforce_kernel_vs_plain(dev, k):
     assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
 
 
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_knn_bruteforce_ragged_and_unaligned(dev, k):
+    """N off every multiple of the queries a thread or block owns, tiny and
+    ragged M, and targets whose data does not start on 16 bytes."""
+    gen = torch.Generator(device=dev).manual_seed(200 + k)
+    for n, m in ((1, 1), (31, 5), (33, 257), (257, 4099), (4097, 700)):
+        base = torch.randn((m + 1, 3), generator=gen, device=dev) * 5
+        tgt = base[1:]  # a view 12 bytes into its storage
+        qry = torch.randn((n, 3), generator=gen, device=dev) * 5
+        tm = torch.rand((m + 1,), generator=gen, device=dev)[1:] > 0.2
+        qm = torch.rand((n,), generator=gen, device=dev) > 0.2
+        d_k, i_k = knn_cuda.knn_bruteforce(tgt, tm, qry, qm, k)
+        d_p, i_p = knn_cuda.knn_bruteforce_plain(tgt, tm, qry, qm, k)
+        assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p), (n, m)
+
+
 def test_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     q = torch.zeros((4, 3), device=dev)
     ok_idx = torch.zeros((4, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(TypeError):
-        knn_cuda.topk_candidates(q, torch.zeros((4, 8, 3), device=dev), ok_idx.long(), 2)
-    with pytest.raises(ValueError):  # candidate tensor on the CPU
-        knn_cuda.topk_candidates(q, torch.zeros((4, 8, 3)), ok_idx, 2)
+    # pre-gathered candidates have no kernel on the card: raise, naming the fused one
+    with pytest.raises(ValueError, match="knn_grid_topk"):
+        knn_cuda.topk_candidates(q, torch.zeros((4, 8, 3), device=dev), ok_idx, 2)
+    mask = torch.ones(4, dtype=torch.bool, device=dev)
+    grid = tknn.build_grid(q, mask, torch.zeros(3, device=dev), 1.0)
+    with pytest.raises(TypeError):  # f64 queries
+        knn_cuda.knn_grid_topk(grid, q.double(), mask, 2)
+    with pytest.raises(ValueError):  # grid on the CPU
+        knn_cuda.knn_grid_topk(grid._replace(keys=grid.keys.cpu()), q, mask, 2)
+    with pytest.raises(ValueError):  # k out of range
+        knn_cuda.knn_grid_topk(grid, q, mask, 9)
     with pytest.raises(ValueError):  # not contiguous
         knn_cuda.knn_bruteforce(
             torch.zeros((3, 8), device=dev).T, torch.ones(8, dtype=torch.bool, device=dev),

@@ -117,7 +117,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """The wrappers dispatch on the tensor's device only: a CUDA tensor goes
     to the kernel (or raises), never to the plain version. Checked here
     without a card by faking the device type of the argument."""
-    from liorf_tpu_torch.ops import knn_cuda
+    from liorf_tpu_torch.ops import knn, knn_cuda
 
     class FakeDev:
         type = "cuda"
@@ -129,9 +129,13 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     called = []
     monkeypatch.setattr(knn_cuda, "knn_bruteforce_plain", lambda *a, **k: called.append(1))
     monkeypatch.setattr(knn_cuda, "topk_candidates_plain", lambda *a, **k: called.append(1))
+    monkeypatch.setattr(knn_cuda, "knn_grid_topk_plain", lambda *a, **k: called.append(1))
     idx = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(Exception):
         knn_cuda.topk_candidates(FakeCudaTensor(), torch.zeros((4, 8, 3)), idx, k=2)
+    grid = knn.build_grid(torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool), torch.zeros(3), 1.0)
+    with pytest.raises(Exception):
+        knn_cuda.knn_grid_topk(grid, FakeCudaTensor(), torch.ones(4, dtype=torch.bool), k=2)
     with pytest.raises(Exception):
         knn_cuda.knn_bruteforce(
             torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool), FakeCudaTensor(),

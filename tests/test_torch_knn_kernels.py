@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the two CUDA k-NN kernels vs the Pallas kernels
-(interpret mode) and their XLA references, on the same numpy inputs.
+(interpret mode), their XLA references and the JAX ``knn_grid``, on the same
+numpy inputs.
 
 On the CPU the port's wrappers dispatch to the plain versions (the tensors
 lie on the CPU); the CUDA kernels themselves are held against these same
-plain versions on the card by ``chip_smoke.py``.
+plain versions on the card by ``chip_smoke.py`` and ``test_torch_gpu.py``.
 """
 
 import jax
@@ -125,6 +126,87 @@ def test_knn_grid_vs_jax(seed):
     assert tknn.exact_bucket(1.0, 0.3) == jknn.exact_bucket(1.0, 0.3) == 40
 
 
+def _sentinel_case():
+    """Queries beyond the 1024-cell range with query_mask true: their key is
+    the sentinel, whose centre run holds the grid's invalid points."""
+    map_xyz, map_mask, q, qmask, bucket = _grid_case(5, n=64, m=2000)
+    map_xyz[:10, 0] = 900.0  # out of range: sentinel keys although mask is true
+    q[:4] = [[700.0, 0.0, 0.0], [-800.0, 1.0, 2.0], [0.0, 0.0, 1e4], [1e9, 5.0, 5.0]]
+    qmask[:4] = True
+    return map_xyz, map_mask, q, qmask, bucket
+
+
+def _dense_cell_case():
+    """One cell holding far more points than the bucket: truncated runs."""
+    map_xyz, map_mask, q, qmask, bucket = _grid_case(6, n=128, m=3000)
+    rng = np.random.default_rng(6)
+    map_xyz[:200] = (rng.uniform(0, 1, (200, 3)) + [2.0, 3.0, 0.0]).astype(np.float32)
+    map_mask[:200] = True
+    q[:40] = (rng.uniform(0, 1, (40, 3)) + [2.0, 3.0, 0.0]).astype(np.float32)
+    return map_xyz, map_mask, q, qmask, bucket
+
+
+def _duplicates_case():
+    """Every map point twice (and a third copy of some): exact ties."""
+    map_xyz, map_mask, q, qmask, bucket = _grid_case(7, n=128, m=1500)
+    map_xyz = np.concatenate([map_xyz, map_xyz, map_xyz[:300]])
+    map_mask = np.concatenate([map_mask, map_mask, map_mask[:300]])
+    return map_xyz, map_mask, q, qmask, 16
+
+
+def _masked_case():
+    map_xyz, map_mask, q, qmask, bucket = _grid_case(8, n=128, m=2000)
+    qmask[::3] = False
+    return map_xyz, map_mask, q, qmask, bucket
+
+
+_GRID_CASES = {
+    "k1": (lambda: _grid_case(2, n=128, m=2000), 1),
+    "k5": (lambda: _grid_case(3, n=128, m=2000), 5),
+    "k8": (lambda: _grid_case(4, n=128, m=2000), 8),
+    "truncated_cell": (_dense_cell_case, 5),
+    "masked_query": (_masked_case, 5),
+    "out_of_range_query": (_sentinel_case, 5),
+    "duplicate_points": (_duplicates_case, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(_GRID_CASES))
+def test_knn_grid_topk_plain_vs_jax(case):
+    """knn_grid_topk_plain through tknn.knn_grid vs the JAX knn_grid on the
+    CPU backend, case by case: indices exact, d2 rtol 1e-5."""
+    make, k = _GRID_CASES[case]
+    map_xyz, map_mask, q, qmask, bucket = make()
+    origin = np.array([0.25, -0.5, 0.125], np.float32)
+    jg = jknn.build_grid(jnp.asarray(map_xyz), jnp.asarray(map_mask), jnp.asarray(origin), 1.0)
+    tg = tknn.build_grid(_t(map_xyz), _t(map_mask), _t(origin), 1.0)
+    np.testing.assert_array_equal(tg.keys.numpy(), np.asarray(jg.keys))
+    d_j, i_j = jknn.knn_grid(jg, jnp.asarray(q), jnp.asarray(qmask), k=k, bucket=bucket)
+    d_t, i_t = tknn.knn_grid(tg, _t(q), _t(qmask), k=k, bucket=bucket)
+    assert d_t.shape == (len(q), k) and i_t.dtype == torch.int32
+    _assert_knn_equal(d_t, i_t, d_j, i_j, rtol=1e-5, atol=0)
+    d_t, i_t = d_t.numpy(), i_t.numpy()
+    assert (np.isinf(d_t[~qmask]).all()) and (i_t[~qmask] == 0).all()
+    keys = tg.keys.numpy()
+    if case == "out_of_range_query":
+        # the reference's behaviour, reproduced: an out-of-range query with
+        # query_mask true finds the grid's invalid points (sentinel run)
+        assert np.isfinite(d_t[:4]).all()
+        assert (keys[i_t[:4]] == 2**31 - 1).all()
+        assert (keys[i_t[4:][np.isfinite(d_t[4:])]] != 2**31 - 1).all()
+    if case == "truncated_cell":
+        ov_j = jknn.cell_overflow_count(jg, jnp.asarray(q), jnp.asarray(qmask), bucket)
+        ov_t = tknn.cell_overflow_count(tg, _t(q), _t(qmask), bucket)
+        assert int(ov_t) == int(ov_j) > 0
+    if case == "duplicate_points":
+        fin = np.isfinite(d_t)
+        tie = np.zeros_like(fin[:, 1:])
+        tie[fin[:, 1:]] = np.diff(d_t, axis=1)[fin[:, 1:]] == 0
+        assert tie.any()  # ties were met
+        # equal distances come out in increasing grid index
+        assert (np.diff(i_t, axis=1)[tie] > 0).all()
+
+
 @pytest.mark.parametrize("k", [1, 5])
 @pytest.mark.parametrize("m", [1000, 5000])
 def test_k2_plain_vs_pallas_and_xla(k, m):
@@ -183,5 +265,9 @@ def test_wrappers_reject_bad_input_and_count_no_cpu_launch():
     knn_cuda.reset_launch_counts()
     knn_cuda.knn_bruteforce(q, torch.ones(4, dtype=torch.bool), q, torch.ones(4, dtype=torch.bool), k=1)
     knn_cuda.topk_candidates(q, torch.zeros((4, 8, 3)), torch.zeros((4, 8), dtype=torch.int32), k=2)
+    grid = tknn.build_grid(q, torch.ones(4, dtype=torch.bool), torch.zeros(3), 1.0)
+    knn_cuda.knn_grid_topk(grid, q, torch.ones(4, dtype=torch.bool), k=2, bucket=4)
+    with pytest.raises(ValueError):
+        knn_cuda.knn_grid_topk(grid, q, torch.ones(4, dtype=torch.bool), k=2, bucket=0)
     # the plain versions are not kernel launches
-    assert knn_cuda.launch_counts() == {"topk_candidates": 0, "knn_bruteforce": 0}
+    assert knn_cuda.launch_counts() == {"knn_grid_topk": 0, "knn_bruteforce": 0}

@@ -40,7 +40,7 @@ def test_scan_to_map_matches_jax(entry_case):
     assert bool(res.degenerate) == bool(ref.degenerate)
     assert bool(res.converged) == bool(ref.converged) is True
     assert abs(int(res.num_matched) - int(ref.num_matched)) <= 0.01 * int(ref.num_matched)
-    assert knn_cuda.launch_counts()["topk_candidates"] == 0  # CPU: plain version
+    assert knn_cuda.launch_counts()["knn_grid_topk"] == 0  # CPU: plain version
 
 
 def test_scan_to_map_grid_built_by_port(entry_case):
