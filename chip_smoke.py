@@ -7,16 +7,18 @@ Builds the CUDA k-NN kernels from ``liorf_tpu_torch/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (bit for bit) at the
 shapes the pipeline gives it, then drives the streaming SLAM pipeline
 (``LiorfPipeline``: push_imu / process_scan / trajectory_arrays) at the
-repo's bench size and on the loop-closure course, and checks the outputs.
-K1 (``knn_grid_topk``) is timed at the main path's shapes on the main path's
-own final grid, right after that path.
+repo's bench size and on the loop-closure course, the device-resident
+pipeline (``make_pipeline``, ``ResidentPipeline``) on the same two courses,
+and the ``cli run`` entry point (run, then ``--resume``), and checks the
+outputs. K1 (``knn_grid_topk``) is timed at the main path's shapes on the
+main path's own final grid, right after that path.
 
 Each phase prints one JSON line. Any failed check raises, so the exit code is
 non-zero and the closing ``{"ok": true, ...}`` line is never printed. There is
 no CPU fallback: without a CUDA device the script exits with code 5.
 
 Options (for shorter runs while developing):
-    --phases device,kernels,main_path,split,loop_path[,profile]
+    --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,cli[,profile]
                       "profile" (not run by default) traces 8 warm frames with
                       torch.profiler: device-busy share and kernel time by name
     --ptxas           print ptxas' register / shared-memory report
@@ -26,10 +28,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from collections import Counter
 
 import numpy as np
 import torch
@@ -40,7 +46,8 @@ if not torch.cuda.is_available():
 
 from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
-from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig  # noqa: E402
+from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig, make_pipeline  # noqa: E402
+from liorf_tpu_torch.pipeline import resident as tres  # noqa: E402
 from liorf_tpu_torch.sensors.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -360,14 +367,41 @@ def percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p))
 
 
-def phase_main_path(n_frames: int = MAIN_FRAMES):
-    cfg = SlamConfig(
+def main_config() -> SlamConfig:
+    return SlamConfig(
         **BENCH_CAPS, mappingSurfLeafSize=0.3, surroundingKeyframeMapLeafSize=0.3,
         loopClosureEnableFlag=True,
     )
-    syn = SyntheticDataset(
+
+
+def main_dataset(n_frames: int) -> SyntheticDataset:
+    # a fresh dataset of one seed draws the same streams when read in the
+    # same order (run_pipeline's), so every path of one course sees one input
+    return SyntheticDataset(
         SyntheticConfig(n_frames=n_frames, n_rings=32, points_per_ring=900, seed=SEED)
     )
+
+
+def loop_config() -> SlamConfig:
+    return SlamConfig(
+        **BENCH_CAPS, mappingSurfLeafSize=0.4, surroundingKeyframeMapLeafSize=0.4,
+        loopClosureEnableFlag=True, loopClosureFrequency=2.0,
+        historyKeyframeSearchTimeDiff=2.0, historyKeyframeSearchNum=5,
+    )
+
+
+def loop_dataset(n_frames: int) -> SyntheticDataset:
+    return SyntheticDataset(
+        SyntheticConfig(
+            n_frames=n_frames, n_rings=16, points_per_ring=360, speed=3.0, yaw_rate=1.2,
+            gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01, seed=SEED,
+        )
+    )
+
+
+def phase_main_path(n_frames: int = MAIN_FRAMES):
+    cfg = main_config()
+    syn = main_dataset(n_frames)
     pipe = LiorfPipeline(cfg)  # device=None: the card
     check(pipe.device.type == "cuda", "pipeline must default to the GPU")
     knn_cuda.reset_launch_counts()
@@ -401,9 +435,11 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
     return pipe, counts
 
 
-def phase_split(pipe: LiorfPipeline) -> None:
+def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     """Where a frame's time goes: the stages of one frame, each timed alone by
-    CUDA events at the main path's shapes, on the pipeline's final state."""
+    CUDA events at the main path's shapes, on the pipeline's final state;
+    with ``resident`` (phase_resident_path's pipeline and pre-step
+    snapshots) also the resident step's stages."""
     from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
     from liorf_tpu_torch.imu import fusion, preintegration
     from liorf_tpu_torch.ops import plane_fit, scan_match, scancontext
@@ -449,6 +485,10 @@ def phase_split(pipe: LiorfPipeline) -> None:
         "pose graph solve (full)": lambda: pipe._solve_graph(full=True),
         "local-map rebuild (assemble_local_map + grid)": lambda: pipe._rebuild_grid(kf_pose, stamp),
     }
+    resident_notes = {}
+    if resident is not None:
+        rstages, resident_notes = resident_stages(*resident)
+        stages.update(rstages)
     out = {name: cuda_ms(fn, reps=10, warm=2) for name, fn in stages.items()}
     # what one knn_grid call puts on the device, by kernel name
     from torch.profiler import ProfilerActivity, profile
@@ -461,7 +501,8 @@ def phase_split(pipe: LiorfPipeline) -> None:
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    emit("split", keyframes=pipe.store.count, ms=out, knn_grid_device_kernels=launched)
+    emit("split", keyframes=pipe.store.count, ms=out, knn_grid_device_kernels=launched,
+         **resident_notes)
     check(
         len(launched) == 1 and launched[0]["calls"] == 1 and "knn_grid_kernel" in launched[0]["name"],
         f"one knn_grid call must be one K1 launch, got {launched}",
@@ -530,17 +571,8 @@ def phase_profile(warm: int = 12, traced: int = 8) -> None:
 def phase_loop_path(n_frames: int = LOOP_FRAMES):
     """The repo's loop course (tests/test_loop_efficacy.py): a self-revisiting
     circle with a biased, noisy IMU; loop closure on."""
-    cfg = SlamConfig(
-        **BENCH_CAPS, mappingSurfLeafSize=0.4, surroundingKeyframeMapLeafSize=0.4,
-        loopClosureEnableFlag=True, loopClosureFrequency=2.0,
-        historyKeyframeSearchTimeDiff=2.0, historyKeyframeSearchNum=5,
-    )
-    syn = SyntheticDataset(
-        SyntheticConfig(
-            n_frames=n_frames, n_rings=16, points_per_ring=360, speed=3.0, yaw_rate=1.2,
-            gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01, seed=SEED,
-        )
-    )
+    cfg = loop_config()
+    syn = loop_dataset(n_frames)
     pipe = LiorfPipeline(cfg)
     knn_cuda.reset_launch_counts()
     results, frame_ms = run_pipeline(pipe, syn, n_frames)
@@ -566,30 +598,249 @@ def phase_loop_path(n_frames: int = LOOP_FRAMES):
 
 
 # ---------------------------------------------------------------------------
+# phases: resident_path, resident_loop_path, cli
+# ---------------------------------------------------------------------------
+
+def clone_state(st):
+    """A copy of a (nested) NamedTuple of tensors: the resident step updates
+    its state in place."""
+    return type(st)(*(clone_state(x) if isinstance(x, tuple) else x.clone() for x in st))
+
+
+def resident_report(rp, counts, frame_ms, n_frames) -> dict:
+    """What a resident run read from the device, per frame by kind. The
+    pipeline counts its own branch reads; the scan matcher reads one `done`
+    per GN iteration, the ICP one per iteration (every K2 launch but each
+    run's last, final correspondence pass)."""
+    steps = n_frames - 1  # frame 0 is the bootstrap
+    gn = rp.gn_iters_total()
+    reads = rp.host_reads()
+    per_frame = {k: v / steps for k, v in reads.items()}
+    per_frame["scan_to_map done (per GN iteration)"] = gn / steps
+    per_frame["icp_point2point delta (per ICP iteration)"] = (
+        counts["knn_bruteforce"] - rp.tally["icp_runs"]
+    ) / steps
+    st = rp.state
+    return dict(
+        frames=n_frames, keyframes=int(st.kf_count), loop_factors=int(st.l_count),
+        gps_factors=int(st.g_count), gn_iters_total=gn,
+        k1_launches=counts["knn_grid_topk"], k2_launches=counts["knn_bruteforce"],
+        icp_runs=rp.tally["icp_runs"], host_reads_total=reads,
+        host_reads_per_frame=per_frame,
+        host_reads_per_frame_sum=float(sum(per_frame.values())),
+        growth_events=rp.growth_events,
+        ms_per_frame_p50=percentile(frame_ms[1:], 50),
+        ms_per_frame_p99=percentile(frame_ms[1:], 99),
+        ms_per_frame_mean=float(np.mean(frame_ms[1:])),
+    )
+
+
+def phase_resident_path(main_poses: np.ndarray, n_frames: int = MAIN_FRAMES):
+    """The device-resident pipeline (make_pipeline, the JAX package's main
+    path) on the main path's course and streams. Keeps pre-step snapshots
+    of its last frames for the split phase."""
+    rp = make_pipeline(main_config())  # device=None: the card
+    check(rp.device.type == "cuda", "make_pipeline must default to the GPU")
+    snaps = []
+    dispatch = rp._dispatch_step
+
+    def capture(buf, S, W):
+        snap = None
+        if rp.frame_idx >= n_frames - 8:
+            snap = dict(state=clone_state(rp.state), host=rp._host, buf=buf)
+        dispatch(buf, S, W)
+        if snap is not None:
+            snap["is_kf"] = rp._host.kf_count > snap["host"].kf_count
+            snaps.append(snap)
+
+    rp._dispatch_step = capture
+    syn = main_dataset(n_frames)
+    knn_cuda.reset_launch_counts()
+    _, frame_ms = run_pipeline(rp, syn, n_frames)
+    counts = knn_cuda.launch_counts()
+    rp._dispatch_step = dispatch
+
+    _, poses = rp.trajectory_arrays()
+    _, gt = syn.ground_truth()
+    check(poses.shape == (n_frames, 6), f"resident trajectory shape {poses.shape}")
+    check(bool(np.isfinite(poses).all()), "resident trajectory not finite")
+    ate = ate_rmse(poses[:, 3:6].astype(np.float64), gt[:n_frames])
+    dist = np.linalg.norm(poses[:, 3:6] - main_poses[:, 3:6], axis=1)
+    rep = resident_report(rp, counts, frame_ms, n_frames)
+    emit(
+        "resident_path", points_per_scan=32 * 900, ate_rmse_m=ate,
+        max_dist_to_main_path_m=float(dist.max()), **rep,
+        note="snapshots of the last 8 frames' states are taken inside their timed window",
+    )
+    check(ate < 0.3, f"resident ATE {ate} m >= 0.3 m")
+    check(rep["keyframes"] >= 2, "fewer than 2 keyframes")
+    check(counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
+    check(
+        counts["knn_grid_topk"] == rep["gn_iters_total"],
+        f"K1 launches {counts['knn_grid_topk']} != GN iterations {rep['gn_iters_total']}",
+    )
+    check(float(dist.max()) < 0.15, f"resident path {dist.max()} m from main_path's trajectory")
+    return (rp, snaps), counts
+
+
+def resident_stages(rp, snaps):
+    """The resident step's stages at the main path's shapes, each on a copy
+    of a pre-step state (the copy, ~0.13 GB on the card, is inside the
+    timed call)."""
+    S, W = rp.cfg.raw_cap, rp.cfg.imu_window
+    kf = [s for s in snaps if s["is_kf"]]
+    non_kf = [s for s in snaps if not s["is_kf"]]
+    check(kf and non_kf, "the resident path's last frames need a keyframe and a non-keyframe")
+
+    def step(snap):
+        return lambda: tres.resident_step_packed(
+            clone_state(snap["state"]), snap["host"], snap["buf"], rp.params, S, W, Counter()
+        )
+
+    st = rp.state
+    k = st.kf_count - 1
+    now = tres._at(st.kf_times, k)
+    z = torch.zeros((), device=DEV)
+    tally = Counter()
+    tres._try_loop_closure(clone_state(st), rp.params, k, now, True, False, z, z, tally)
+    K, L = st.kf_poses.shape[0], st.l_i.shape[0]
+    stages = {
+        "resident_step, non-keyframe frame (state copy included)": step(non_kf[-1]),
+        "resident_step, keyframe frame (state copy included)": step(kf[-1]),
+        "_try_loop_closure on the final kf ring (search + submaps + gate)": lambda: tres._try_loop_closure(
+            clone_state(st), rp.params, k, now, True, False, z, z, Counter()),
+        f"resident pose graph solve (window, {K}+{L} slots)": lambda: tres._solve_graph_resident(st, rp.params, False),
+        f"resident pose graph solve (full, {K}+{L} slots)": lambda: tres._solve_graph_resident(st, rp.params, True),
+    }
+    notes = dict(resident_loop_closure_ran_icp=tally["icp_runs"] > 0,
+                 resident_kf_slots=K, resident_loop_slots=L)
+    return stages, notes
+
+
+def phase_resident_loop_path(n_frames: int = LOOP_FRAMES):
+    """The loop course of loop_path through make_pipeline. Run with CUDA's
+    sync debug mode on, which warns at every point where the host waits for
+    the device (reads and blocking copies alike): their count per frame is
+    reported, so this path's frame times are not comparable."""
+    rp = make_pipeline(loop_config())
+    syn = loop_dataset(n_frames)
+    knn_cuda.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, frame_ms = run_pipeline(rp, syn, n_frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counts = knn_cuda.launch_counts()
+    sync_sites = Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message).lower()
+    )
+    syncs = sum(sync_sites.values())
+    _, poses = rp.trajectory_arrays()
+    _, gt = syn.ground_truth()
+    ate = ate_rmse(poses[:, 3:6].astype(np.float64), gt[:n_frames])
+    rep = resident_report(rp, counts, frame_ms, n_frames)
+    emit(
+        "resident_loop_path", ate_rmse_m=ate, host_syncs_per_frame=syncs / (n_frames - 1),
+        host_sync_sites_top=[[site, n] for site, n in sync_sites.most_common(12)],
+        loop_pairs=[[int(i), int(j)] for i, j in zip(
+            rp.state.l_i[: rep["loop_factors"]].tolist(), rp.state.l_j[: rep["loop_factors"]].tolist())],
+        **rep, note="frame times taken with the sync debug mode on",
+    )
+    check(bool(np.isfinite(poses).all()), "resident loop trajectory not finite")
+    check(rep["loop_factors"] >= 1, "no loop factor landed on the resident loop path")
+    check(counts["knn_bruteforce"] > 0, "K2 never launched on the resident loop path")
+    check(counts["knn_grid_topk"] == rep["gn_iters_total"], "K1 count != GN iterations")
+    return counts
+
+
+def phase_cli(frames: int = 20, resume_frames: int = 10) -> None:
+    """``python -m liorf_tpu_torch.cli run`` on the card (its default
+    device), then a second run that resumes from the first one's
+    checkpoint; the files and the closing JSON line are checked."""
+    from liorf_tpu_torch.utils.pcdio import load_pcd
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "liorf_tpu_torch.cli", "run", "--dataset", "synthetic", *args],
+            cwd=root, capture_output=True, text=True, timeout=600,
+        )
+        check(r.returncode == 0, f"cli run {args} exited {r.returncode}: {r.stderr[-2000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        check(set(line) == {"frames", "keyframes", "scans_per_sec", "out"}, f"cli line {line}")
+        return line, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="liorf_cli_") as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        first, t_first = cli("--frames", str(frames), "--out", a, "--save-map", "--checkpoint", "--imu-tum")
+        check(first["frames"] == frames and first["keyframes"] >= 2 and first["out"] == a, f"cli line {first}")
+        names = ("trajectory_tum.txt", "imu_rate_tum.txt", "checkpoint.pkl", "trajectory.pcd",
+                 "transformations.pcd", "SurfMap.pcd", "GlobalMap.pcd")
+        missing = [n for n in names if not os.path.exists(os.path.join(a, n))]
+        check(not missing, f"cli run wrote no {missing}")
+        tum = np.loadtxt(os.path.join(a, "trajectory_tum.txt"))
+        imu_tum = np.loadtxt(os.path.join(a, "imu_rate_tum.txt"))
+        gmap = load_pcd(os.path.join(a, "GlobalMap.pcd"))
+        kf_pcd = load_pcd(os.path.join(a, "trajectory.pcd"))
+        check(tum.shape == (frames, 8) and bool(np.isfinite(tum).all()), f"trajectory_tum {tum.shape}")
+        check(len(imu_tum) > frames and len(gmap["x"]) > 100, "imu_rate_tum / GlobalMap too small")
+        check(len(kf_pcd["x"]) == first["keyframes"], "trajectory.pcd != keyframes")
+
+        second, t_second = cli("--frames", str(resume_frames), "--out", b,
+                               "--resume", os.path.join(a, "checkpoint.pkl"))
+        tum2 = np.loadtxt(os.path.join(b, "trajectory_tum.txt"))
+        check(tum2.shape == (frames + resume_frames, 8) and bool(np.isfinite(tum2).all()),
+              f"resumed trajectory_tum {tum2.shape}")
+        check(np.array_equal(tum2[:frames, 0], tum[:, 0]), "resumed run lost the checkpointed stamps")
+        check(second["keyframes"] >= first["keyframes"], "resumed run lost keyframes")
+        emit("cli", run=first, run_seconds=t_first, resume=second, resume_seconds=t_second,
+             trajectory_rows=[len(tum), len(tum2)], imu_rate_rows=len(imu_tum),
+             global_map_points=len(gmap["x"]))
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,kernels,main_path,split,loop_path")
+    ap.add_argument(
+        "--phases",
+        default="device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,cli",
+    )
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    full = {"device", "kernels", "main_path", "loop_path"} <= set(phases)
+    full = {
+        "device", "kernels", "main_path", "resident_path", "loop_path",
+        "resident_loop_path", "cli",
+    } <= set(phases)
 
     t_start = time.perf_counter()
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
-    main_counts = loop_counts = None
+    main_counts = loop_counts = res_counts = res_loop_counts = None
     if "main_path" in phases:
         pipe, main_counts = phase_main_path()
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
+        resident = None
+        if "resident_path" in phases:
+            resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
         if "split" in phases:
-            phase_split(pipe)
-        del pipe
+            phase_split(pipe, resident)
+        del pipe, resident
     if "profile" in phases:
         phase_profile()
     if "loop_path" in phases:
         loop_counts = phase_loop_path()
+    if "resident_loop_path" in phases:
+        res_loop_counts = phase_resident_loop_path()
+    if "cli" in phases:
+        phase_cli()
     torch.cuda.synchronize()
     emit("done", seconds=time.perf_counter() - t_start, phases=phases)
     if not full:
@@ -609,17 +860,28 @@ def main() -> None:
         }
 
     # launches: K1 from the main path's run, K2 from the loop path's run (the
-    # only path that reaches it); each counted from 0 just before its path.
+    # only classic path that reaches it); each counted from 0 just before its
+    # path. launches_by_path adds the resident paths' counts.
+    def by_path(name):
+        return {
+            "main_path": main_counts[name], "loop_path": loop_counts[name],
+            "resident_path": res_counts[name], "resident_loop_path": res_loop_counts[name],
+        }
+
     k1 = kern["knn_grid_topk"]
     kernels = [
         row("knn_grid_topk",
             "liorf_tpu/ops/knn_pallas.py:132 + the gather at liorf_tpu/ops/knn.py:151-173",
             main_counts["knn_grid_topk"], sum_runs=k1["sum_runs"],
-            l2_candidate_bytes=k1["l2_candidate_bytes"]),
-        row("knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187", loop_counts["knn_bruteforce"]),
+            l2_candidate_bytes=k1["l2_candidate_bytes"],
+            launches_by_path=by_path("knn_grid_topk")),
+        row("knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187", loop_counts["knn_bruteforce"],
+            launches_by_path=by_path("knn_bruteforce")),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
+    check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
+    check(res_loop_counts["knn_bruteforce"] > 0, "K2 never launched on the resident loop path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

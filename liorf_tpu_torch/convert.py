@@ -23,6 +23,7 @@ from .mapping.keyframes import KeyframeStore
 from .ops.knn import SpatialHashGrid
 from .ops.scan_match import ScanMatchParams
 from .pipeline.frame_step import FrameParams
+from .pipeline.resident import ResidentParams, ResidentState
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -93,6 +94,40 @@ def keyframe_store_from_arrays(fields: Mapping, count: int, device=None):
     return store
 
 
+def _as_dict(v) -> dict:
+    """A mapping, or a NamedTuple of either package, as a dict."""
+    return dict(v._asdict()) if hasattr(v, "_asdict") else dict(v)
+
+
+def resident_state_from_arrays(fields: Mapping, device=None) -> ResidentState:
+    """``ResidentState`` from its fields as numpy (the JAX package's state
+    pulled with ``np.asarray`` per leaf, or a checkpoint of the port), with
+    ``filt`` as {mean: {R, p, v, ba, bg}, sqrt_info} and ``grid`` as the
+    fields of ``grid_from_arrays``; the nested tuples may also be given as
+    NamedTuples. Integer fields become int64 (torch's index type), bools
+    bool, the rest float32."""
+    fields = _as_dict(fields)
+    filt = _as_dict(fields["filt"])
+    out = {
+        "filt": fusion_filter_from_arrays(
+            _as_dict(filt["mean"]), filt["sqrt_info"], device
+        ),
+        "grid": grid_from_arrays(_as_dict(fields["grid"]), device),
+    }
+    for name in ResidentState._fields:
+        if name in out:
+            continue
+        a = np.asarray(fields[name])
+        if a.dtype == bool:
+            dtype = torch.bool
+        elif np.issubdtype(a.dtype, np.integer):
+            dtype = torch.int64
+        else:
+            dtype = torch.float32
+        out[name] = _tensor(a, device, dtype)
+    return ResidentState(**out)
+
+
 def scan_match_params(values: Mapping) -> ScanMatchParams:
     return ScanMatchParams(**dict(values))
 
@@ -101,12 +136,17 @@ def frame_params(values: Mapping) -> FrameParams:
     """``FrameParams`` from ``jax_params._asdict()`` with ``match``,
     ``fusion`` and ``fusion.imu`` given as nested mappings or tuples."""
 
-    def as_dict(v):
-        return dict(v._asdict()) if hasattr(v, "_asdict") else dict(v)
-
     values = dict(values)
-    fusion = as_dict(values["fusion"])
-    fusion["imu"] = ImuParams(**as_dict(fusion["imu"]))
+    fusion = _as_dict(values["fusion"])
+    fusion["imu"] = ImuParams(**_as_dict(fusion["imu"]))
     values["fusion"] = FusionParams(**fusion)
-    values["match"] = ScanMatchParams(**as_dict(values["match"]))
+    values["match"] = ScanMatchParams(**_as_dict(values["match"]))
     return FrameParams(**values)
+
+
+def resident_params(values: Mapping) -> ResidentParams:
+    """``ResidentParams`` from ``jax_params._asdict()``, ``frame`` nested as
+    in ``frame_params``."""
+    values = dict(values)
+    values["frame"] = frame_params(_as_dict(values["frame"]))
+    return ResidentParams(**values)

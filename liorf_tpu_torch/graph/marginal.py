@@ -27,8 +27,11 @@ to (yaw, x, y); loop closures (which the reference's marginal would also
 shrink) are ignored, which only makes the gate *more* willing to accept
 GPS — the conservative direction.
 
-Functions are generic over the array namespace (`xp`, numpy by default)
-and build matrices with stack/concatenate only.
+Functions are generic over the array namespace (`xp`: numpy for the host
+pipeline, torch for the device-resident one) and build matrices with
+stack/concatenate only. With torch every constant is built on the device
+of the covariance (or of ``device`` for ``initial_cov``), so the resident
+step runs them on the card.
 """
 
 from __future__ import annotations
@@ -45,9 +48,17 @@ STEP_VAR = (1e-6, 1e-4, 1e-4)
 _VAR_CLAMP = 1.0e4
 
 
-def initial_cov(xp=np):
-    """3x3 (yaw, x, y) covariance of the first keyframe prior."""
-    return xp.diag(xp.asarray(PRIOR_VAR, dtype=xp.float32))
+def _f32(xp, values, device=None):
+    """float32 constant of namespace ``xp`` (torch: on ``device``)."""
+    if xp is np:
+        return np.asarray(values, dtype=np.float32)
+    return xp.as_tensor(values, dtype=xp.float32, device=device)
+
+
+def initial_cov(xp=np, device=None):
+    """3x3 (yaw, x, y) covariance of the first keyframe prior (torch:
+    ``device`` is where it is built)."""
+    return xp.diag(_f32(xp, PRIOR_VAR, device))
 
 
 def propagate(P, yaw, delta_local, xp=np):
@@ -56,9 +67,10 @@ def propagate(P, yaw, delta_local, xp=np):
     ``yaw`` is the heading of the previous keyframe; ``delta_local`` is
     the (dyaw, dx, dy) step measured in the previous keyframe's frame.
     """
-    one = xp.ones(())
-    zero = xp.zeros(())
     c, s = xp.cos(yaw), xp.sin(yaw)
+    # on the device (and of the dtype) of the heading: numpy takes a float
+    one = xp.ones_like(c)
+    zero = xp.zeros_like(c)
     # world-frame step (for the rotation-leverage Jacobian d pos / d yaw)
     dxw = c * delta_local[1] - s * delta_local[2]
     dyw = s * delta_local[1] + c * delta_local[2]
@@ -69,7 +81,7 @@ def propagate(P, yaw, delta_local, xp=np):
             xp.stack([dxw * one, zero, one]),
         ]
     )
-    Q = xp.diag(xp.asarray(STEP_VAR, dtype=xp.float32))
+    Q = xp.diag(_f32(xp, STEP_VAR, getattr(P, "device", None)))
     P = F @ P @ F.T + Q
     return xp.clip(P, -_VAR_CLAMP, _VAR_CLAMP)
 

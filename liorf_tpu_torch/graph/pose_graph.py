@@ -172,9 +172,11 @@ def _linearize(graph: PoseGraph):
     r_g = r_g * graph.g_sqrt_info * wg[:, None]
     Jg = Jg * graph.g_sqrt_info[:, :, None] * wg[:, None, None]
 
-    # prior
-    Rp = graph.Rs[graph.prior_i]
-    tp = graph.ts[graph.prior_i]
+    # prior (a one-element index: indexing with the 0-dim device tensor
+    # itself would read it back to the host)
+    p_i = graph.prior_i.reshape(1)
+    Rp = graph.Rs[p_i][0]
+    tp = graph.ts[p_i][0]
     z = torch.zeros(6, dtype=Rp.dtype, device=Rp.device)
 
     def f(a):
@@ -199,7 +201,7 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
     Ji = Ji * fm[e_i][:, None, None]
     Jj = Jj * fm[e_j][:, None, None]
     Jg = Jg * fm[g_i][:, None, None]
-    Jp = Jp * fm[graph.prior_i]
+    Jp = Jp * fm[p_i][0]
 
     def jt(J, r):  # J^T r per factor
         return torch.einsum("eri,er->ei", J, r)
@@ -224,7 +226,7 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
         yj = torch.einsum("eri,ei->er", Jj, x[e_j])
         y_e = yi + yj
         y_g = torch.einsum("gri,gi->gr", Jg, x[g_i])
-        y_p = Jp @ x[graph.prior_i]
+        y_p = Jp @ x[p_i][0]
         out = torch.zeros_like(x)
         out.index_add_(0, e_i, jt(Ji, y_e))
         out.index_add_(0, e_j, jt(Jj, y_e))

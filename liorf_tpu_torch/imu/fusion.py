@@ -255,3 +255,8 @@ def predict_poses(
     ps = state.p + torch.cumsum(dp, dim=0)
     return Rs, ps
 
+
+# ``predict_poses`` already is the log-depth form, which the JAX package
+# keeps apart under this name (its fusion.py:247-278); the resident step
+# calls it by that name.
+predict_poses_parallel = predict_poses

@@ -130,8 +130,10 @@ def rank_candidates(
     best_shift = _first_argmin(dists, dim=-1)
     best_dist = torch.where(cand_ok, torch.min(dists, dim=-1).values, torch.inf)
 
-    b = _first_argmin(best_dist)
-    return best_dist[b], cand_idx[b], best_shift[b]
+    # a one-element index tensor: indexing with a 0-dim device tensor would
+    # read it back to the host
+    b = _first_argmin(best_dist).reshape(1)
+    return best_dist[b][0], cand_idx[b][0], best_shift[b][0]
 
 
 def detect_loop(

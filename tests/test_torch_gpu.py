@@ -143,3 +143,44 @@ def test_scan_to_map_gpu_matches_cpu(dev):
     a, b = out["cpu"], out[str(dev)]
     np.testing.assert_allclose(b.pose.cpu().numpy(), a.pose.numpy(), atol=1e-4)
     assert int(a.iters) == int(b.iters) and bool(b.converged)
+
+
+def test_make_pipeline_on_the_card_matches_cpu(dev):
+    """make_pipeline with no device runs the resident pipeline on the card;
+    six frames with a loop search every frame agree with the CPU run."""
+    from liorf_tpu_torch.ops import knn_cuda as kc
+    from liorf_tpu_torch.pipeline import SlamConfig, make_pipeline
+    from liorf_tpu_torch.sensors.synthetic import SyntheticConfig, SyntheticDataset
+
+    kw = dict(
+        scan_capacity=4096, map_capacity=16384, kf_cloud_capacity=4096,
+        near_kf_capacity=8, imu_window=32, mappingSurfLeafSize=0.2,
+        surroundingKeyframeMapLeafSize=0.2, point_filter_num=1, downsampleRate=1,
+        loopClosureEnableFlag=True, loopClosureFrequency=10.0,
+        historyKeyframeSearchTimeDiff=0.25, surroundingkeyframeAddingDistThreshold=0.3,
+        kf_capacity=32, traj_capacity=64, gps_capacity=8, loop_capacity=8,
+        imu_rate_capacity=1024,
+    )
+    syn = SyntheticDataset(SyntheticConfig(n_frames=6, n_rings=16, points_per_ring=250))
+    scans, imu = [syn.scan(f) for f in range(6)], syn.imu_stream()
+    out = {}
+    kc.reset_launch_counts()
+    for d in (None, "cpu"):
+        pipe = make_pipeline(SlamConfig(**kw), device=d)
+        # the CPU run's plain k-NN is quadratic in the ICP cap (as in
+        # tests/test_torch_resident.py)
+        pipe.params = pipe.params._replace(loop_icp_cap=4096)
+        ii = 0
+        for scan in scans:
+            while ii < len(imu) and imu[ii].stamp <= scan.end_time + 0.02:
+                pipe.push_imu(imu[ii])
+                ii += 1
+            pipe.process_scan(scan)
+        out[str(pipe.device.type)] = pipe
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.state.kf_poses.device.type == "cuda"
+    counts = kc.launch_counts()
+    assert counts["knn_grid_topk"] == gpu.gn_iters_total() > 0
+    assert int(gpu.state.l_count) == int(cpu.state.l_count) >= 1
+    assert counts["knn_bruteforce"] > 0
+    np.testing.assert_allclose(gpu.trajectory_arrays()[1], cpu.trajectory_arrays()[1], atol=1e-3)

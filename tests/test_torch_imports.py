@@ -49,8 +49,9 @@ def test_every_module_imports_without_cuda():
 def test_pipeline_exports():
     from liorf_tpu_torch import pipeline
 
-    assert {"SlamConfig", "load_config", "LiorfPipeline"} <= set(dir(pipeline))
-    assert not hasattr(pipeline, "make_pipeline")
+    assert {
+        "SlamConfig", "load_config", "LiorfPipeline", "ResidentPipeline", "make_pipeline"
+    } <= set(dir(pipeline))
 
 
 def test_default_device_is_cuda_and_raises_without_one():
@@ -72,6 +73,7 @@ def _state_constructors():
     from liorf_tpu_torch.core.pointcloud import make_cloud
     from liorf_tpu_torch.graph.pose_graph import empty_graph
     from liorf_tpu_torch.mapping.keyframes import KeyframeStore
+    from liorf_tpu_torch.pipeline import SlamConfig, make_pipeline
 
     z3 = np.zeros((4, 3), np.float32)
     grid = dict(xyz=z3, keys=np.zeros(4, np.int32), mask=np.ones(4, bool),
@@ -85,13 +87,34 @@ def _state_constructors():
             dict(poses=np.zeros((2, 6)), times=np.zeros(2), clouds=np.zeros((2, 8, 3)),
                  cloud_masks=np.zeros((2, 8), bool), sc_descs=np.zeros((2, 20, 60)),
                  sc_keys=np.zeros((2, 20))), 0, **kw).device,
+        "make_pipeline": lambda **kw: make_pipeline(
+            SlamConfig(scan_capacity=256, map_capacity=1024, kf_cloud_capacity=256), **kw
+        ).device,
+        "convert.resident_state_from_arrays": lambda **kw: convert.resident_state_from_arrays(
+            _resident_fields(), **kw).kf_poses.device,
     }
+
+
+def _resident_fields():
+    """A ResidentState's fields as numpy (a one-slot state, all zeros)."""
+    import numpy as np
+
+    from liorf_tpu_torch.pipeline.resident import ResidentState
+
+    fields = {name: np.zeros(1, np.float32) for name in ResidentState._fields}
+    fields["filt"] = dict(mean={k: np.zeros(3, np.float32) for k in ("R", "p", "v", "ba", "bg")},
+                          sqrt_info=np.eye(15, dtype=np.float32))
+    fields["grid"] = dict(xyz=np.zeros((4, 3), np.float32), keys=np.zeros(4, np.int32),
+                          mask=np.ones(4, bool), origin=np.zeros(3, np.float32),
+                          cell_size=np.float32(1.0))
+    return fields
 
 
 @pytest.mark.parametrize(
     "name",
     ["KeyframeStore", "empty_graph", "make_cloud", "convert.grid_from_arrays",
-     "convert.keyframe_store_from_arrays"],
+     "convert.keyframe_store_from_arrays", "make_pipeline",
+     "convert.resident_state_from_arrays"],
 )
 def test_state_constructors_default_to_cuda(name):
     """Every constructor of device state follows the pipeline's rule: no
