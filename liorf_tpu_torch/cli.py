@@ -5,11 +5,16 @@ The off-ROS equivalent of ``roslaunch liorf run_*.launch`` + ``rosbag play``
 
     python -m liorf_tpu_torch.cli run --dataset synthetic --frames 100 --out /tmp/out
     python -m liorf_tpu_torch.cli run --dataset synthetic --frames 8 --out /tmp/o --device cpu
+    python -m liorf_tpu_torch.cli run --dataset kitti --root /data/2011_09_30_drive_0018_sync \
+        --config configs/kitti.yaml --gps --out /tmp/kitti_out
+    python -m liorf_tpu_torch.cli run --dataset rosbag --root drive.bag --imu-topic /imu \
+        --out /tmp/bag_out
     python -m liorf_tpu_torch.cli eval --est /tmp/out/trajectory_tum.txt --gt gt_tum.txt
 
-``run`` drives the device-resident pipeline (``make_pipeline``) and prints
-one JSON line; its files and that line are those of ``liorf_tpu.cli run``.
-The synthetic dataset is the only one offered here so far.
+``run`` drives the device-resident pipeline (``make_pipeline``) over the
+synthetic, KITTI raw, MulRan or rosbag dataset and prints one JSON line; its
+files and that line are those of ``liorf_tpu.cli run``. On stderr it also
+prints which scan packer ran (``{"packer": {"native": n, "numpy": m}}``).
 """
 
 from __future__ import annotations
@@ -25,10 +30,37 @@ import numpy as np
 
 
 def _make_dataset(args):
-    from .sensors.synthetic import SyntheticConfig, SyntheticDataset
+    if args.dataset == "synthetic":
+        from .sensors.synthetic import SyntheticConfig, SyntheticDataset
 
-    syn = SyntheticDataset(SyntheticConfig(n_frames=args.frames))
-    return syn, syn.imu_stream(), syn.gps_stream() if args.gps else []
+        syn = SyntheticDataset(SyntheticConfig(n_frames=args.frames))
+        return syn, syn.imu_stream(), syn.gps_stream() if args.gps else []
+    if not args.root:
+        raise SystemExit(f"--dataset {args.dataset} needs --root")
+    if args.dataset == "kitti":
+        from .sensors.kitti import KittiRawDataset
+
+        ds = KittiRawDataset(args.root)
+        return ds, ds.imu_stream(), ds.gps_stream() if args.gps else []
+    if args.dataset == "mulran":
+        from .sensors.mulran import MulranDataset
+
+        ds = MulranDataset(args.root)
+        return ds, ds.imu_stream(), ds.gps_stream() if args.gps else []
+    if args.dataset == "rosbag":
+        from .pipeline import SlamConfig, load_config
+        from .sensors.rosbag import RosbagDataset
+
+        cfg = load_config(args.config) if args.config else SlamConfig()
+        ds = RosbagDataset(
+            args.root,
+            cloud_topic=args.cloud_topic or cfg.pointCloudTopic,
+            imu_topic=args.imu_topic or cfg.imuTopic,
+            gps_topic=(args.gps_topic or cfg.gpsTopic) if args.gps else None,
+            sensor=cfg.sensor,
+        )
+        return ds, ds.imu_stream(), ds.gps_stream() if args.gps else []
+    raise SystemExit(f"unknown dataset {args.dataset}")
 
 
 def cmd_run(args):
@@ -75,6 +107,7 @@ def cmd_run(args):
     elapsed = time.perf_counter() - t0
     if timers:
         print(json.dumps(dict(profile=timers.report())), file=sys.stderr)
+    print(json.dumps(dict(packer=pipe.packer())), file=sys.stderr)
 
     os.makedirs(args.out, exist_ok=True)
     pipe.sync_store()  # pull keyframe clouds for export (one-time)
@@ -159,8 +192,14 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("run", help="run SLAM over a dataset")
-    r.add_argument("--dataset", choices=["synthetic"], required=True)
+    r.add_argument(
+        "--dataset", choices=["synthetic", "kitti", "mulran", "rosbag"], required=True
+    )
+    r.add_argument("--root", help="dataset root directory (or .bag path for rosbag)")
     r.add_argument("--config", help="reference-format YAML config")
+    r.add_argument("--cloud-topic", help="rosbag: PointCloud2 topic (default: config)")
+    r.add_argument("--imu-topic", help="rosbag: Imu topic (default: config)")
+    r.add_argument("--gps-topic", help="rosbag: NavSatFix topic (default: config)")
     r.add_argument("--resume", help="resume from a checkpoint.pkl of this package")
     r.add_argument(
         "--profile", action="store_true",

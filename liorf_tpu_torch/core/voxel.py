@@ -74,16 +74,17 @@ def voxel_downsample(
     # Scatter-accumulate into fixed-size output. Invalid points are routed to
     # a dump slot (out_capacity) which is sliced off — torch raises on an
     # out-of-range index where JAX drops it, so the dump slot is load-bearing.
+    # Out-of-place scatters, so the filter also runs under torch.func.vmap.
     tgt = torch.where(mask_s & (seg_id < out_capacity), seg_id, out_capacity)
     sums = torch.zeros((out_capacity + 1, 3), dtype=torch.float32, device=dev)
-    sums.index_add_(0, tgt, xyz_s)
+    sums = sums.index_add(0, tgt, xyz_s)
     isum = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
-    isum.index_add_(0, tgt, inten_s)
+    isum = isum.index_add(0, tgt, inten_s)
     cnt = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
-    cnt.index_add_(0, tgt, torch.ones_like(inten_s))
+    cnt = cnt.index_add(0, tgt, torch.ones_like(inten_s))
     # representative = smallest original index in the voxel
     rep = torch.full((out_capacity + 1,), n, dtype=torch.int64, device=dev)
-    rep.scatter_reduce_(0, tgt, order, reduce="amin", include_self=True)
+    rep = rep.scatter_reduce(0, tgt, order, reduce="amin", include_self=True)
 
     cnt_v = cnt[:-1]
     valid = cnt_v > 0

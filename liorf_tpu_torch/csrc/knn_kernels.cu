@@ -178,6 +178,19 @@ knn_grid_kernel(const float* __restrict__ xyz, const int* __restrict__ keys,
   const int row = blockIdx.x * kGridWarps + warp;
   if (row >= n) return;  // the whole warp leaves together
 
+  // lane axis (blockIdx.y): every stacked input is contiguous per session,
+  // so a session's pointers are its block of each; the rest of the body is
+  // the one-session kernel
+  const size_t b = blockIdx.y;
+  xyz += b * 3 * (size_t)m;
+  keys += b * (size_t)m;
+  origin += b * 3;
+  cell_size += b;
+  queries += b * 3 * (size_t)n;
+  query_mask += b * (size_t)n;
+  out_d += b * (size_t)n * K;
+  out_i += b * (size_t)n * K;
+
   float bd[K];
   int bi[K];
 #pragma unroll
@@ -384,15 +397,30 @@ knn_bf_kernel(const float* __restrict__ map_xyz, const uint8_t* __restrict__ map
               const float* __restrict__ queries, const uint8_t* __restrict__ query_mask,
               float* __restrict__ out_d, int* __restrict__ out_i,
               float* __restrict__ part_d, int* __restrict__ part_i,
-              int n, int m, int range_len) {
+              int n, int m, int mstride, int range_len) {
   constexpr int QPT = BfShape<K>::kQpt;
   constexpr int QB = BfShape<K>::kQueries;
   constexpr int CH = BfShape<K>::kChunk;
   __shared__ BfShared<K> sm;
 
+  // lane axis, folded into blockIdx.x (qblocks query blocks per lane):
+  // session b's targets start at b * mstride (mstride % 16 == 0 keeps the
+  // cp.async sources 16-byte aligned), its queries, outputs and partial
+  // lists at its own block of each
+  const int qblocks = (n + QB - 1) / QB;
+  const size_t b = blockIdx.x / qblocks;
+  map_xyz += b * 3 * (size_t)mstride;
+  map_mask += b * (size_t)mstride;
+  queries += b * 3 * (size_t)n;
+  query_mask += b * (size_t)n;
+  out_d += b * (size_t)n * K;
+  out_i += b * (size_t)n * K;
+  part_d += b * (size_t)gridDim.y * n * K;
+  part_i += b * (size_t)gridDim.y * n * K;
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * QB;
+  const int row0 = (blockIdx.x % qblocks) * QB;
 
   float qx[QPT], qy[QPT], qz[QPT];
 #pragma unroll
@@ -511,6 +539,12 @@ knn_bf_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ pa
                     int* __restrict__ out_i, int n, int ranges) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
+  const size_t b = blockIdx.y;  // lane axis
+  part_d += b * (size_t)ranges * n * K;
+  part_i += b * (size_t)ranges * n * K;
+  query_mask += b * (size_t)n;
+  out_d += b * (size_t)n * K;
+  out_i += b * (size_t)n * K;
   float md[K];
   int mi[K];
 #pragma unroll
@@ -529,29 +563,31 @@ knn_bf_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ pa
 
 template <int K>
 int launch_grid(const float* xyz, const int* keys, const float* origin, const float* cs,
-                const float* q, const uint8_t* qm, float* od, int* oi, int n, int m,
-                int bucket, cudaStream_t stream) {
-  const int blocks = (n + kGridWarps - 1) / kGridWarps;
+                const float* q, const uint8_t* qm, float* od, int* oi, int lanes, int n,
+                int m, int bucket, cudaStream_t stream) {
+  const dim3 blocks((n + kGridWarps - 1) / kGridWarps, lanes);
   knn_grid_kernel<K><<<blocks, kGridWarps * 32, 0, stream>>>(xyz, keys, origin, cs, q, qm, od,
                                                              oi, n, m, bucket);
   return (int)cudaGetLastError();
 }
 
-// How an n x m search on a card of `sms` SMs splits the targets: the number
-// of target ranges and the targets in each (whole chunks). Enough blocks to
-// give every SM several at k = 1; one range for k > 1, where a long target
-// stream per thread keeps the list's threshold tight and insertions rare.
+// How `lanes` n x m searches on a card of `sms` SMs split the targets: the
+// number of target ranges and the targets in each (whole chunks). Enough
+// blocks (over all lanes) to give every SM several at k = 1; one range for
+// k > 1, where a long target stream per thread keeps the list's threshold
+// tight and insertions rare. The split does not change a result: each range
+// keeps its exact top-k and the merge orders by (d2, index).
 struct BfSplit {
   int ranges;
   int range_len;
 };
 
 template <int K>
-BfSplit bf_split(int n, int m, int sms) {
+BfSplit bf_split(int lanes, int n, int m, int sms) {
   constexpr int CH = BfShape<K>::kChunk;
   const int chunks = (m + CH - 1) / CH;
   if (chunks <= 0) return {1, CH};
-  const int qblocks = (n + BfShape<K>::kQueries - 1) / BfShape<K>::kQueries;
+  const int qblocks = lanes * ((n + BfShape<K>::kQueries - 1) / BfShape<K>::kQueries);
   const int want = (K == 1 ? kBfBlocksPerSm : 1) * sms;
   const int r = min(chunks, max(1, (want + qblocks - 1) / qblocks));
   const int per = (chunks + r - 1) / r;  // chunks per range
@@ -560,15 +596,16 @@ BfSplit bf_split(int n, int m, int sms) {
 
 template <int K>
 int launch_bf(const float* mx, const uint8_t* mm, const float* q, const uint8_t* qm, float* od,
-              int* oi, float* pd, int* pi, int n, int m, int sms, cudaStream_t stream) {
-  const BfSplit split = bf_split<K>(n, m, sms);
-  const dim3 grid((n + BfShape<K>::kQueries - 1) / BfShape<K>::kQueries, split.ranges);
+              int* oi, float* pd, int* pi, int lanes, int n, int m, int mstride, int sms,
+              cudaStream_t stream) {
+  const BfSplit split = bf_split<K>(lanes, n, m, sms);
+  const dim3 grid(lanes * ((n + BfShape<K>::kQueries - 1) / BfShape<K>::kQueries), split.ranges);
   knn_bf_kernel<K><<<grid, kBfThreads, 0, stream>>>(mx, mm, q, qm, od, oi, pd, pi, n, m,
-                                                    split.range_len);
+                                                    mstride, split.range_len);
   int err = (int)cudaGetLastError();
   if (err != 0 || split.ranges == 1) return err;
-  knn_bf_merge_kernel<K><<<(n + 255) / 256, 256, 0, stream>>>(pd, pi, qm, od, oi, n,
-                                                               split.ranges);
+  const dim3 mgrid((n + 255) / 256, lanes);
+  knn_bf_merge_kernel<K><<<mgrid, 256, 0, stream>>>(pd, pi, qm, od, oi, n, split.ranges);
   return (int)cudaGetLastError();
 }
 
@@ -592,43 +629,48 @@ extern "C" {
 // Largest k either kernel takes.
 int liorf_knn_max_k() { return kMaxK; }
 
-// xyz [m,3] f32 and keys [m] i32 of the sorted grid, origin [3] f32,
-// cell_size [] f32, queries [n,3] f32, query_mask [n] u8 ->
-// out_d [n,k] f32, out_i [n,k] i32. All contiguous device pointers.
+// For `lanes` sessions stacked on a leading axis: xyz [lanes,m,3] f32 and
+// keys [lanes,m] i32 of the sorted grids, origin [lanes,3] f32, cell_size
+// [lanes] f32, queries [lanes,n,3] f32, query_mask [lanes,n] u8 ->
+// out_d [lanes,n,k] f32, out_i [lanes,n,k] i32. All contiguous device
+// pointers; one launch serves every lane (lanes = 1: one session).
 int liorf_knn_grid_topk(const void* xyz, const void* keys, const void* origin,
                         const void* cell_size, const void* queries, const void* query_mask,
-                        void* out_d, void* out_i, int n, int m, int k, int bucket,
+                        void* out_d, void* out_i, int lanes, int n, int m, int k, int bucket,
                         void* stream) {
 #define CALL(KK)                                                                     \
   launch_grid<KK>((const float*)xyz, (const int*)keys, (const float*)origin,         \
                   (const float*)cell_size, (const float*)queries,                    \
-                  (const uint8_t*)query_mask, (float*)out_d, (int*)out_i, n, m,      \
-                  bucket, (cudaStream_t)stream)
+                  (const uint8_t*)query_mask, (float*)out_d, (int*)out_i, lanes, n,  \
+                  m, bucket, (cudaStream_t)stream)
   LIORF_DISPATCH_K(k, CALL)
 #undef CALL
 }
 
-// Number of target ranges knn_bruteforce uses for an n x m search on a card
-// of `sms` SMs (the partial buffers hold ranges * n * k entries when it is
-// above 1). Host arithmetic only.
-int liorf_knn_bruteforce_ranges(int n, int m, int k, int sms) {
-#define CALL(KK) bf_split<KK>(n, m, sms).ranges
+// Number of target ranges knn_bruteforce uses for `lanes` n x m searches on
+// a card of `sms` SMs (the partial buffers hold lanes * ranges * n * k
+// entries when it is above 1). Host arithmetic only.
+int liorf_knn_bruteforce_ranges(int lanes, int n, int m, int k, int sms) {
+#define CALL(KK) bf_split<KK>(lanes, n, m, sms).ranges
   LIORF_DISPATCH_K(k, CALL)
 #undef CALL
 }
 
-// map_xyz [m,3] f32 and map_mask [m] u8 (both 16-byte aligned), queries
-// [n,3] f32, query_mask [n] u8 -> out_d [n,k] f32, out_i [n,k] i32;
-// part_d / part_i: [ranges, n, k] f32 / i32 scratch, ranges as
-// liorf_knn_bruteforce_ranges gives it for the same n, m, k, sms (unused
-// when that is 1).
+// For `lanes` sessions stacked on a leading axis: map_xyz [lanes,mstride,3]
+// f32 and map_mask [lanes,mstride] u8 (both 16-byte aligned, mstride % 16 == 0
+// when lanes > 1; the first m targets of each lane are searched), queries
+// [lanes,n,3] f32, query_mask [lanes,n] u8 -> out_d [lanes,n,k] f32,
+// out_i [lanes,n,k] i32; part_d / part_i: [lanes, ranges, n, k] f32 / i32
+// scratch, ranges as liorf_knn_bruteforce_ranges gives it for the same
+// lanes, n, m, k, sms (unused when that is 1).
 int liorf_knn_bruteforce(const void* map_xyz, const void* map_mask, const void* queries,
                          const void* query_mask, void* out_d, void* out_i, void* part_d,
-                         void* part_i, int n, int m, int k, int sms, void* stream) {
+                         void* part_i, int lanes, int n, int m, int mstride, int k, int sms,
+                         void* stream) {
 #define CALL(KK)                                                                     \
   launch_bf<KK>((const float*)map_xyz, (const uint8_t*)map_mask,                     \
                 (const float*)queries, (const uint8_t*)query_mask, (float*)out_d,    \
-                (int*)out_i, (float*)part_d, (int*)part_i, n, m, sms,                \
+                (int*)out_i, (float*)part_d, (int*)part_i, lanes, n, m, mstride, sms, \
                 (cudaStream_t)stream)
   LIORF_DISPATCH_K(k, CALL)
 #undef CALL

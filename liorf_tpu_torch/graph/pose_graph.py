@@ -208,18 +208,20 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
 
     # rhs = -J^T r scattered per node (index_add_ in place of .at[].add,
     # pose_graph.py:192-214 of the JAX package; accumulation order differs)
+    # (out of place, so the solve also runs under torch.func.vmap: one graph
+    # per lane of pipeline/multistream.py)
     rhs = torch.zeros((K, 6), dtype=r_e.dtype, device=r_e.device)
-    rhs.index_add_(0, e_i, -jt(Ji, r_e))
-    rhs.index_add_(0, e_j, -jt(Jj, r_e))
-    rhs.index_add_(0, g_i, -jt(Jg, r_g))
-    rhs.index_add_(0, p_i, -(Jp.T @ r_p)[None])
+    rhs = rhs.index_add(0, e_i, -jt(Ji, r_e))
+    rhs = rhs.index_add(0, e_j, -jt(Jj, r_e))
+    rhs = rhs.index_add(0, g_i, -jt(Jg, r_g))
+    rhs = rhs.index_add(0, p_i, -(Jp.T @ r_p)[None])
 
     # block-diagonal of H for the Jacobi preconditioner
     diag = torch.zeros((K, 6, 6), dtype=r_e.dtype, device=r_e.device)
-    diag.index_add_(0, e_i, torch.einsum("eri,erj->eij", Ji, Ji))
-    diag.index_add_(0, e_j, torch.einsum("eri,erj->eij", Jj, Jj))
-    diag.index_add_(0, g_i, torch.einsum("gri,grj->gij", Jg, Jg))
-    diag.index_add_(0, p_i, (Jp.T @ Jp)[None])
+    diag = diag.index_add(0, e_i, torch.einsum("eri,erj->eij", Ji, Ji))
+    diag = diag.index_add(0, e_j, torch.einsum("eri,erj->eij", Jj, Jj))
+    diag = diag.index_add(0, g_i, torch.einsum("gri,grj->gij", Jg, Jg))
+    diag = diag.index_add(0, p_i, (Jp.T @ Jp)[None])
 
     def matvec(x):  # x: [K, 6]
         yi = torch.einsum("eri,ei->er", Ji, x[e_i])
@@ -228,11 +230,10 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
         y_g = torch.einsum("gri,gi->gr", Jg, x[g_i])
         y_p = Jp @ x[p_i][0]
         out = torch.zeros_like(x)
-        out.index_add_(0, e_i, jt(Ji, y_e))
-        out.index_add_(0, e_j, jt(Jj, y_e))
-        out.index_add_(0, g_i, jt(Jg, y_g))
-        out.index_add_(0, p_i, (Jp.T @ y_p)[None])
-        return out
+        out = out.index_add(0, e_i, jt(Ji, y_e))
+        out = out.index_add(0, e_j, jt(Jj, y_e))
+        out = out.index_add(0, g_i, jt(Jg, y_g))
+        return out.index_add(0, p_i, (Jp.T @ y_p)[None])
 
     return rhs, matvec, diag
 

@@ -144,24 +144,33 @@ def preintegrate(
     # covariance leaves use the accumulated pre-step rotation (exactly the
     # sequential A_i/B_i); masked steps are (A=I, Q=0)
     Ra_hat = pre_R @ se3.hat(a)  # [K,3,3]
-    A = torch.zeros((K, 9, 9), dtype=dtype, device=dev)
-    A[:, 0:3, 0:3] = dR_inc.transpose(-1, -2)
-    A[:, 3:6, 0:3] = -Ra_hat * dtc[..., None]
-    A[:, 3:6, 3:6] = eye[None]
-    A[:, 6:9, 0:3] = -0.5 * Ra_hat * (dtc * dtc)[..., None]
-    A[:, 6:9, 3:6] = eye[None] * dtc[..., None]
-    A[:, 6:9, 6:9] = eye[None]
-    B = torch.zeros((K, 9, 6), dtype=dtype, device=dev)
-    B[:, 0:3, 0:3] = Jr * dtc[..., None]
-    B[:, 3:6, 3:6] = pre_R * dtc[..., None]
-    B[:, 6:9, 3:6] = 0.5 * pre_R * (dtc * dtc)[..., None]
+    # the 9x9 / 9x6 blocks are assembled out of place (no slice writes into
+    # a fresh tensor), so the function also runs under torch.func.vmap
+    # (the lane axis of pipeline/multistream.py)
+    z33 = torch.zeros((K, 3, 3), dtype=dtype, device=dev)
+    I33 = eye.expand(K, 3, 3)
+
+    def blocks(rows):
+        return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=-2)
+
+    A = blocks([
+        [dR_inc.transpose(-1, -2), z33, z33],
+        [-Ra_hat * dtc[..., None], I33, z33],
+        [-0.5 * Ra_hat * (dtc * dtc)[..., None], I33 * dtc[..., None], I33],
+    ])
+    B = blocks([
+        [Jr * dtc[..., None], z33],
+        [z33, pre_R * dtc[..., None]],
+        [z33, 0.5 * pre_R * (dtc * dtc)[..., None]],
+    ])
     safe_dt = torch.where(dt > 0, dt, 1.0)
     noise = torch.cat(
         [(sg2 / safe_dt)[:, None].expand(K, 3), (sa2 / safe_dt)[:, None].expand(K, 3)],
         dim=-1,
     ).to(dtype)
     Q = (B * noise[:, None, :]) @ B.transpose(-1, -2)
-    Q[:, 6:9, 6:9] += eye[None] * (si2 * dt)[:, None, None]
+    q_int = I33 * (si2 * dt)[:, None, None]
+    Q = torch.cat([Q[:, :6], torch.cat([Q[:, 6:, :6], Q[:, 6:, 6:] + q_int], dim=-1)], dim=-2)
 
     segs = (
         dR_inc, dv_l, dp_l, dt,

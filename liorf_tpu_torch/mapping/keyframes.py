@@ -184,8 +184,10 @@ def assemble_local_map(
             (kx_s[1:] != kx_s[:-1]) | (kyz_s[1:] != kyz_s[:-1]),
         ]
     )
-    rep = torch.zeros((K,), dtype=torch.bool, device=dev)
-    rep[order] = first & near_r[order]
+    # out of place (a scatter, not a slice write): also runs under vmap
+    rep = torch.zeros((K,), dtype=torch.bool, device=dev).scatter(
+        0, order, first & near_r[order]
+    )
     near = rep | recent
 
     # take up to near_cap selected keyframes, preferring the closest

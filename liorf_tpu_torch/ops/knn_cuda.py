@@ -23,6 +23,12 @@ operation rounded separately, and so do the plain versions below: kernel and
 plain version agree bit for bit, ties resolve to the lower index in both.
 (The TPU K2 used the |q|^2+|t|^2-2q.t expansion, knn_pallas.py:47-51.)
 
+Both kernels take a lane axis: inputs stacked on a leading ``[B]`` axis (one
+lock-step session each, ``pipeline/multistream.py``) are served by ONE launch,
+the lane being a grid axis of the launch. The per-lane arithmetic is the
+one-session kernel's, so lane ``b`` of a stacked call equals a call on lane
+``b``'s data bit for bit. The launch counters count launches, not lanes.
+
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. There is no
 fallback on a failed build or launch.
@@ -45,6 +51,8 @@ from pathlib import Path
 
 import torch
 
+from ..core.build import build_dir
+
 MAX_K = 8
 _BIG = 1e30  # "no neighbour" coordinate / distance threshold of the callers
 
@@ -56,13 +64,6 @@ NVCC_FLAGS = (
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
-
-
-def _build_dir() -> Path:
-    env = os.environ.get("LIORF_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[2] / "build" / "liorf_tpu_torch"
 
 
 def _find_nvcc() -> str:
@@ -85,7 +86,7 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _lib
     src = _SOURCE.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra_flags).encode()).hexdigest()[:12]
-    out_dir = _build_dir()
+    out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libknn_kernels_{tag}.so"
     if not so.exists():
@@ -105,11 +106,13 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.liorf_knn_max_k.argtypes = []
     lib.liorf_knn_max_k.restype = ci
-    lib.liorf_knn_grid_topk.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.liorf_knn_grid_topk.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.liorf_knn_grid_topk.restype = ci
-    lib.liorf_knn_bruteforce_ranges.argtypes = [ci, ci, ci, ci]
+    lib.liorf_knn_bruteforce_ranges.argtypes = [ci, ci, ci, ci, ci]
     lib.liorf_knn_bruteforce_ranges.restype = ci
-    lib.liorf_knn_bruteforce.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.liorf_knn_bruteforce.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+    ]
     lib.liorf_knn_bruteforce.restype = ci
     if lib.liorf_knn_max_k() != MAX_K:
         raise RuntimeError("kernel library and wrapper disagree on MAX_K")
@@ -246,11 +249,23 @@ def topk_candidates(
     )
 
 
+def _lane(grid, b: int):
+    """Lane ``b`` of a stacked grid (every field has a leading [B] axis)."""
+    return type(grid)(*(f[b] for f in grid))
+
+
 def knn_grid_topk_plain(
     grid, queries: torch.Tensor, query_mask: torch.Tensor, k: int = 5, bucket: int = 16
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`knn_grid_topk`: the 27 runs by
-    ``searchsorted``, the ``[N, 27*bucket]`` gather, then the top-k tail."""
+    ``searchsorted``, the ``[N, 27*bucket]`` gather, then the top-k tail.
+    Stacked inputs (queries [B,N,3]) go lane by lane."""
+    if queries.dim() == 3:
+        outs = [
+            knn_grid_topk_plain(_lane(grid, b), queries[b], query_mask[b], k, bucket)
+            for b in range(queries.shape[0])
+        ]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     n = queries.shape[0]
     starts, ends = _neighbor_runs(grid, queries, query_mask)
     counts = torch.clamp(ends - starts, max=bucket)
@@ -283,6 +298,9 @@ def knn_grid_topk(
     idx [N,k] i32) with indices into the sorted grid and missing neighbours
     as (+inf, 0). One kernel launch on the card; origin and cell_size are
     read there, never on the host.
+
+    Stacked sessions: grid fields [B,M,3], [B,M], [B,3], [B], queries
+    [B,N,3], query_mask [B,N] -> [B,N,k]; still one launch.
     """
     _check_k(k)
     if bucket < 1:
@@ -292,23 +310,27 @@ def knn_grid_topk(
     if queries.device.type != "cuda":
         raise ValueError(f"knn_grid_topk: unsupported device {queries.device}")
     dev = queries.device
-    n, m = queries.shape[0], grid.xyz.shape[0]
-    _check(queries, "queries", torch.float32, (n, 3), dev)
-    _check(query_mask, "query_mask", torch.bool, (n,), dev)
-    _check(grid.xyz, "grid.xyz", torch.float32, (m, 3), dev)
-    _check(grid.keys, "grid.keys", torch.int32, (m,), dev)
-    _check(grid.origin, "grid.origin", torch.float32, (3,), dev)
-    _check(grid.cell_size, "grid.cell_size", torch.float32, (), dev)
+    lead = tuple(queries.shape[:-2])  # () or (B,)
+    if len(lead) > 1:
+        raise ValueError(f"queries: shape {tuple(queries.shape)}, expected [N,3] or [B,N,3]")
+    lanes = lead[0] if lead else 1
+    n, m = queries.shape[-2], grid.xyz.shape[-2]
+    _check(queries, "queries", torch.float32, lead + (n, 3), dev)
+    _check(query_mask, "query_mask", torch.bool, lead + (n,), dev)
+    _check(grid.xyz, "grid.xyz", torch.float32, lead + (m, 3), dev)
+    _check(grid.keys, "grid.keys", torch.int32, lead + (m,), dev)
+    _check(grid.origin, "grid.origin", torch.float32, lead + (3,), dev)
+    _check(grid.cell_size, "grid.cell_size", torch.float32, lead, dev)
     lib = load_library()
-    out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
-    if n == 0:
+    out_d = torch.empty(lead + (n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty(lead + (n, k), dtype=torch.int32, device=dev)
+    if n == 0 or lanes == 0:
         return out_d, out_i
     with torch.cuda.device(dev):
         err = lib.liorf_knn_grid_topk(
             grid.xyz.data_ptr(), grid.keys.data_ptr(), grid.origin.data_ptr(),
             grid.cell_size.data_ptr(), queries.data_ptr(), query_mask.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), n, m, k, bucket,
+            out_d.data_ptr(), out_i.data_ptr(), lanes, n, m, k, bucket,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -336,8 +358,15 @@ def knn_bruteforce_plain(
 
     Streams the targets in tiles with a running top-k merged by a stable
     sort; the running best is concatenated first, so among equal distances
-    the lower target index stays ahead.
+    the lower target index stays ahead. Stacked inputs (queries [B,N,3]) go
+    lane by lane.
     """
+    if queries.dim() == 3:
+        outs = [
+            knn_bruteforce_plain(map_xyz[b], map_mask[b], queries[b], query_mask[b], k, tile)
+            for b in range(queries.shape[0])
+        ]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
     n, m = queries.shape[0], map_xyz.shape[0]
     dev = queries.device
     best_d = torch.full((n, k), torch.inf, dtype=queries.dtype, device=dev)
@@ -368,7 +397,9 @@ def knn_bruteforce(
     """Exact k-NN of queries [N,3] against masked targets [M,3].
 
     Returns (d2 [N,k] f32, idx [N,k] i32); masked queries and missing
-    neighbours come back as (+inf, 0).
+    neighbours come back as (+inf, 0). Stacked sessions: map [B,M,3] + mask
+    [B,M], queries [B,N,3] + mask [B,N] -> [B,N,k]; still one launch (and
+    the merge pass when the targets are split).
     """
     _check_k(k)
     if queries.device.type == "cpu":
@@ -376,29 +407,41 @@ def knn_bruteforce(
     if queries.device.type != "cuda":
         raise ValueError(f"knn_bruteforce: unsupported device {queries.device}")
     dev = queries.device
-    n, m = queries.shape[0], map_xyz.shape[0]
-    _check(map_xyz, "map_xyz", torch.float32, (m, 3), dev)
-    _check(map_mask, "map_mask", torch.bool, (m,), dev)
-    _check(queries, "queries", torch.float32, (n, 3), dev)
-    _check(query_mask, "query_mask", torch.bool, (n,), dev)
+    lead = tuple(queries.shape[:-2])  # () or (B,)
+    if len(lead) > 1:
+        raise ValueError(f"queries: shape {tuple(queries.shape)}, expected [N,3] or [B,N,3]")
+    lanes = lead[0] if lead else 1
+    n, m = queries.shape[-2], map_xyz.shape[-2]
+    _check(map_xyz, "map_xyz", torch.float32, lead + (m, 3), dev)
+    _check(map_mask, "map_mask", torch.bool, lead + (m,), dev)
+    _check(queries, "queries", torch.float32, lead + (n, 3), dev)
+    _check(query_mask, "query_mask", torch.bool, lead + (n,), dev)
     lib = load_library()
-    out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
-    if n == 0:
+    out_d = torch.empty(lead + (n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty(lead + (n, k), dtype=torch.int32, device=dev)
+    if n == 0 or lanes == 0:
         return out_d, out_i
-    # the kernel stages the targets with 16-byte cp.async copies
+    # the kernel stages the targets with 16-byte cp.async copies: every
+    # lane's block must start on a 16-byte boundary, so a stacked map whose
+    # lane length is not a multiple of 16 is copied into one that is (the
+    # padding targets are masked and past the m searched ones)
+    mstride = m
+    if lanes > 1 and m % 16:
+        mstride = m + 16 - m % 16
+        map_xyz = torch.nn.functional.pad(map_xyz, (0, 0, 0, mstride - m))
+        map_mask = torch.nn.functional.pad(map_mask, (0, mstride - m))
     map_xyz, map_mask = _aligned16(map_xyz), _aligned16(map_mask)
     sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    ranges = lib.liorf_knn_bruteforce_ranges(n, m, k, sms)
+    ranges = lib.liorf_knn_bruteforce_ranges(lanes, n, m, k, sms)
     # partial lists of the target ranges, merged by a second kernel
-    part = ranges * n * k if ranges > 1 else 0
+    part = lanes * ranges * n * k if ranges > 1 else 0
     part_d = torch.empty(part, dtype=torch.float32, device=dev)
     part_i = torch.empty(part, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.liorf_knn_bruteforce(
             map_xyz.data_ptr(), map_mask.data_ptr(), queries.data_ptr(),
             query_mask.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            part_d.data_ptr(), part_i.data_ptr(), n, m, k, sms,
+            part_d.data_ptr(), part_i.data_ptr(), lanes, n, m, mstride, k, sms,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -12,6 +12,22 @@ from typing import NamedTuple
 import torch
 
 
+# Batched 3x3 eigh on the card: cuSOLVER's batched solver refuses a batch of
+# 32768 matrices or more (CUSOLVER_STATUS_INVALID_VALUE from its buffer-size
+# query; 24576 runs; NVIDIA H100, torch 2.11 + CUDA 12.8), so a longer batch
+# — several sessions' neighbourhoods stacked (pipeline/multistream.py) —
+# goes in slices of the bench point's scan size. Each matrix is solved on
+# its own either way.
+_EIGH_BATCH = 16384
+
+
+def _eigh(S: torch.Tensor):
+    if S.shape[0] <= _EIGH_BATCH:
+        return torch.linalg.eigh(S)
+    parts = [torch.linalg.eigh(c) for c in torch.split(S, _EIGH_BATCH)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
 class PlaneFit(NamedTuple):
     normal: torch.Tensor  # [N, 3] unit plane normal
     d: torch.Tensor  # [N] plane offset: n.p + d = 0 for points on the plane
@@ -40,7 +56,7 @@ def fit_planes(
     # neighborhoods, which are rejected via lambda_mid below. The batched
     # 3x3 eigh is a library call outside any kernel, as in the JAX package.
     S = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
-    lam, V = torch.linalg.eigh(S)  # ascending eigenvalues
+    lam, V = _eigh(S)  # ascending eigenvalues
     normal = V[..., :, 0]  # [N, 3]
     d = -torch.einsum("ni,ni->n", normal, centroid)
 

@@ -78,36 +78,6 @@ def _rot_derivatives(rpy: torch.Tensor) -> torch.Tensor:
     return torch.stack([d_roll, d_pitch, d_yaw])
 
 
-def _build_system(pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params):
-    """One linearization: correspondences + plane fits + (H, g, count)."""
-    R = se3.euler_to_rot(pose[:3])
-    t = pose[3:]
-    world = scan_xyz @ R.T + t
-
-    d2, idx = knn_grid(grid, world, scan_mask, k=5, bucket=params.knn_bucket)
-    gate = d2[:, 4] < params.corr_dist * params.corr_dist  # 5th NN close enough
-    nbr_mask = torch.isfinite(d2) & gate[:, None]
-    neighbors = grid.xyz[idx]  # [N, 5, 3]
-
-    fit = fit_planes(neighbors, nbr_mask, params.plane_max_resid)
-    pd2 = torch.einsum("ni,ni->n", fit.normal, world) + fit.d
-    s = 1.0 - 0.9 * torch.abs(pd2) / scan_norm_quarter
-    sel = scan_mask & gate & fit.valid & (s > params.min_weight)
-    w = torch.where(sel, s, 0.0)
-
-    dR = _rot_derivatives(pose[:3])  # [3, 3, 3]
-    # J_rot[n, k] = normal_n . (dR_k @ p_n)
-    rotated = torch.einsum("kij,nj->nki", dR, scan_xyz)
-    J_rot = torch.einsum("nki,ni->nk", rotated, fit.normal)
-    J = torch.cat([J_rot, fit.normal], dim=-1) * w[:, None]  # [N, 6]
-    b = -(w * pd2)
-
-    H = J.T @ J
-    g = J.T @ b
-    count = torch.sum(sel.to(torch.int32))
-    return H, g, count
-
-
 def scan_to_map(
     scan_xyz: torch.Tensor,
     scan_mask: torch.Tensor,
@@ -118,50 +88,116 @@ def scan_to_map(
     """Register a scan against the local map grid starting from init_pose.
 
     scan_xyz: [N, 3] deskewed points in the *sensor* frame; init_pose [6]
-    rpyxyz mapping sensor -> map frame. Runs on the device the inputs are on.
+    rpyxyz mapping sensor -> map frame. Runs on the device the inputs are on,
+    as the one-lane case of :func:`scan_to_map_lanes`.
     """
+    res = scan_to_map_lanes(
+        scan_xyz[None], scan_mask[None], SpatialHashGrid(*(f[None] for f in grid)),
+        init_pose[None], params,
+    )
+    return ScanMatchResult(*(f[0] for f in res))
+
+
+def _build_system_lanes(pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params):
+    """One linearization of B sessions at once (correspondences + plane fits
+    + (H, g, count)): pose [B, 6], scan [B, N, 3] + mask, a stacked grid
+    ([B, ...] fields). One K1 launch for every lane; the plane fits run over
+    the flattened [B*N] neighbourhoods. Returns H [B, 6, 6], g [B, 6],
+    count [B]."""
+    B, N = scan_mask.shape
+    R = se3.euler_to_rot(pose[:, :3])  # [B, 3, 3]
+    t = pose[:, 3:]
+    world = scan_xyz @ R.transpose(-1, -2) + t[:, None, :]
+
+    d2, idx = knn_grid(grid, world, scan_mask, k=5, bucket=params.knn_bucket)
+    gate = d2[..., 4] < params.corr_dist * params.corr_dist
+    nbr_mask = torch.isfinite(d2) & gate[..., None]
+    lanes = torch.arange(B, device=idx.device)[:, None, None]
+    neighbors = grid.xyz[lanes, idx]  # [B, N, 5, 3]
+
+    fit = fit_planes(
+        neighbors.reshape(B * N, 5, 3), nbr_mask.reshape(B * N, 5), params.plane_max_resid
+    )
+    normal, d, valid = fit.normal.reshape(B, N, 3), fit.d.reshape(B, N), fit.valid.reshape(B, N)
+    pd2 = torch.einsum("bni,bni->bn", normal, world) + d
+    s = 1.0 - 0.9 * torch.abs(pd2) / scan_norm_quarter
+    sel = scan_mask & gate & valid & (s > params.min_weight)
+    w = torch.where(sel, s, 0.0)
+
+    dR = torch.func.vmap(_rot_derivatives)(pose[:, :3])  # [B, 3, 3, 3]
+    rotated = torch.einsum("bkij,bnj->bnki", dR, scan_xyz)
+    J_rot = torch.einsum("bnki,bni->bnk", rotated, normal)
+    J = torch.cat([J_rot, normal], dim=-1) * w[..., None]  # [B, N, 6]
+    b_ = -(w * pd2)
+
+    Jt = J.transpose(-1, -2)
+    H = Jt @ J
+    g = (Jt @ b_[..., None])[..., 0]
+    count = torch.sum(sel.to(torch.int32), dim=-1)
+    return H, g, count
+
+
+def scan_to_map_lanes(
+    scan_xyz: torch.Tensor,
+    scan_mask: torch.Tensor,
+    grid: SpatialHashGrid,
+    init_pose: torch.Tensor,
+    params: ScanMatchParams = ScanMatchParams(),
+) -> ScanMatchResult:
+    """:func:`scan_to_map` for B sessions stacked on a leading axis (scan
+    [B, N, 3] + mask [B, N], a stacked grid, init_pose [B, 6]); every field
+    of the result gets the [B] axis. The single-session matcher is its
+    B = 1 case.
+
+    One batched Gauss-Newton loop: each iteration linearizes every lane
+    (one K1 launch for all of them) and solves the B 6x6 systems together;
+    a lane whose own loop would have stopped (converged or too few
+    matches) is frozen — its pose, match count and iteration count stay as
+    its single-session loop left them, as a vmapped ``lax.while_loop``
+    does. The host reads one "all done" flag per iteration (in place of
+    the JAX package's ``lax.while_loop``, scan_match.py:205 there)."""
+    B = scan_xyz.shape[0]
     dev = scan_xyz.device
-    # |p|^(1/4) of the sensor-frame points (reference's weighting term).
     scan_norm_quarter = torch.sqrt(
         torch.sqrt(torch.linalg.norm(scan_xyz, dim=-1) + 1e-12)
     )
-
     pose = init_pose.to(torch.float32)
-    P = torch.eye(6, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    degenerate = torch.zeros((), dtype=torch.bool, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
+    P = eye6.expand(B, 6, 6)
+    degenerate = torch.zeros((B,), dtype=torch.bool, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    count = torch.zeros((B,), dtype=torch.int32, device=dev)
+    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
     it = 0
-    # Python loop in place of lax.while_loop (scan_match.py:205 of the JAX
-    # package): one bool is read from the device per iteration.
     while it < params.max_iters:
-        H, g, count = _build_system(
+        H, g, cnt = _build_system_lanes(
             pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params
         )
-        enough = count >= params.min_points
-
+        live = ~done
+        enough = cnt >= params.min_points
         # Degeneracy analysis on the first iteration only (reference :1242);
-        # a real branch in place of lax.cond(it == 0, ...) (:179).
+        # every lane is on its first iteration together.
         if it == 0:
             lam, V = torch.linalg.eigh(H)
             good = lam >= params.eigen_thresh
-            P = (V * good[None, :].to(H.dtype)) @ V.T
-            degenerate = ~torch.all(good)
+            P = (V * good[:, None, :].to(H.dtype)) @ V.transpose(-1, -2)
+            degenerate = ~torch.all(good, dim=-1)
 
         x = torch.linalg.solve(H + eye6 * 1e-6, g)
-        x = torch.where(degenerate, P @ x, x)
-        x = torch.where(enough, x, torch.zeros_like(x))
+        x = torch.where(degenerate[:, None], (P @ x[..., None])[..., 0], x)
+        x = torch.where(enough[:, None], x, torch.zeros_like(x))
 
-        pose = pose + x
-        delta_rot = torch.rad2deg(torch.linalg.norm(x[:3]))
-        delta_trans = torch.linalg.norm(x[3:]) * 100.0
+        pose = torch.where(live[:, None], pose + x, pose)
+        count = torch.where(live, cnt, count)
+        iters = iters + live.to(torch.int32)
+        delta_rot = torch.rad2deg(torch.linalg.norm(x[:, :3], dim=-1))
+        delta_trans = torch.linalg.norm(x[:, 3:], dim=-1) * 100.0
         converged = (delta_rot < params.conv_rot_deg) & (
             delta_trans < params.conv_trans_cm
         )
-        done = converged | ~enough
+        done = done | (converged | ~enough)
         it += 1
-        if bool(done):
+        if bool(torch.all(done)):
             break
 
     # The match count is the last linearization's (pre-final-update), as in
@@ -170,6 +206,6 @@ def scan_to_map(
         pose=pose,
         degenerate=degenerate,
         converged=done & (count >= params.min_points),
-        iters=torch.tensor(it, dtype=torch.int32, device=dev),
+        iters=iters,
         num_matched=count,
     )

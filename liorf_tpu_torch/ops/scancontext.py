@@ -49,7 +49,7 @@ def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     desc = torch.full(
         (NUM_RING * NUM_SECTOR + 1,), -torch.inf, dtype=torch.float32, device=xyz.device
     )
-    desc.scatter_reduce_(
+    desc = desc.scatter_reduce(  # out of place: also runs under torch.func.vmap
         0, flat, torch.where(ok, z, -torch.inf).to(torch.float32),
         reduce="amax", include_self=True,
     )

@@ -22,7 +22,7 @@ from ..imu import preintegration as preint
 from ..ops import scancontext
 from ..ops.deskew import deskew_scan, integrate_gyro
 from ..ops.knn import SpatialHashGrid
-from ..ops.scan_match import ScanMatchParams, scan_to_map
+from ..ops.scan_match import ScanMatchParams, scan_to_map, scan_to_map_lanes
 
 
 class FrameParams(NamedTuple):
@@ -147,22 +147,12 @@ def _select_filter(flag, a: imu_fusion.FusionFilter, b: imu_fusion.FusionFilter)
     )
 
 
-def frame_core(
-    xyz, rel_t, mask, scan_start,
-    dk_times, dk_gyr, dk_mask,
-    fu_acc, fu_gyr, fu_dts, fu_mask,
-    grid: SpatialHashGrid,
-    filt: imu_fusion.FusionFilter,
-    last_kf_pose: torch.Tensor,
-    params: FrameParams,
-    imu_rpy: torch.Tensor | None = None,
-    imu_rpy_ok: torch.Tensor | None = None,
-) -> FrameCore:
-    """The per-frame policy chain: deskew -> voxel downsample -> IMU
-    preintegration guess -> scan-to-map GN -> 9-axis attitude slerp + z/rot
-    clamps (transformUpdate, mapOptmization.cpp:1323-1353) -> fusion
-    correction with divergence reinit -> keyframe gate (saveFrame,
-    :1365-1384)."""
+def _frame_front(
+    xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
+    fu_acc, fu_gyr, fu_dts, fu_mask, filt: imu_fusion.FusionFilter, params: FrameParams,
+):
+    """frame_core up to the scan matcher: deskew -> voxel downsample ->
+    IMU preintegration guess. Reads nothing back (runs under vmap)."""
     # --- front-end: deskew + downsample (imageProjection) ---
     if params.deskew:
         tl = integrate_gyro(dk_times, dk_gyr, dk_mask)
@@ -181,10 +171,17 @@ def frame_core(
         pre, filt.mean.ba, filt.mean.bg, params.fusion.imu,
     )
     guess = torch.cat([se3.rot_to_euler(nav.R), nav.p])
+    return deskewed, ds_xyz, ds_mask, pre, guess
 
-    # --- scan-to-map GN (mapOptmization.scan2MapOptimization) ---
-    res = scan_to_map(ds_xyz, ds_mask, grid, guess, params.match)
-    pose = res.pose.clone()
+
+def _frame_back(
+    reg_pose, reg_degenerate, pre, filt: imu_fusion.FusionFilter,
+    last_kf_pose, params: FrameParams, imu_rpy=None, imu_rpy_ok=None,
+):
+    """frame_core after the scan matcher: 9-axis slerp + clamps -> fusion
+    correction with divergence reinit -> keyframe gate. Reads nothing back
+    (runs under vmap). Returns (pose, filter, diverged, is_kf)."""
+    pose = reg_pose
     # transformUpdate 9-axis attitude blending (mapOptmization.cpp:1323-1346)
     if imu_rpy is not None and params.imu_rpy_weight > 0:
         w = params.imu_rpy_weight
@@ -196,17 +193,21 @@ def frame_core(
             torch.stack([z, pose[1], z]), torch.stack([z, imu_rpy[1], z]), w
         )[1]
         use = imu_rpy_ok & (torch.abs(imu_rpy[1]) < 1.4)
-        pose[0] = torch.where(use, roll_s, pose[0])
-        pose[1] = torch.where(use, pitch_s, pose[1])
-    pose[0] = torch.clamp(pose[0], -params.rot_tol, params.rot_tol)
-    pose[1] = torch.clamp(pose[1], -params.rot_tol, params.rot_tol)
-    pose[5] = torch.clamp(pose[5], -params.z_tol, params.z_tol)
+        pose = torch.stack([
+            torch.where(use, roll_s, pose[0]), torch.where(use, pitch_s, pose[1]), *pose[2:]
+        ])
+    pose = torch.stack([
+        torch.clamp(pose[0], -params.rot_tol, params.rot_tol),
+        torch.clamp(pose[1], -params.rot_tol, params.rot_tol),
+        pose[2], pose[3], pose[4],
+        torch.clamp(pose[5], -params.z_tol, params.z_tol),
+    ])
 
     # --- fusion correction with device-side divergence reinit ---
     R_l = se3.euler_to_rot(pose[:3])
     p_l = pose[3:]
     step = imu_fusion.fusion_step(
-        filt, pre, R_l, p_l, res.degenerate, params.fusion
+        filt, pre, R_l, p_l, reg_degenerate, params.fusion
     )
     fresh = imu_fusion.init_filter(R_l, p_l, params.fusion)
     new_filt = _select_filter(step.diverged, fresh, step.filter)
@@ -216,7 +217,34 @@ def frame_core(
     is_kf = (torch.abs(rel[:3]) > params.kf_angle).any() | (
         torch.linalg.norm(rel[3:]) > params.kf_dist
     )
+    return pose, new_filt, step.diverged, is_kf
 
+
+def frame_core(
+    xyz, rel_t, mask, scan_start,
+    dk_times, dk_gyr, dk_mask,
+    fu_acc, fu_gyr, fu_dts, fu_mask,
+    grid: SpatialHashGrid,
+    filt: imu_fusion.FusionFilter,
+    last_kf_pose: torch.Tensor,
+    params: FrameParams,
+    imu_rpy: torch.Tensor | None = None,
+    imu_rpy_ok: torch.Tensor | None = None,
+) -> FrameCore:
+    """The per-frame policy chain: deskew -> voxel downsample -> IMU
+    preintegration guess -> scan-to-map GN -> 9-axis attitude slerp + z/rot
+    clamps (transformUpdate, mapOptmization.cpp:1323-1353) -> fusion
+    correction with divergence reinit -> keyframe gate (saveFrame,
+    :1365-1384)."""
+    deskewed, ds_xyz, ds_mask, pre, guess = _frame_front(
+        xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
+        fu_acc, fu_gyr, fu_dts, fu_mask, filt, params,
+    )
+    # --- scan-to-map GN (mapOptmization.scan2MapOptimization) ---
+    res = scan_to_map(ds_xyz, ds_mask, grid, guess, params.match)
+    pose, new_filt, diverged, is_kf = _frame_back(
+        res.pose, res.degenerate, pre, filt, last_kf_pose, params, imu_rpy, imu_rpy_ok
+    )
     return FrameCore(
         pose=pose,
         degenerate=res.degenerate,
@@ -224,7 +252,49 @@ def frame_core(
         num_matched=res.num_matched,
         is_kf=is_kf,
         filter=new_filt,
-        diverged=step.diverged,
+        diverged=diverged,
+        deskewed=deskewed,
+        ds_xyz=ds_xyz,
+        ds_mask=ds_mask,
+        gn_iters=res.iters,
+    )
+
+
+def frame_core_lanes(
+    xyz, rel_t, mask, scan_start,
+    dk_times, dk_gyr, dk_mask,
+    fu_acc, fu_gyr, fu_dts, fu_mask,
+    grid: SpatialHashGrid,
+    filt: imu_fusion.FusionFilter,
+    last_kf_pose: torch.Tensor,
+    params: FrameParams,
+    imu_rpy: torch.Tensor,
+    imu_rpy_ok: torch.Tensor,
+) -> FrameCore:
+    """:func:`frame_core` for B lock-step sessions: every input, the grid
+    and the filter carry a leading [B] axis, and so does every output (the
+    9-axis attitude is read only when ``params.imu_rpy_weight`` > 0).
+
+    The parts that read nothing back run under ``torch.func.vmap``; the
+    scan matcher, which reads its loop flag, is the batched
+    ``scan_to_map_lanes`` (one K1 launch per iteration for all lanes)."""
+    vmap = torch.func.vmap
+    deskewed, ds_xyz, ds_mask, pre, guess = vmap(
+        lambda *a: _frame_front(*a, params)
+    )(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
+      fu_acc, fu_gyr, fu_dts, fu_mask, filt)
+    res = scan_to_map_lanes(ds_xyz, ds_mask, grid, guess, params.match)
+    pose, new_filt, diverged, is_kf = vmap(
+        lambda p, d, pr, f, kf, r, ok: _frame_back(p, d, pr, f, kf, params, r, ok)
+    )(res.pose, res.degenerate, pre, filt, last_kf_pose, imu_rpy, imu_rpy_ok)
+    return FrameCore(
+        pose=pose,
+        degenerate=res.degenerate,
+        converged=res.converged,
+        num_matched=res.num_matched,
+        is_kf=is_kf,
+        filter=new_filt,
+        diverged=diverged,
         deskewed=deskewed,
         ds_xyz=ds_xyz,
         ds_mask=ds_mask,

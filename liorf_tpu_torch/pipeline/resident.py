@@ -37,6 +37,7 @@ never read the index back.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 from collections import Counter, deque
@@ -45,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core import se3
 from ..core.device import resolve_device
 from ..core.pointcloud import PAD_COORD
@@ -55,9 +57,9 @@ from ..imu import fusion as imu_fusion
 from ..mapping.keyframes import assemble_local_map, subsample_to_cap
 from ..ops import knn, scancontext
 from ..ops.deskew import deskew_scan, integrate_gyro
-from ..ops.icp import ICPParams, icp_point2point
+from ..ops.icp import ICPParams, icp_point2point, icp_point2point_lanes
 from .config import SlamConfig
-from .frame_step import FrameParams, frame_core
+from .frame_step import FrameParams, frame_core, frame_core_lanes
 from .slam import FrameResult, LiorfPipeline, next_aligned_gps
 
 _F32 = torch.float32
@@ -261,23 +263,34 @@ def _solve_graph_resident(state: ResidentState, params: ResidentParams, full: bo
     return torch.where(keep, new_poses, state.kf_poses)
 
 
-def _try_loop_closure(state: ResidentState, params: ResidentParams, k, now,
-                      do_loop: bool, ext_has: bool, ext_t_cur, ext_t_pre,
-                      tally: Counter):
-    """Loop closure for the just-inserted keyframe ``k`` (a device index).
+class LoopPrep(NamedTuple):
+    """What the loop branch knows before its ICP (see _loop_prepare)."""
+
+    src_xyz: torch.Tensor  # [cap, 3] current submap (SC pre-rotated), padded
+    cur_m: torch.Tensor  # [cap]
+    prev_xyz: torch.Tensor  # [cap, 3] candidate's +-halfwidth submap
+    prev_m: torch.Tensor  # [cap]
+    gate: torch.Tensor  # [] bool: a candidate and enough points
+    use_sc: torch.Tensor  # [] bool: ScanContext candidate (init from its yaw)
+    init_pose: torch.Tensor  # [6]
+    cur_pose: torch.Tensor  # [6]
+    cand_pose: torch.Tensor  # [6]
+    cur_k: torch.Tensor  # [] keyframe closing the loop
+    cand: torch.Tensor  # [] earlier keyframe
+
+
+def _loop_prepare(state: ResidentState, params: ResidentParams, k, now,
+                  do_loop, ext_has, ext_t_cur, ext_t_pre) -> LoopPrep:
+    """Loop branch up to the ICP, for the just-inserted keyframe ``k`` (a
+    device index). Reads nothing back (runs under vmap on stacked lanes).
 
     External candidate first (time-stamped pair from a third-party
     detector, ``mapOptmization.cpp:767-819``: stamps mapped to the nearest
     keyframes by searchsorted over the time ring), then RS (radius +
     time-gap search over keyframe positions, ``:732-765``), then
     ScanContext fallback (``Scancontext.cpp:253-344``); the chosen
-    candidate is ICP-verified against a +-halfwidth world-frame submap
-    (``:821-844``, leaf 0.5) and accepted under the fitness threshold
-    (``:571-585``) and the two extra gates of ``ResidentParams``.
-
-    Updates the loop rings in place. Returns ``(state, added)``: ``added``
-    is a device bool when an ICP ran, else ``False`` (the gate was closed,
-    one host read, and nothing can have been added)."""
+    candidate's +-halfwidth world-frame submap (``:821-844``, leaf 0.5)
+    and the current keyframe's cloud are the ICP's inputs."""
     K = state.kf_poses.shape[0]
     dev = state.kf_poses.device
     idx = torch.arange(K, dtype=_I64, device=dev)
@@ -369,62 +382,92 @@ def _try_loop_closure(state: ResidentState, params: ResidentParams, k, now,
     n_cur = torch.sum(cur_m.to(_I64))
     n_prev = torch.sum(prev_m.to(_I64))
     gate = found & (n_cur >= 300) & (n_prev >= 1000) & ~_at(state.kf_has_loop, cur_k)
-    # The JAX branch runs the ICP whatever the gate and throws the result
-    # away; the acceptance below contains the gate, so skipping it when the
-    # gate is closed leaves the state the same.
-    tally["read:loop_gate"] += 1
-    if not bool(gate):
-        return state, False
-    tally["icp_runs"] += 1
-    res = icp_point2point(
-        src_xyz, cur_m, prev_xyz, prev_m, torch.zeros(6, dtype=_F32, device=dev),
-        ICPParams(
-            max_iters=params.loop_icp_iters,
-            max_corr_dist=params.loop_search_radius * 2.0,
-        ),
-    )
+    return LoopPrep(src_xyz, cur_m, prev_xyz, prev_m, gate, use_sc, init_pose,
+                    cur_pose, cand_pose, cur_k, cand)
 
+
+def _loop_factor(prep: LoopPrep, res_pose, res_converged, res_fitness, res_inlier_frac,
+                 params: ResidentParams):
+    """Loop branch after the ICP: acceptance and the factor's measurement
+    and noise. Reads nothing back (runs under vmap). Returns (accept, Rm,
+    tm, sqrt_info, cauchy)."""
     # corrected world pose of the current keyframe: icp o (init or cur)
-    base = torch.where(use_sc, init_pose, cur_pose)
-    corrected = se3.pose_compose(res.pose, base)
-    rel = se3.pose_between(cand_pose, corrected)
+    base = torch.where(prep.use_sc, prep.init_pose, prep.cur_pose)
+    corrected = se3.pose_compose(res_pose, base)
+    rel = se3.pose_between(prep.cand_pose, corrected)
     Rm = se3.euler_to_rot(rel[:3])
     tm = rel[3:]
 
     # acceptance: reference fitness gate (mapOptmization.cpp:581-585) PLUS
     # inlier-fraction and drift-budget consistency (see ResidentParams)
-    corr_norm = torch.linalg.vector_norm(corrected[3:] - cur_pose[3:])
-    idx_gap = torch.abs(cur_k - cand).to(_F32)
+    corr_norm = torch.linalg.vector_norm(corrected[3:] - prep.cur_pose[3:])
+    idx_gap = torch.abs(prep.cur_k - prep.cand).to(_F32)
     budget = (
         params.loop_correction_floor
         + params.loop_drift_budget * idx_gap * params.kf_spacing
     )
     accept = (
-        gate
-        & res.converged
-        & (res.fitness <= params.loop_fitness_thresh)
-        & (res.inlier_frac >= params.loop_min_inlier_frac)
+        prep.gate
+        & res_converged
+        & (res_fitness <= params.loop_fitness_thresh)
+        & (res_inlier_frac >= params.loop_min_inlier_frac)
         & (corr_norm <= budget)
     )
 
     # noise: SC loops get the constant robust model (var 0.5 + Cauchy 1,
     # :711-726); RS loops fitness-scaled diagonal (:596-620)
-    sc_sigma = torch.full((6,), math.sqrt(0.5), dtype=_F32, device=dev)
-    rs_sigma = torch.sqrt(torch.clamp(res.fitness, min=1e-4)).to(_F32).expand(6)
-    sigma = torch.where(use_sc, sc_sigma, rs_sigma)
-    cauchy = use_sc.to(_F32)
+    sc_sigma = torch.full((6,), math.sqrt(0.5), dtype=_F32, device=res_pose.device)
+    rs_sigma = torch.sqrt(torch.clamp(res_fitness, min=1e-4)).to(_F32).expand(6)
+    sigma = torch.where(prep.use_sc, sc_sigma, rs_sigma)
+    return accept, Rm, tm, 1.0 / sigma, prep.use_sc.to(_F32)
+
+
+def _loop_icp_params(params: ResidentParams) -> ICPParams:
+    return ICPParams(
+        max_iters=params.loop_icp_iters,
+        max_corr_dist=params.loop_search_radius * 2.0,
+    )
+
+
+def _try_loop_closure(state: ResidentState, params: ResidentParams, k, now,
+                      do_loop: bool, ext_has: bool, ext_t_cur, ext_t_pre,
+                      tally: Counter):
+    """Loop closure for the just-inserted keyframe ``k`` (a device index):
+    candidate and submaps (:func:`_loop_prepare`), ICP verification (kernel
+    K2) and acceptance under the fitness threshold (``:571-585``) and the
+    two extra gates of ``ResidentParams`` (:func:`_loop_factor`).
+
+    Updates the loop rings in place. Returns ``(state, added)``: ``added``
+    is a device bool when an ICP ran, else ``False`` (the gate was closed,
+    one host read, and nothing can have been added)."""
+    dev = state.kf_poses.device
+    prep = _loop_prepare(state, params, k, now, do_loop, ext_has, ext_t_cur, ext_t_pre)
+    # The JAX branch runs the ICP whatever the gate and throws the result
+    # away; the acceptance contains the gate, so skipping it when the
+    # gate is closed leaves the state the same.
+    tally["read:loop_gate"] += 1
+    if not bool(prep.gate):
+        return state, False
+    tally["icp_runs"] += 1
+    res = icp_point2point(
+        prep.src_xyz, prep.cur_m, prep.prev_xyz, prep.prev_m,
+        torch.zeros(6, dtype=_F32, device=dev), _loop_icp_params(params),
+    )
+    accept, Rm, tm, sqrt_info, cauchy = _loop_factor(
+        prep, res.pose, res.converged, res.fitness, res.inlier_frac, params
+    )
 
     L = state.l_i.shape[0]
     li = torch.clamp(state.l_count, max=L - 1)
     can_add = accept & (state.l_count < L)
-    _put_where(state.l_i, li, can_add, cand)
-    _put_where(state.l_j, li, can_add, cur_k)
+    _put_where(state.l_i, li, can_add, prep.cand)
+    _put_where(state.l_j, li, can_add, prep.cur_k)
     _put_where(state.l_Rm, li, can_add, Rm)
     _put_where(state.l_tm, li, can_add, tm)
-    _put_where(state.l_sqrt, li, can_add, 1.0 / sigma)
+    _put_where(state.l_sqrt, li, can_add, sqrt_info)
     _put_where(state.l_cauchy, li, can_add, cauchy)
     state.l_count.add_(can_add.to(_I64))
-    _put(state.kf_has_loop, cur_k, _at(state.kf_has_loop, cur_k) | can_add)
+    _put(state.kf_has_loop, prep.cur_k, _at(state.kf_has_loop, prep.cur_k) | can_add)
     return state, can_add
 
 
@@ -633,6 +676,306 @@ def resident_step(
     return state, host, core.gn_iters
 
 
+# ---------------------------------------------------------------------------
+# Lane axis: B lock-step sessions, state stacked on a leading [B] axis
+# (pipeline/multistream.py). JAX vmaps resident_step, and its lax.cond
+# branches become selects; here the host reads each branch condition as ONE
+# [B] vector, runs a branch when any lane takes it, batched over all lanes,
+# and masks every ring write by that lane's flag.
+# ---------------------------------------------------------------------------
+
+def stack_states(states):
+    """One state with a leading [B] axis on every tensor, from B states of
+    one shape (nested NamedTuples included)."""
+    first = states[0]
+    if isinstance(first, tuple):
+        return type(first)(*(stack_states(list(f)) for f in zip(*states)))
+    return torch.stack(states)
+
+
+def lane_state(state, b: int):
+    """Lane ``b`` of a stacked state (views of the stacked tensors)."""
+    if isinstance(state, tuple):
+        return type(state)(*(lane_state(f, b) for f in state))
+    return state[b]
+
+
+def _bcast(cond: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[B] condition reshaped to broadcast against a [B, ...] value."""
+    return cond.reshape(cond.shape + (1,) * (like.dim() - cond.dim()))
+
+
+def _put_where_lanes(ring, lanes, i, cond, value) -> None:
+    """``ring[lanes[b], i[b]] = cond[b] ? value[b] : ring[lanes[b], i[b]]``
+    in place for every b (index tensors: nothing is read back)."""
+    old = ring[lanes, i]
+    ring[lanes, i] = torch.where(_bcast(cond, old), value.to(ring.dtype), old)
+
+
+def _flags(xs, dev) -> torch.Tensor:
+    """A list of host bools as a [B] device tensor."""
+    return torch.tensor(xs, dtype=torch.bool).to(dev, non_blocking=True)
+
+
+def _try_loop_closure_lanes(state: ResidentState, params: ResidentParams, search,
+                            k, now, do_loop, ext_has, ext_t_cur, ext_t_pre,
+                            tally: Counter):
+    """:func:`_try_loop_closure` on the lanes where ``search`` (host bools)
+    is set: the candidates and submaps of every lane under vmap, ONE read of
+    the [B] gate, then one batched ICP (one K2 launch per iteration) over
+    the lanes whose gate is open. Returns a device [B] bool of the lanes
+    that added a loop factor, or None when no ICP ran."""
+    dev = state.kf_poses.device
+    B = state.kf_poses.shape[0]
+    prep = torch.func.vmap(
+        lambda st, kk, nw, dl, eh, tc, tp: _loop_prepare(st, params, kk, nw, dl, eh, tc, tp)
+    )(state, k, now, _flags(do_loop, dev), _flags(ext_has, dev), ext_t_cur, ext_t_pre)
+    gate = prep.gate & _flags(search, dev)
+    tally["read:loop_gate"] += 1
+    open_lanes = [b for b, g in enumerate(gate.tolist()) if g]
+    if not open_lanes:
+        return None
+    tally["icp_runs"] += 1
+    tally["icp_lanes"] += len(open_lanes)
+    sub = torch.tensor(open_lanes, dtype=_I64).to(dev, non_blocking=True)
+    sp = LoopPrep(*(x.index_select(0, sub) for x in prep))
+    res = icp_point2point_lanes(
+        sp.src_xyz, sp.cur_m, sp.prev_xyz, sp.prev_m,
+        torch.zeros((len(open_lanes), 6), dtype=_F32, device=dev), _loop_icp_params(params),
+    )
+    accept, Rm, tm, sqrt_info, cauchy = torch.func.vmap(
+        lambda p, rp, rc, rf, ri: _loop_factor(p, rp, rc, rf, ri, params)
+    )(sp, res.pose, res.converged, res.fitness, res.inlier_frac)
+
+    L = state.l_i.shape[1]
+    l_count = state.l_count.index_select(0, sub)
+    li = torch.clamp(l_count, max=L - 1)
+    can_add = accept & (l_count < L)
+    _put_where_lanes(state.l_i, sub, li, can_add, sp.cand)
+    _put_where_lanes(state.l_j, sub, li, can_add, sp.cur_k)
+    _put_where_lanes(state.l_Rm, sub, li, can_add, Rm)
+    _put_where_lanes(state.l_tm, sub, li, can_add, tm)
+    _put_where_lanes(state.l_sqrt, sub, li, can_add, sqrt_info)
+    _put_where_lanes(state.l_cauchy, sub, li, can_add, cauchy)
+    state.l_count.index_add_(0, sub, can_add.to(_I64))
+    _put_where_lanes(state.kf_has_loop, sub, sp.cur_k, can_add, can_add)
+    added = torch.zeros((B,), dtype=torch.bool, device=dev)
+    return added.index_copy(0, sub, can_add)
+
+
+def _insert_keyframe_lanes(state: ResidentState, params: ResidentParams, hosts, is_kf,
+                           kf_mask, pose, now, ds_xyz, ds_mask, desc, key,
+                           gps_has, gps_enu, gps_sigma, do_loop, ext_has,
+                           ext_t_cur, ext_t_pre, tally: Counter):
+    """:func:`_insert_keyframe` on every lane at once, each ring write
+    masked by that lane's ``kf_mask`` (device [B]; ``is_kf`` is the same as
+    host bools); the solves and the local-map rebuild run under vmap over
+    all lanes and are kept where the lane is a keyframe — lax.cond under
+    vmap. Returns (state, new_pose [B, 6])."""
+    B, K = state.kf_poses.shape[:2]
+    C = params.kf_cloud_cap
+    dev = state.kf_poses.device
+    vmap = torch.func.vmap
+    lanes = torch.arange(B, device=dev)
+    m = kf_mask
+    k = torch.clamp(state.kf_count, max=K - 1)
+    km1 = torch.clamp(k - 1, min=0)
+    prev_pose = state.kf_poses[lanes, km1]
+    first_xyz = state.kf_poses[:, 0, 3:6].clone()
+
+    _put_where_lanes(state.kf_poses, lanes, k, m, pose)
+    _put_where_lanes(state.kf_times, lanes, k, m, now)
+    kfc_xyz, kfc_m = vmap(lambda x, mm: subsample_to_cap(x, mm, C))(ds_xyz, ds_mask)
+    _put_where_lanes(state.kf_clouds, lanes, k, m, kfc_xyz)
+    _put_where_lanes(state.kf_masks, lanes, k, m, kfc_m)
+    _put_where_lanes(state.sc_descs, lanes, k, m, desc)
+    _put_where_lanes(state.sc_keys, lanes, k, m, key)
+
+    Rm, tm = vmap(_chain_edge)(prev_pose, pose)
+    has_prev = (k > 0) & m
+    _put_where_lanes(state.e_Rm, lanes, km1, has_prev, Rm)
+    _put_where_lanes(state.e_tm, lanes, km1, has_prev, tm)
+    dyaw = torch.atan2(Rm[:, 1, 0], Rm[:, 0, 0])
+    prop = vmap(lambda P, y, d: marginal.propagate(P, y, d, torch))(
+        state.g_P, prev_pose[:, 2], torch.stack([dyaw, tm[:, 0], tm[:, 1]], dim=-1)
+    )
+    g_P = torch.where(_bcast(has_prev, prop), prop, state.g_P)
+
+    add_gps = None
+    if any(g and kf for g, kf in zip(gps_has, is_kf)):
+        gm = _flags(gps_has, dev) & m
+        if params.use_gps_elevation:
+            gz, gsz = gps_enu[:, 2], gps_sigma[:, 2]
+        else:
+            gz, gsz = pose[:, 5], torch.full((B,), 0.1, dtype=_F32, device=dev)
+        enu = torch.stack([gps_enu[:, 0], gps_enu[:, 1], gz], dim=-1)
+        sig = torch.clamp(torch.stack([gps_sigma[:, 0], gps_sigma[:, 1], gsz], dim=-1), min=1.0)
+        far = torch.linalg.vector_norm(enu - state.g_last, dim=-1) >= 5.0
+        traveled = torch.linalg.vector_norm(pose[:, 3:6] - first_xyz, dim=-1) >= 5.0
+        cov_open = vmap(lambda P: marginal.gate_open(P, params.pose_cov_threshold))(g_P)
+        G = state.g_i.shape[1]
+        add_gps = gm & far & traveled & cov_open & (state.g_count < G)
+        gi = torch.clamp(state.g_count, max=G - 1)
+        _put_where_lanes(state.g_i, lanes, gi, add_gps, k)
+        _put_where_lanes(state.g_t, lanes, gi, add_gps, enu)
+        _put_where_lanes(state.g_sqrt, lanes, gi, add_gps, 1.0 / sig)
+        state.g_count.add_(add_gps.to(_I64))
+        state.g_last.copy_(torch.where(add_gps[:, None], enu, state.g_last))
+        upd = vmap(lambda P, vx, vy: marginal.gps_update(P, vx, vy, torch))(
+            g_P, sig[:, 0] ** 2, sig[:, 1] ** 2
+        )
+        g_P = torch.where(_bcast(add_gps, upd), upd, g_P)
+    state.g_P.copy_(g_P)
+    state.kf_count.copy_(torch.where(m, torch.clamp(state.kf_count + 1, max=K), state.kf_count))
+
+    # loop closure at the loop cadence, on the lanes whose (host-known)
+    # condition holds
+    search = [
+        kf and params.loop_enabled and (dl or eh) and min(h.kf_count + 1, K) > 2
+        for kf, dl, eh, h in zip(is_kf, do_loop, ext_has, hosts)
+    ]
+    loop_added = None
+    if any(search):
+        loop_added = _try_loop_closure_lanes(
+            state, params, search, k, now, do_loop, ext_has, ext_t_cur, ext_t_pre, tally
+        )
+
+    # graph relaxation: the window solve on every lane; the full one too
+    # when a lane landed a GPS or loop factor (ONE read of the [B] flags)
+    flags = [x for x in (add_gps, loop_added) if x is not None]
+    full = [False] * B
+    if flags:
+        tally["read:full"] += 1
+        full = (functools.reduce(torch.logical_or, flags) & m).tolist()
+    solved = vmap(lambda st: _solve_graph_resident(st, params, False))(state)
+    if any(full):
+        solved_full = vmap(lambda st: _solve_graph_resident(st, params, True))(state)
+        solved = torch.where(_bcast(_flags(full, dev), solved), solved_full, solved)
+    state.kf_poses.copy_(torch.where(_bcast(m, solved), solved, state.kf_poses))
+    new_pose = state.kf_poses[lanes, k]
+
+    grid = vmap(
+        lambda P, Cl, Ms, T, n, ctr, nw: assemble_local_map(
+            P, Cl, Ms, T, n, ctr, nw,
+            radius=params.radius, recent_seconds=params.recent_seconds,
+            near_cap=params.near_cap, map_cap=params.map_cap,
+            leaf=params.map_leaf, cell_size=params.cell_size,
+            density=params.kf_density,
+        )
+    )(state.kf_poses, state.kf_clouds, state.kf_masks, state.kf_times, state.kf_count,
+      new_pose[:, 3:6], now)
+    grid = knn.SpatialHashGrid(
+        *(torch.where(_bcast(m, new), new, old) for new, old in zip(grid, state.grid))
+    )
+    state.last_kf_pose.copy_(torch.where(m[:, None], new_pose, state.last_kf_pose))
+    return state._replace(grid=grid), new_pose
+
+
+def resident_step_lanes(
+    state: ResidentState,
+    hosts: list,
+    xyz, rel_t, mask, scan_start,
+    dk_times, dk_gyr, dk_mask,
+    fu_acc, fu_gyr, fu_dts, fu_mask, fu_times,
+    imu_rpy, imu_rpy_ok,
+    gps_has: list, gps_enu, gps_sigma,
+    do_loop: list,
+    ext_has: list, ext_t_cur, ext_t_pre,
+    params: ResidentParams,
+    tally: Counter,
+) -> tuple[ResidentState, list, torch.Tensor]:
+    """:func:`resident_step` for B lock-step sessions: the state and every
+    tensor input carry a leading [B] axis, ``hosts`` is one HostView per
+    lane and the flags are lists of B host bools. Updates ``state`` in
+    place; returns (state, hosts, gn_iters [B]).
+
+    The host reads ONE [B] vector where the single-session step reads one
+    flag: ``is_kf`` every tick, the loop gate when a lane searches, ``full``
+    when a lane's GPS candidate shipped or an ICP ran."""
+    fp = params.frame
+    dev = state.kf_poses.device
+    B = state.kf_poses.shape[0]
+    lanes = torch.arange(B, device=dev)
+
+    # --- IMU-rate odometry recording (TransformFusion parity) ---
+    ir_R, ir_p = torch.func.vmap(
+        lambda st, a, g, d, mk: imu_fusion.predict_poses_parallel(
+            st, a, g, d, mk, gravity=fp.fusion.imu.gravity)
+    )(state.filt.mean, fu_acc, fu_gyr, fu_dts, fu_mask)
+    ir_block = torch.cat(
+        [fu_times[..., None], se3.rot_to_euler(ir_R), ir_p, fu_mask[..., None].to(_F32)], dim=-1
+    ).to(_F32)
+    TI, Wb = state.imu_traj.shape[1], ir_block.shape[1]
+    ir_off = torch.clamp(state.imu_count, max=TI - Wb)
+    rows = ir_off[:, None] + torch.arange(Wb, dtype=_I64, device=dev)
+    state.imu_traj[lanes[:, None], rows] = ir_block
+    state.imu_count.copy_(torch.clamp(state.imu_count + torch.sum(fu_mask.to(_I64), dim=-1), max=TI))
+
+    core = frame_core_lanes(
+        xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
+        fu_acc, fu_gyr, fu_dts, fu_mask,
+        state.grid, state.filt, state.last_kf_pose, fp, imu_rpy, imu_rpy_ok,
+    )
+    state = state._replace(filt=core.filter)
+    tally["read:is_kf"] += 1
+    is_kf = core.is_kf.tolist()
+    now = scan_start
+
+    K = state.kf_poses.shape[1]
+    want_loop = [h.pending_loop or dl for h, dl in zip(hosts, do_loop)]
+    pending = [
+        w and not (kf and min(h.kf_count + 1, K) > 2)
+        for w, kf, h in zip(want_loop, is_kf, hosts)
+    ]
+    state.pending_loop.copy_(_flags(pending, dev))
+
+    out_pose = core.pose
+    if any(is_kf):
+        desc = torch.func.vmap(scancontext.make_descriptor)(core.deskewed, mask)
+        key = scancontext.ring_key(desc)
+        state, new_pose = _insert_keyframe_lanes(
+            state, params, hosts, is_kf, core.is_kf, core.pose, now, core.ds_xyz,
+            core.ds_mask, desc, key, gps_has, gps_enu, gps_sigma, want_loop, ext_has,
+            ext_t_cur, ext_t_pre, tally,
+        )
+        out_pose = torch.where(core.is_kf[:, None], new_pose, core.pose)
+    hosts = [
+        HostView(min(h.kf_count + 1, K) if kf else h.kf_count, p)
+        for h, kf, p in zip(hosts, is_kf, pending)
+    ]
+
+    # --- trajectory ring append (layout of resident_step) ---
+    T = state.traj.shape[1]
+    t_i = torch.clamp(state.traj_count, max=T - 1)
+    entry = torch.cat(
+        [
+            out_pose.to(_F32),
+            torch.stack(
+                [core.is_kf, core.degenerate, core.converged, core.num_matched], dim=-1
+            ).to(_F32),
+            (state.kf_count - 1).to(_F32)[:, None],
+            state.last_kf_pose.to(_F32),
+        ],
+        dim=-1,
+    )
+    state.traj[lanes, t_i] = entry
+    state.traj_count.copy_(torch.clamp(state.traj_count + 1, max=T))
+    return state, hosts, core.gn_iters
+
+
+def resident_step_packed_lanes(
+    state: ResidentState, hosts: list, bufs: np.ndarray, params: ResidentParams,
+    S: int, W: int, tally: Counter,
+) -> tuple[ResidentState, list, torch.Tensor]:
+    """resident_step_lanes from the B lanes' packed frame buffers ``bufs``
+    [B, frame_buf_size]: ONE host->device copy for the tick. ``bufs`` must
+    be a fresh array every tick (the copy is asynchronous)."""
+    dev = state.kf_poses.device
+    buf_d = torch.from_numpy(bufs).to(dev, non_blocking=True)
+    args = _unpack_frame(buf_d, bufs, S, W)
+    return resident_step_lanes(state, hosts, *args, params=params, tally=tally)
+
+
 def frame_buf_size(S: int, W: int) -> int:
     """Flat f32 frame-input buffer length for scan capacity S, IMU window W."""
     # xyz 3S + rel S + n_kept 1 (mask is recomputed on device — points are
@@ -645,43 +988,48 @@ def frame_buf_size(S: int, W: int) -> int:
 def _unpack_frame(buf: torch.Tensor, host_buf: np.ndarray, S: int, W: int):
     """Slice the fused frame buffer back into resident_step's inputs: the
     tensors from its device copy ``buf``, the three branch flags from the
-    host copy ``host_buf`` (read there, not from the device)."""
+    host copy ``host_buf`` (read there, not from the device).
+
+    Stacked lanes (``buf`` [B, L], ``pipeline/multistream.py``) slice the
+    same way with a leading [B] axis on every tensor; the flags are then
+    one list of B bools each."""
     o = 0
+    lead = tuple(buf.shape[:-1])
 
     def take(n):
         nonlocal o
-        v = buf[o : o + n]
+        v = buf[..., o : o + n]
         o += n
         return v
 
     def flag():
         nonlocal o
-        v = bool(host_buf[o] > 0.5)
+        v = host_buf[..., o] > 0.5
         o += 1
-        return v
+        return v.tolist() if lead else bool(v)
 
-    xyz = take(3 * S).reshape(S, 3)
+    xyz = take(3 * S).reshape(*lead, S, 3)
     rel_t = take(S)
-    n_kept = take(1)[0]
-    mask = torch.arange(S, dtype=_F32, device=buf.device) < n_kept
-    scan_start = take(1)[0]
+    n_kept = take(1)[..., 0]
+    mask = torch.arange(S, dtype=_F32, device=buf.device) < n_kept[..., None]
+    scan_start = take(1)[..., 0]
     dk_times = take(W)
-    dk_gyr = take(3 * W).reshape(W, 3)
+    dk_gyr = take(3 * W).reshape(*lead, W, 3)
     dk_mask = take(W) > 0.5
-    fu_acc = take(3 * W).reshape(W, 3)
-    fu_gyr = take(3 * W).reshape(W, 3)
+    fu_acc = take(3 * W).reshape(*lead, W, 3)
+    fu_gyr = take(3 * W).reshape(*lead, W, 3)
     fu_dts = take(W)
     fu_mask = take(W) > 0.5
     fu_times = take(W)
     imu_rpy = take(3)
-    imu_rpy_ok = take(1)[0] > 0.5
+    imu_rpy_ok = take(1)[..., 0] > 0.5
     gps_has = flag()
     gps_enu = take(3)
     gps_sigma = take(3)
     do_loop = flag()
     ext_has = flag()
-    ext_t_cur = take(1)[0]
-    ext_t_pre = take(1)[0]
+    ext_t_cur = take(1)[..., 0]
+    ext_t_pre = take(1)[..., 0]
     return (
         xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
         fu_acc, fu_gyr, fu_dts, fu_mask, fu_times, imu_rpy, imu_rpy_ok,
@@ -943,6 +1291,11 @@ class ResidentPipeline(LiorfPipeline):
         self.tally: Counter = Counter()
         self._gn_iters = torch.zeros((), dtype=_I64, device=self.device)
 
+    def packer(self) -> dict[str, int]:
+        """Frames whose scan the native packer packed, and those the numpy
+        fallback packed (``native.build_error`` says why it was needed)."""
+        return {k[5:]: v for k, v in sorted(self.tally.items()) if k.startswith("pack:")}
+
     def host_reads(self) -> dict[str, int]:
         """Device->host reads this pipeline made, by kind. The scan matcher
         adds one ``done`` read per GN iteration (``gn_iters_total()``) and
@@ -1067,13 +1420,8 @@ class ResidentPipeline(LiorfPipeline):
         rpy_np = (
             np.asarray(imu_rpy, np.float32) if imu_rpy_ok else np.zeros(3, np.float32)
         )
-        # The JAX package packs the scan with its g++ helper
-        # (native.pack_scan_into, not ported yet) and falls back to this
-        # same numpy compaction: kept points first, so the device rebuilds
-        # the mask as arange(S) < n_kept.
-        xyz, rts, msk = self._pack_scan(scan)
-
         if self.state is None:
+            xyz, rts, msk = self._pack_scan(scan)
             init_pose = self.last_pose.copy()
             if imu_rpy_ok:
                 init_pose[0] = imu_rpy[0]
@@ -1107,8 +1455,28 @@ class ResidentPipeline(LiorfPipeline):
             # every per-frame input in ONE fresh host buffer -> ONE copy
             S, W = cfg.raw_cap, cfg.imu_window
             buf = np.empty(frame_buf_size(S, W), np.float32)
-            buf[: 3 * S] = xyz.ravel()
-            buf[3 * S : 4 * S] = rts
+            # the scan packed in place by the native one-pass filter (g++,
+            # native/), or by the numpy compaction when the library is
+            # unavailable: kept points first either way, so the device
+            # rebuilds the mask as arange(S) < n_kept
+            n_total = native.pack_scan_into(
+                scan.xyz, scan.rel_time, scan.ring,
+                cfg.lidarMinRange**2, cfg.lidarMaxRange**2,
+                cfg.downsampleRate, cfg.point_filter_num,
+                buf[: 3 * S].reshape(S, 3), buf[3 * S : 4 * S],
+                None,  # mask derived on device from the kept count
+            )
+            if n_total < 0:
+                self.tally["pack:numpy"] += 1
+                xyz, rts, msk = self._pack_scan(scan)
+                buf[: 3 * S] = xyz.ravel()
+                buf[3 * S : 4 * S] = rts
+                n_kept = int(msk.sum())
+            else:
+                self.tally["pack:native"] += 1
+                n_kept = min(n_total, S)
+                if n_total > S:
+                    self._warn_truncated(n_total, S)
             o = 4 * S
 
             def put(a, n):
@@ -1116,7 +1484,7 @@ class ResidentPipeline(LiorfPipeline):
                 buf[o : o + n] = a
                 o += n
 
-            put(float(msk.sum()), 1)
+            put(float(n_kept), 1)
             put(scan_start, 1)
             put(dk_t, W)
             put(dk_gyr.ravel(), 3 * W)

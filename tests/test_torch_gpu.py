@@ -184,3 +184,103 @@ def test_make_pipeline_on_the_card_matches_cpu(dev):
     assert int(gpu.state.l_count) == int(cpu.state.l_count) >= 1
     assert counts["knn_bruteforce"] > 0
     np.testing.assert_allclose(gpu.trajectory_arrays()[1], cpu.trajectory_arrays()[1], atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_knn_grid_topk_lanes_vs_plain_and_one_lane(dev, k):
+    """K1 with a lane axis on ragged stacks (a lane of masked queries, a lane
+    with an empty map): one launch, equal bit for bit to the stacked plain
+    version and to one-lane calls."""
+    gen = torch.Generator(device=dev).manual_seed(300 + k)
+    lanes, m, n, bucket = 3, 3001, 777, 8
+    grids = [_ragged_grid(dev, gen, m, bucket) for _ in range(lanes)]
+    grids[2] = tknn.build_grid(grids[2].xyz, torch.zeros_like(grids[2].mask), grids[2].origin, 1.0)
+    qs = [_grid_queries(dev, gen, g, n) for g in grids]
+    grid = type(grids[0])(*(torch.stack(f).contiguous() for f in zip(*grids)))
+    q = torch.stack([x[0] for x in qs]).contiguous()
+    qm = torch.stack([x[1] for x in qs]).contiguous()
+    qm[1] = False
+    before = knn_cuda.knn_grid_topk.launches
+    d_k, i_k = knn_cuda.knn_grid_topk(grid, q, qm, k, bucket)
+    assert knn_cuda.knn_grid_topk.launches == before + 1
+    d_p, i_p = knn_cuda.knn_grid_topk_plain(grid, q, qm, k, bucket)
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    assert torch.isinf(d_k[1]).all()
+    for b, g in enumerate(grids):
+        d1, i1 = knn_cuda.knn_grid_topk(g, q[b], qm[b], k, bucket)
+        assert torch.equal(d1, d_k[b]) and torch.equal(i1, i_k[b])
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_knn_bruteforce_lanes_vs_plain_and_one_lane(dev, k):
+    """K2 with a lane axis: lane lengths that are no multiple of 16 (the
+    wrapper pads), an all-masked map lane, an all-masked query lane; one
+    launch, bit for bit against the plain version and one-lane calls."""
+    gen = torch.Generator(device=dev).manual_seed(400 + k)
+    for lanes, n, m in ((3, 1001, 2505), (5, 33, 17), (2, 4097, 700)):
+        tgt = torch.randn((lanes, m, 3), generator=gen, device=dev) * 5
+        qry = torch.randn((lanes, n, 3), generator=gen, device=dev) * 5
+        tm = torch.rand((lanes, m), generator=gen, device=dev) > 0.2
+        qm = torch.rand((lanes, n), generator=gen, device=dev) > 0.2
+        tm[0] = False
+        qm[-1] = False
+        before = knn_cuda.knn_bruteforce.launches
+        d_k, i_k = knn_cuda.knn_bruteforce(tgt, tm, qry, qm, k)
+        assert knn_cuda.knn_bruteforce.launches == before + 1
+        d_p, i_p = knn_cuda.knn_bruteforce_plain(tgt, tm, qry, qm, k)
+        assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p), (lanes, n, m)
+        for b in range(lanes):
+            d1, i1 = knn_cuda.knn_bruteforce(tgt[b], tm[b], qry[b], qm[b], k)
+            assert torch.equal(d1, d_k[b]) and torch.equal(i1, i_k[b]), (lanes, n, m, b)
+
+
+def test_multistream_on_the_card_matches_single_sessions(dev):
+    """MultiStreamPipeline with no device runs on the card: two distinct
+    streams, six ticks with a loop search every frame; each lane agrees
+    with a single-session run on the card (keyframe flags and loop factors
+    equal, poses within 1e-3), and K1 launched once per batched GN
+    iteration."""
+    from liorf_tpu_torch.ops import knn_cuda as kc
+    from liorf_tpu_torch.pipeline import SlamConfig, make_pipeline
+    from liorf_tpu_torch.pipeline.multistream import MultiStreamPipeline
+    from liorf_tpu_torch.sensors.synthetic import SyntheticConfig, SyntheticDataset
+
+    kw = dict(
+        scan_capacity=4096, map_capacity=16384, kf_cloud_capacity=4096,
+        near_kf_capacity=8, imu_window=32, mappingSurfLeafSize=0.2,
+        surroundingKeyframeMapLeafSize=0.2, point_filter_num=1, downsampleRate=1,
+        loopClosureEnableFlag=True, loopClosureFrequency=10.0,
+        historyKeyframeSearchTimeDiff=0.25, surroundingkeyframeAddingDistThreshold=0.3,
+        kf_capacity=32, traj_capacity=64, gps_capacity=8, loop_capacity=8,
+        imu_rate_capacity=1024,
+    )
+    syns = [SyntheticDataset(SyntheticConfig(n_frames=6, n_rings=16, points_per_ring=250, seed=0)),
+            SyntheticDataset(SyntheticConfig(n_frames=6, n_rings=16, points_per_ring=250, seed=7,
+                                             yaw_rate=0.4, speed=3.0))]
+    streams = [([s.scan(f) for f in range(6)], s.imu_stream()) for s in syns]
+    mp = MultiStreamPipeline(SlamConfig(**kw), n_streams=2)
+    assert mp.device.type == "cuda"
+    iis = [0, 0]
+    kc.reset_launch_counts()
+    for f in range(6):
+        scans = [s[0][f] for s in streams]
+        for b, (_, imu) in enumerate(streams):
+            while iis[b] < len(imu) and imu[iis[b]].stamp <= scans[b].end_time + 0.02:
+                mp.push_imu(b, imu[iis[b]])
+                iis[b] += 1
+        mp.step(scans)
+    mp.finish()
+    assert kc.launch_counts()["knn_grid_topk"] == mp.gn_iters_batched() > 0
+    for b, (scans, imu) in enumerate(streams):
+        one = make_pipeline(SlamConfig(**kw))
+        ii = 0
+        for scan in scans:
+            while ii < len(imu) and imu[ii].stamp <= scan.end_time + 0.02:
+                one.push_imu(imu[ii])
+                ii += 1
+            one.process_scan(scan)
+        shell = mp.stream(b)
+        assert [r.is_keyframe for r in shell.trajectory] == [r.is_keyframe for r in one.trajectory]
+        assert int(shell.state.l_count) == int(one.state.l_count)
+        np.testing.assert_allclose(shell.trajectory_arrays()[1], one.trajectory_arrays()[1],
+                                   atol=1e-3)

@@ -74,6 +74,7 @@ def _state_constructors():
     from liorf_tpu_torch.graph.pose_graph import empty_graph
     from liorf_tpu_torch.mapping.keyframes import KeyframeStore
     from liorf_tpu_torch.pipeline import SlamConfig, make_pipeline
+    from liorf_tpu_torch.pipeline.multistream import MultiStreamPipeline
 
     z3 = np.zeros((4, 3), np.float32)
     grid = dict(xyz=z3, keys=np.zeros(4, np.int32), mask=np.ones(4, bool),
@@ -92,6 +93,9 @@ def _state_constructors():
         ).device,
         "convert.resident_state_from_arrays": lambda **kw: convert.resident_state_from_arrays(
             _resident_fields(), **kw).kf_poses.device,
+        "MultiStreamPipeline": lambda **kw: MultiStreamPipeline(
+            SlamConfig(scan_capacity=256, map_capacity=1024, kf_cloud_capacity=256), 2, **kw
+        ).device,
     }
 
 
@@ -114,7 +118,7 @@ def _resident_fields():
     "name",
     ["KeyframeStore", "empty_graph", "make_cloud", "convert.grid_from_arrays",
      "convert.keyframe_store_from_arrays", "make_pipeline",
-     "convert.resident_state_from_arrays"],
+     "convert.resident_state_from_arrays", "MultiStreamPipeline"],
 )
 def test_state_constructors_default_to_cuda(name):
     """Every constructor of device state follows the pipeline's rule: no
@@ -128,6 +132,20 @@ def test_state_constructors_default_to_cuda(name):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert make(device="cpu").type == "cpu"
+
+
+def test_slice_four_modules_are_in_the_port():
+    """The modules this slice adds exist in the port and import without
+    CUDA (the AST walk above holds them to torch and numpy)."""
+    for name in ("liorf_tpu_torch/pipeline/multistream.py", "liorf_tpu_torch/native/__init__.py",
+                 "liorf_tpu_torch/native/src/liorf_native.cpp",
+                 "liorf_tpu_torch/sensors/kitti.py", "liorf_tpu_torch/sensors/mulran.py",
+                 "liorf_tpu_torch/sensors/rosbag.py"):
+        assert (ROOT / name).exists(), name
+    from liorf_tpu_torch import cli
+
+    with pytest.raises(SystemExit):  # argparse refuses a dataset it does not offer
+        cli.main(["run", "--dataset", "nope", "--out", "x"])
 
 
 def test_make_cloud_keeps_a_tensors_device():
