@@ -11,8 +11,12 @@ repo's bench size and on the loop-closure course, the device-resident
 pipeline (``make_pipeline``, ``ResidentPipeline``) on the same two courses,
 multi-session serving (``MultiStreamPipeline``, N = 1, 4, 8 lock-step
 sessions at the multistream operating point, then N = 4 on the loop
-course), and the ``cli run`` entry point (run, then ``--resume``), and
-checks the outputs. K1 (``knn_grid_topk``) is timed at the main path's
+course), the ``cli run`` entry point (run, then ``--resume``), and the
+distributed modes (``liorf_tpu_torch.dist``: the keyframe-sharded solver,
+point-sharded registration, the sharded loop search and
+``ShardedResidentPipeline``, over NCCL on every visible card and over 4 gloo
+ranks sharing card 0, against the single-device port), and checks the
+outputs. K1 (``knn_grid_topk``) is timed at the main path's
 shapes on the main path's own final grid, right after that path; both
 kernels with a lane axis at N = 8 in the kernels phase.
 
@@ -22,7 +26,7 @@ no CPU fallback: without a CUDA device the script exits with code 5.
 
 Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
-             multistream_path,cli[,profile]
+             multistream_path,cli,dist[,profile]
                       "profile" (not run by default) traces 8 warm frames with
                       torch.profiler: device-busy share and kernel time by name
     --ptxas           print ptxas' register / shared-memory report
@@ -512,36 +516,40 @@ def percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p))
 
 
+MAIN_KW = dict(**BENCH_CAPS, mappingSurfLeafSize=0.3, surroundingKeyframeMapLeafSize=0.3,
+               loopClosureEnableFlag=True)
+
+
 def main_config() -> SlamConfig:
-    return SlamConfig(
-        **BENCH_CAPS, mappingSurfLeafSize=0.3, surroundingKeyframeMapLeafSize=0.3,
-        loopClosureEnableFlag=True,
-    )
+    return SlamConfig(**MAIN_KW)
+
+
+def main_synthetic(n_frames: int) -> dict:
+    return dict(n_frames=n_frames, n_rings=32, points_per_ring=900, seed=SEED)
 
 
 def main_dataset(n_frames: int) -> SyntheticDataset:
     # a fresh dataset of one seed draws the same streams when read in the
     # same order (run_pipeline's), so every path of one course sees one input
-    return SyntheticDataset(
-        SyntheticConfig(n_frames=n_frames, n_rings=32, points_per_ring=900, seed=SEED)
-    )
+    return SyntheticDataset(SyntheticConfig(**main_synthetic(n_frames)))
+
+
+LOOP_KW = dict(**BENCH_CAPS, mappingSurfLeafSize=0.4, surroundingKeyframeMapLeafSize=0.4,
+               loopClosureEnableFlag=True, loopClosureFrequency=2.0,
+               historyKeyframeSearchTimeDiff=2.0, historyKeyframeSearchNum=5)
 
 
 def loop_config() -> SlamConfig:
-    return SlamConfig(
-        **BENCH_CAPS, mappingSurfLeafSize=0.4, surroundingKeyframeMapLeafSize=0.4,
-        loopClosureEnableFlag=True, loopClosureFrequency=2.0,
-        historyKeyframeSearchTimeDiff=2.0, historyKeyframeSearchNum=5,
-    )
+    return SlamConfig(**LOOP_KW)
+
+
+def loop_synthetic(n_frames: int) -> dict:
+    return dict(n_frames=n_frames, n_rings=16, points_per_ring=360, speed=3.0, yaw_rate=1.2,
+                gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01, seed=SEED)
 
 
 def loop_dataset(n_frames: int) -> SyntheticDataset:
-    return SyntheticDataset(
-        SyntheticConfig(
-            n_frames=n_frames, n_rings=16, points_per_ring=360, speed=3.0, yaw_rate=1.2,
-            gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01, seed=SEED,
-        )
-    )
+    return SyntheticDataset(SyntheticConfig(**loop_synthetic(n_frames)))
 
 
 def phase_main_path(n_frames: int = MAIN_FRAMES):
@@ -1285,26 +1293,279 @@ def phase_cli(frames: int = 20, resume_frames: int = 10) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase: dist (the distributed modes, liorf_tpu_torch.dist)
+# ---------------------------------------------------------------------------
+
+# Sizes: the solver at scripts/bench_scaling.py:22-23,33-35 of the JAX
+# package (2048 keyframes and 64 GPS factors a rank, 2 factors a keyframe,
+# SolveParams() = 6 GN x 64 PCG; once more with inner_iters = 4), the
+# registration at the main path's bench size on its own map, a ScanContext
+# database of 1024 keyframes, and ShardedResidentPipeline over 20 frames of
+# the main path's streams — then over the first 32 frames of the loop
+# course, where the first loop closes (frame ~26) and K2 runs in the
+# replicated ICP. Bounds: tests/test_torch_dist.py's.
+DIST_FRAMES = 20
+DIST_LOOP_FRAMES = 32
+DIST_KF_PER_RANK = 2048
+DIST_GPS_PER_RANK = 64
+DIST_SC = 1024
+DIST_GLOO_RANKS = 4
+DIST_SOLVE_M = 2e-3
+DIST_INNER_M = 5e-3
+DIST_SCAN = 5e-4
+DIST_TRANS_M = 2e-2
+DIST_ROT = 6e-2
+DIST_KF_AGREE = 0.8
+
+
+def dist_graph(world: int):
+    from liorf_tpu_torch.dist.multihost import demo_graph
+
+    K = DIST_KF_PER_RANK * world
+    return demo_graph(K, 2 * K, DIST_GPS_PER_RANK * world, device=DEV)
+
+
+def timed_s(fn, repeats: int = 1):
+    """(result of a warm call, seconds per call of ``repeats`` more)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / repeats
+
+
+def dist_references():
+    """The single-device port on the dist phase's inputs, on the card: the
+    pipeline (under deterministic algorithms, as the sharded one runs),
+    then the registration on its final map, the loop search, the solves."""
+    from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
+    from liorf_tpu_torch.graph import pose_graph as pg
+    from liorf_tpu_torch.ops import scancontext
+    from liorf_tpu_torch.ops.scan_match import scan_to_map
+
+    ref = {}
+    rp = tres.ResidentPipeline(main_config(), device=DEV)
+    syn = main_dataset(DIST_FRAMES)
+    with deterministic():
+        _, frame_ms = run_pipeline(rp, syn, DIST_FRAMES)
+    n = int(rp.state.traj_count)
+    ref["pipeline"] = dict(traj=rp.state.traj[:n].cpu().numpy(), ms=frame_ms[1:],
+                           gn_iters=rp.gn_iters_total())
+
+    # registration: the next raw scan, downsampled, against the final map,
+    # from the last pose with an offset
+    scan = syn.scan(DIST_FRAMES - 1)
+    ds, ds_mask = voxel_downsample_xyz(
+        torch.as_tensor(scan.xyz, device=DEV), torch.ones(len(scan.xyz), dtype=torch.bool, device=DEV),
+        0.3, BENCH_CAPS["scan_capacity"])
+    init = rp.state.traj[n - 1, :6] + torch.tensor([0.01, -0.01, 0.02, 0.1, -0.05, 0.05], device=DEV)
+    grid = rp.state.grid
+    params = rp.frame_params.match
+    res, dt = timed_s(lambda: scan_to_map(ds, ds_mask, grid, init, params))
+    ref["scan"] = dict(inputs=dict(scan_xyz=ds.cpu().numpy(), scan_mask=ds_mask.cpu().numpy(),
+                                   init_pose=init.cpu().numpy(),
+                                   **{f"grid_{f}": getattr(grid, f).cpu().numpy()
+                                      for f in grid._fields}),
+                       params=params._asdict(), pose=res.pose.cpu().numpy(),
+                       num_matched=int(res.num_matched), iters=int(res.iters),
+                       ms_per_iter=dt * 1e3 / int(res.iters))
+
+    rng = np.random.default_rng(SEED)
+    descs = rng.uniform(0, 5, size=(DIST_SC, 20, 60)).astype(np.float32)
+    q = np.roll(descs[7], 13, axis=1)
+    dargs = [torch.as_tensor(a, device=DEV) for a in (descs, descs.mean(-1), q, q.mean(-1))]
+    det, dt = timed_s(lambda: scancontext.detect_loop(dargs[0], dargs[1], DIST_SC - 24, dargs[2],
+                                                      dargs[3]), repeats=5)
+    ref["detect"] = dict(inputs=dict(descs=descs, keys=descs.mean(-1), qdesc=q, qkey=q.mean(-1)),
+                         index=int(det.index), distance=float(det.distance),
+                         yaw=float(det.yaw), ms=dt * 1e3)
+
+    for world in sorted({torch.cuda.device_count(), DIST_GLOO_RANKS}):
+        graph, gt, n_nodes = dist_graph(world)
+        out, dt = timed_s(lambda: pg.solve(graph, params=pg.SolveParams()))
+        ref[f"solve{world}"] = dict(
+            inputs={k: v.cpu().numpy() for k, v in graph._asdict().items()},
+            ts=out.ts.cpu().numpy(), gt=gt, n=n_nodes,
+            ms_per_gn_step=dt * 1e3 / pg.SolveParams().gn_iters)
+    return ref
+
+
+def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict, tmp: str):
+    """One launch of the cases worker over ``world`` ranks; every rank's
+    results bit-identical to rank 0's; rank 0's held to the references."""
+    from liorf_tpu_torch.dist.launch import launch
+
+    cases, arrays = [], {}
+
+    def add(case, inputs):
+        cases.append(case)
+        arrays.update({f"{case['name']}/{k}": v for k, v in inputs.items()})
+
+    solve_in = ref[f"solve{world}"]["inputs"]
+    add(dict(kind="solve", name="solve", params={}, repeats=1), solve_in)
+    add(dict(kind="solve", name="inner", params=dict(inner_iters=4), repeats=1), solve_in)
+    add(dict(kind="scan", name="scan", params=ref["scan"]["params"], repeats=1),
+        ref["scan"]["inputs"])
+    add(dict(kind="detect", name="detect", count=DIST_SC - 24, repeats=5),
+        ref["detect"]["inputs"])
+    add(dict(kind="pipeline", name="pipeline", config=MAIN_KW,
+             synthetic=main_synthetic(DIST_FRAMES), frames=DIST_FRAMES), {})
+    add(dict(kind="pipeline", name="loop", config=LOOP_KW,
+             synthetic=loop_synthetic(DIST_LOOP_FRAMES), frames=DIST_LOOP_FRAMES), {})
+    path = os.path.join(tmp, f"{label}.npz")
+    np.savez(path, spec=json.dumps({"cases": cases}), **arrays)
+    out_dir = os.path.join(tmp, label)
+    t0 = time.perf_counter()
+    launch(world, ["--cases", path, "--results", out_dir], module="liorf_tpu_torch.dist.cases",
+           backend=backend, device=device, timeout=480)
+    seconds = time.perf_counter() - t0
+
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
+    metas = [json.loads(str(r["meta"])) for r in ranks]
+    for r, rk in enumerate(ranks[1:], 1):
+        check(rk.files == ranks[0].files, f"{label}: rank {r} returned other results")
+        for k in rk.files:
+            if k != "meta":
+                check(np.array_equal(rk[k], ranks[0][k], equal_nan=True),
+                      f"{label}: rank {r}'s {k} differs from rank 0's")
+    out, m0 = ranks[0], metas[0]
+
+    sref = ref[f"solve{world}"]
+    n = sref["n"]
+    solve_err = float(np.abs(out["solve/ts"][:n] - sref["ts"][:n]).max())
+    inner_err = float(np.abs(out["inner/ts"][:n] - sref["ts"][:n]).max())
+    init_err = float(np.linalg.norm(sref["inputs"]["ts"][:n] - sref["gt"][:n], axis=1).mean())
+    gt_err = {k: float(np.linalg.norm(out[f"{k}/ts"][:n] - sref["gt"][:n], axis=1).mean())
+              for k in ("solve", "inner")}
+    params = dict(gn=6, pcg=64)
+    coll = m0["solve"]["collectives_per_solve"]
+    per_pcg = (sum(coll.values()) - params["gn"] * 5 - 2) / (params["gn"] * params["pcg"])
+
+    scan_err = float(np.abs(out["scan/pose"] - ref["scan"]["pose"]).max())
+    traj, rtraj = out["pipeline/traj"], ref["pipeline"]["traj"]
+    pipe = [m["pipeline"] for m in metas]
+    loop = [m["loop"] for m in metas]
+    report = dict(
+        world=world, backend=backend, device=device or "cuda (one card a rank)",
+        launch_seconds=seconds,
+        solve=dict(nodes=DIST_KF_PER_RANK * world, ms_per_gn_step=m0["solve"]["ms_per_gn_step"],
+                   single_ms_per_gn_step=sref["ms_per_gn_step"],
+                   max_abs_vs_single_m=solve_err, err_vs_gt_m=gt_err["solve"],
+                   init_err_m=init_err, collectives_per_solve=coll,
+                   collectives_per_pcg_iteration=per_pcg),
+        inner_outer=dict(inner_iters=4, ms_per_gn_step=m0["inner"]["ms_per_gn_step"],
+                         max_abs_vs_single_m=inner_err, err_vs_gt_m=gt_err["inner"],
+                         collectives_per_solve=m0["inner"]["collectives_per_solve"]),
+        scan=dict(points=int(ref["scan"]["inputs"]["scan_mask"].shape[0]),
+                  points_per_rank=-(-ref["scan"]["inputs"]["scan_mask"].shape[0] // world),
+                  ms_per_iter=m0["scan"]["ms_per_iter"],
+                  single_ms_per_iter=ref["scan"]["ms_per_iter"], max_abs_vs_single=scan_err,
+                  num_matched=int(out["scan/num_matched"]),
+                  single_num_matched=ref["scan"]["num_matched"],
+                  iters=int(out["scan/iters"]), k1_launches=m0["scan"]["k1_launches"]),
+        detect=dict(database=DIST_SC, index=int(out["detect/index"]),
+                    distance=float(out["detect/distance"]), ms=m0["detect"]["ms"],
+                    single_ms=ref["detect"]["ms"]),
+        pipeline=dict(
+            frames=DIST_FRAMES, ms_per_frame_p50=percentile(pipe[0]["frame_ms"][1:], 50),
+            single_ms_per_frame_p50=percentile(ref["pipeline"]["ms"], 50),
+            max_abs_trans_vs_single_m=float(np.abs(traj[:, 3:6] - rtraj[:, 3:6]).max()),
+            max_abs_rot_vs_single=float(np.abs(traj[:, :3] - rtraj[:, :3]).max()),
+            keyframe_flags_equal=float((traj[:, 6] == rtraj[:, 6]).mean()),
+            gn_iters_per_rank=[p["gn_iters"] for p in pipe],
+            k1_launches_per_rank=[p["k1_launches"] for p in pipe],
+            k2_launches_per_rank=[p["k2_launches"] for p in pipe],
+            single_gn_iters=ref["pipeline"]["gn_iters"], keyframes=pipe[0]["keyframes"],
+            loop_factors=pipe[0]["loop_factors"], host_reads=pipe[0]["host_reads"]),
+        loop_course=dict(
+            frames=DIST_LOOP_FRAMES, ms_per_frame_p50=percentile(loop[0]["frame_ms"][1:], 50),
+            loop_factors=loop[0]["loop_factors"], icp_runs=loop[0]["icp_runs"],
+            gn_iters_per_rank=[p["gn_iters"] for p in loop],
+            k1_launches_per_rank=[p["k1_launches"] for p in loop],
+            k2_launches_per_rank=[p["k2_launches"] for p in loop]),
+    )
+    emit(f"dist_{label}", **report)
+    check(solve_err < DIST_SOLVE_M, f"{label}: solve {solve_err} m from the single-device solve")
+    check(gt_err["solve"] < 0.5 * init_err, f"{label}: the solve did not halve the error")
+    check(inner_err < DIST_INNER_M, f"{label}: inner-outer {inner_err} m from the single solve")
+    check(gt_err["inner"] < 0.5 * init_err, f"{label}: inner-outer did not halve the error")
+    check(per_pcg == 4, f"{label}: {per_pcg} collectives per PCG iteration, expected 4")
+    check(scan_err < DIST_SCAN, f"{label}: registration {scan_err} from the single-device one")
+    check(int(out["scan/num_matched"]) == ref["scan"]["num_matched"],
+          f"{label}: registration matched {int(out['scan/num_matched'])} points, "
+          f"single-device {ref['scan']['num_matched']}")
+    check(m0["scan"]["k1_launches"] == int(out["scan/iters"]),
+          f"{label}: registration K1 launches != GN iterations")
+    check(int(out["detect/index"]) == ref["detect"]["index"] == 7
+          and abs(float(out["detect/distance"]) - ref["detect"]["distance"]) < 1e-5
+          and float(out["detect/yaw"]) == ref["detect"]["yaw"],
+          f"{label}: loop search disagrees with the single-device one")
+    check(traj.shape == rtraj.shape, f"{label}: trajectory shape {traj.shape} != {rtraj.shape}")
+    check(report["pipeline"]["max_abs_trans_vs_single_m"] < DIST_TRANS_M
+          and report["pipeline"]["max_abs_rot_vs_single"] < DIST_ROT
+          and report["pipeline"]["keyframe_flags_equal"] >= DIST_KF_AGREE,
+          f"{label}: sharded pipeline too far from the single-device one")
+    for r, p in enumerate(pipe + loop):
+        check(p["k1_launches"] == p["gn_iters"] > 0,
+              f"{label}: rank {r % world} K1 launches {p['k1_launches']} != GN iterations "
+              f"{p['gn_iters']}")
+        check(p["loop_factors"] == 0 or p["k2_launches"] > 0,
+              f"{label}: rank {r % world} closed a loop without K2")
+    for runs in (pipe, loop):
+        check(len({(p["k1_launches"], p["k2_launches"]) for p in runs}) == 1,
+              f"{label}: ranks launched the kernels unequally")
+    check(loop[0]["loop_factors"] >= 1, f"{label}: no loop closed on the loop course")
+    return {k: pipe[0][f"{n}_launches"] + loop[0][f"{n}_launches"]
+            for k, n in (("knn_grid_topk", "k1"), ("knn_bruteforce", "k2"))}
+
+
+def phase_dist() -> dict:
+    """The distributed modes on the card, against the single-device port on
+    the same inputs: one launch over every visible card on NCCL (one rank a
+    card), one of DIST_GLOO_RANKS gloo ranks sharing card 0 (NCCL refuses
+    two ranks on one card): the sharded arithmetic — padding, blocks,
+    all-gather, reduce-scatter, the first rank's prior — runs on the card.
+    Four ranks on one card show correctness, not scaling. The kernels were
+    built here (phase_device), so the ranks load the same library."""
+    knn_cuda.load_library()
+    t0 = time.perf_counter()
+    ref = dist_references()
+    emit("dist_reference", seconds=time.perf_counter() - t0,
+         single_solve_ms_per_gn_step={k: v["ms_per_gn_step"] for k, v in ref.items()
+                                      if k.startswith("solve")},
+         single_scan_ms_per_iter=ref["scan"]["ms_per_iter"],
+         single_pipeline_ms_per_frame_p50=percentile(ref["pipeline"]["ms"], 50))
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["dist_nccl"] = dist_run("nccl", torch.cuda.device_count(), "nccl", None, ref, tmp)
+        counts[f"dist_gloo{DIST_GLOO_RANKS}"] = dist_run(
+            f"gloo{DIST_GLOO_RANKS}", DIST_GLOO_RANKS, "gloo", "cuda:0", ref, tmp)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument(
         "--phases",
         default="device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,"
-                "multistream_path,cli",
+                "multistream_path,cli,dist",
     )
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     phases = args.phases.split(",")
     full = {
         "device", "kernels", "main_path", "resident_path", "loop_path",
-        "resident_loop_path", "multistream_path", "cli",
+        "resident_loop_path", "multistream_path", "cli", "dist",
     } <= set(phases)
 
     t_start = time.perf_counter()
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
-    main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = None
+    main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
     if "main_path" in phases:
         pipe, main_counts = phase_main_path()
         if kern is not None:
@@ -1325,6 +1586,8 @@ def main() -> None:
         multi_counts = phase_multistream_path()
     if "cli" in phases:
         phase_cli()
+    if "dist" in phases:
+        dist_counts = phase_dist()
     torch.cuda.synchronize()
     emit("done", seconds=time.perf_counter() - t_start, phases=phases)
     if not full:
@@ -1351,6 +1614,7 @@ def main() -> None:
             "main_path": main_counts[name], "loop_path": loop_counts[name],
             "resident_path": res_counts[name], "resident_loop_path": res_loop_counts[name],
             **{f"multistream_path_{n}": c[name] for n, c in multi_counts.items()},
+            **{path: c[name] for path, c in dist_counts.items()},
         }
 
     def lanes8(name):
@@ -1374,6 +1638,8 @@ def main() -> None:
     check(res_loop_counts["knn_bruteforce"] > 0, "K2 never launched on the resident loop path")
     check(all(c["knn_grid_topk"] > 0 for c in multi_counts.values()),
           "K1 never launched on the multistream path")
+    check(all(c["knn_grid_topk"] > 0 and c["knn_bruteforce"] > 0 for c in dist_counts.values()),
+          "K1 or K2 never launched on the dist path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

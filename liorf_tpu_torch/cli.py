@@ -11,10 +11,15 @@ The off-ROS equivalent of ``roslaunch liorf run_*.launch`` + ``rosbag play``
         --out /tmp/bag_out
     python -m liorf_tpu_torch.cli eval --est /tmp/out/trajectory_tum.txt --gt gt_tum.txt
 
+    python -m liorf_tpu_torch.cli optimize --checkpoint /tmp/out/checkpoint.pkl --out /tmp/o.pkl
+
 ``run`` drives the device-resident pipeline (``make_pipeline``) over the
 synthetic, KITTI raw, MulRan or rosbag dataset and prints one JSON line; its
 files and that line are those of ``liorf_tpu.cli run``. On stderr it also
 prints which scan packer ran (``{"packer": {"native": n, "numpy": m}}``).
+``optimize`` relaxes a checkpoint's whole keyframe graph with the
+distributed solver over the current process group (a group of one when
+there is none; under ``torchrun`` or ``dist.launch``, one rank a process).
 """
 
 from __future__ import annotations
@@ -150,6 +155,110 @@ def cmd_run(args):
     )
 
 
+def optimize_graph(st, device):
+    """The full-batch pose graph of a resident state: every keyframe, the
+    odometry chain (k, k+1), the loop and GPS factor rings, the prior on
+    keyframe 0 (the JAX package's ``cli optimize``, cli.py:222-240 there)."""
+    import torch
+
+    from .core import se3
+    from .graph import pose_graph as pg
+
+    K, L, G = st.kf_poses.shape[0], st.l_i.shape[0], st.g_i.shape[0]
+    i64 = dict(dtype=torch.int64, device=device)
+    idx = torch.arange(K, **i64)
+    e_sqrt = torch.tensor([1.0e3] * 3 + [1.0e2] * 3, dtype=torch.float32, device=device)
+    return pg.PoseGraph(
+        Rs=se3.euler_to_rot(st.kf_poses[:, :3]),
+        ts=st.kf_poses[:, 3:6],
+        node_mask=idx < st.kf_count,
+        e_i=torch.cat([idx, st.l_i]),
+        e_j=torch.cat([torch.clamp(idx + 1, max=K - 1), st.l_j]),
+        e_Rm=torch.cat([st.e_Rm, st.l_Rm]),
+        e_tm=torch.cat([st.e_tm, st.l_tm]),
+        e_sqrt_info=torch.cat([e_sqrt.expand(K, 6), st.l_sqrt]),
+        e_cauchy=torch.cat([torch.zeros(K, dtype=torch.float32, device=device), st.l_cauchy]),
+        e_mask=torch.cat([(idx + 1) < st.kf_count, torch.arange(L, **i64) < st.l_count]),
+        g_i=st.g_i,
+        g_t=st.g_t,
+        g_sqrt_info=st.g_sqrt,
+        g_mask=torch.arange(G, **i64) < st.g_count,
+        prior_i=torch.zeros((), **i64),
+        prior_R=st.prior_R,
+        prior_t=st.prior_t,
+        prior_sqrt_info=torch.full((6,), 1.0e2, dtype=torch.float32, device=device),
+    )
+
+
+def cmd_optimize(args):
+    """Distributed full-batch pose-graph relaxation of a checkpointed run.
+
+    The live pipeline solves incrementally on one device; this offline pass
+    splits keyframe blocks and factors over the ranks of the current
+    process group (explicit all-gather / reduce-scatter collectives,
+    ``dist/shard_map_solver.py``) and rewrites every keyframe pose — the
+    reference's loop-closure isam bursts (mapOptmization.cpp:1521-1531,
+    correctPoses :1611-1642) over the whole graph. Without a process group
+    it joins torchrun's (``WORLD_SIZE`` / ``RANK`` in the environment) or
+    forms a group of one on ``--device``. Rank 0 writes the checkpoint and
+    prints the JSON line."""
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+
+    from .core import se3
+    from .core.device import resolve_device
+    from .dist.multihost import init_multihost
+    from .dist.shard_map_solver import solve_shard_map
+    from .dist.sharded import make_mesh
+    from .graph import pose_graph as pg
+    from .mapping.export import load_checkpoint, save_checkpoint
+    from .pipeline import SlamConfig, load_config, make_pipeline
+
+    own_group = not tdist.is_initialized()
+    if own_group and "WORLD_SIZE" in os.environ:
+        args.device = init_multihost(None, int(os.environ["WORLD_SIZE"]),
+                                     int(os.environ["RANK"]), device=args.device)
+    elif own_group:
+        device = resolve_device(args.device, "cli optimize")
+        tdist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo", store=tdist.HashStore(),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+        )
+    try:
+        mesh = make_mesh(args.devices, device=args.device)
+        cfg = load_config(args.config) if args.config else SlamConfig()
+        pipe = make_pipeline(cfg, device=mesh.device)
+        load_checkpoint(pipe, args.checkpoint)
+        st = pipe.state
+        graph = optimize_graph(st, mesh.device)
+        sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        solved = solve_shard_map(
+            graph, mesh, free_from=0,
+            params=pg.SolveParams(gn_iters=args.gn_iters, pcg_iters=args.pcg_iters),
+        )
+        sync()
+        elapsed = time.perf_counter() - t0
+
+        new_poses = torch.cat([se3.rot_to_euler(solved.Rs), solved.ts], dim=-1)
+        keep = graph.node_mask[:, None]
+        pipe.state = st._replace(kf_poses=torch.where(keep, new_poses, st.kf_poses))
+        pipe._synced = False
+        out = args.out or args.checkpoint
+        if mesh.rank == 0:
+            save_checkpoint(pipe, out)
+            print(json.dumps(dict(
+                keyframes=int(st.kf_count), devices=mesh.size,
+                solve_s=round(elapsed, 3), out=out,
+            )))
+    finally:
+        if own_group:
+            tdist.destroy_process_group()
+
+
 def cmd_eval(args):
     """evo-equivalent trajectory evaluation: timestamp-associated pairs,
     SE(3) APE (trans + rot) and SE(3) RPE (trans + rot) — the metrics
@@ -222,6 +331,25 @@ def main(argv=None):
         "there is none; cpu runs the kernels' plain versions)",
     )
     r.set_defaults(fn=cmd_run)
+
+    o = sub.add_parser(
+        "optimize", help="distributed full-batch relaxation of a checkpoint"
+    )
+    o.add_argument("--checkpoint", required=True, help="checkpoint.pkl of this package")
+    o.add_argument("--config", help="reference-format YAML config")
+    o.add_argument("--out", help="output checkpoint (default: in-place)")
+    o.add_argument(
+        "--devices", type=int, default=None,
+        help="ranks of the process group (default: all; without a group, 1)",
+    )
+    o.add_argument("--gn-iters", type=int, default=6)
+    o.add_argument("--pcg-iters", type=int, default=96)
+    o.add_argument(
+        "--device", default=None,
+        help="torch device of this rank (default: cuda, one card per rank; cpu "
+        "solves on the host)",
+    )
+    o.set_defaults(fn=cmd_optimize)
 
     e = sub.add_parser("eval", help="ATE/RPE between TUM trajectories")
     e.add_argument("--est", required=True)

@@ -191,7 +191,9 @@ def _linearize(graph: PoseGraph):
 
 
 def _build_normal_terms(graph: PoseGraph, free_mask):
-    """Linearize and return (rhs [K,6], matvec fn, block-diag [K,6,6])."""
+    """Linearize and return (rhs [K,6], matvec fn, block-diag [K,6,6],
+    (Ji, Jj, Jg)) — the last the masked factor Jacobians, which the
+    distributed solver's shard-local operator reuses."""
     K = graph.Rs.shape[0]
     (r_e, Ji, Jj), (r_g, Jg), (r_p, Jp) = _linearize(graph)
     fm = free_mask.to(r_e.dtype)
@@ -235,14 +237,20 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
         out = out.index_add(0, g_i, jt(Jg, y_g))
         return out.index_add(0, p_i, (Jp.T @ y_p)[None])
 
-    return rhs, matvec, diag
+    return rhs, matvec, diag, (Ji, Jj, Jg)
 
 
-def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float):
+def _local_dot(a, b):
+    return torch.sum(a * b)
+
+
+def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float, dot=_local_dot):
     """Block-Jacobi preconditioned CG for (H + damping I) x = rhs.
 
     A fixed number of iterations in a Python loop (a ``lax.scan`` in
     pose_graph.py:252 of the JAX package); nothing inside reads the device.
+    ``dot`` is the inner product: the distributed solver passes one that
+    sums over the ranks' blocks (``dist/shard_map_solver.py``).
     """
     eye = torch.eye(6, dtype=rhs.dtype, device=rhs.device)
     blocks = precond_blocks + eye[None] * (damping + 1e-6)
@@ -258,16 +266,16 @@ def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float):
     r = rhs
     z = apply_M(r)
     p = z
-    rz = torch.sum(r * z)
+    rz = dot(r, z)
 
     for _ in range(iters):
         Ap = A(p)
-        denom = torch.sum(p * Ap)
+        denom = dot(p, Ap)
         alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = apply_M(r)
-        rz_new = torch.sum(r * z)
+        rz_new = dot(r, z)
         beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, 0.0)
         p = z + beta * p
         rz = rz_new
@@ -278,8 +286,8 @@ class SolveParams(NamedTuple):
     gn_iters: int = 6
     pcg_iters: int = 64
     damping: float = 1e-4
-    # kept for config parity with the JAX package; only its distributed
-    # solvers read it
+    # inner CG iterations of the communication-avoiding preconditioner; only
+    # the distributed solver reads it (dist/shard_map_solver.py)
     inner_iters: int = 0
 
 
@@ -299,7 +307,7 @@ def solve(
 
     # fixed-length Python loop in place of lax.scan (pose_graph.py:289)
     for _ in range(params.gn_iters):
-        rhs, matvec, diag = _build_normal_terms(graph, free_mask)
+        rhs, matvec, diag, _ = _build_normal_terms(graph, free_mask)
         dx = _pcg(matvec, rhs, diag, params.pcg_iters, params.damping)
         dx = dx * free_mask[:, None].to(dx.dtype)
         Rs, ts = se3.se3_retract(graph.Rs, graph.ts, dx)

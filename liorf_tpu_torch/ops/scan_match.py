@@ -84,26 +84,38 @@ def scan_to_map(
     grid: SpatialHashGrid,
     init_pose: torch.Tensor,
     params: ScanMatchParams = ScanMatchParams(),
+    mesh=None,
 ) -> ScanMatchResult:
     """Register a scan against the local map grid starting from init_pose.
 
     scan_xyz: [N, 3] deskewed points in the *sensor* frame; init_pose [6]
     rpyxyz mapping sensor -> map frame. Runs on the device the inputs are on,
-    as the one-lane case of :func:`scan_to_map_lanes`.
+    as the one-lane case of :func:`scan_to_map_lanes`. With a ``mesh``
+    (``dist.sharded.GraphMesh``) every rank passes the whole scan and
+    registers its contiguous block of the points (padded with masked points
+    to a multiple of the ranks); the result is the same on every rank.
     """
+    if mesh is not None:
+        scan_xyz, scan_mask = mesh.local_rows(scan_xyz), mesh.local_rows(scan_mask)
     res = scan_to_map_lanes(
         scan_xyz[None], scan_mask[None], SpatialHashGrid(*(f[None] for f in grid)),
-        init_pose[None], params,
+        init_pose[None], params, mesh=mesh,
     )
     return ScanMatchResult(*(f[0] for f in res))
 
 
-def _build_system_lanes(pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params):
+def _build_system_lanes(pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params,
+                        mesh=None):
     """One linearization of B sessions at once (correspondences + plane fits
     + (H, g, count)): pose [B, 6], scan [B, N, 3] + mask, a stacked grid
     ([B, ...] fields). One K1 launch for every lane; the plane fits run over
     the flattened [B*N] neighbourhoods. Returns H [B, 6, 6], g [B, 6],
-    count [B]."""
+    count [B].
+
+    With a ``mesh`` the scan is this rank's block of points and (H, g,
+    count) are summed over the ranks in one all-reduce of 36 + 6 + 1 values
+    a lane (the JAX package's ``psum``, scan_match.py:117-120 there); the
+    count travels as float32, exact below 2^24 points."""
     B, N = scan_mask.shape
     R = se3.euler_to_rot(pose[:, :3])  # [B, 3, 3]
     t = pose[:, 3:]
@@ -134,6 +146,9 @@ def _build_system_lanes(pose, scan_xyz, scan_mask, scan_norm_quarter, grid, para
     H = Jt @ J
     g = (Jt @ b_[..., None])[..., 0]
     count = torch.sum(sel.to(torch.int32), dim=-1)
+    if mesh is not None:
+        red = mesh.all_reduce(torch.cat([H.reshape(B, 36), g, count[:, None].to(H.dtype)], 1))
+        H, g, count = red[:, :36].reshape(B, 6, 6), red[:, 36:42], red[:, 42].to(torch.int32)
     return H, g, count
 
 
@@ -143,6 +158,7 @@ def scan_to_map_lanes(
     grid: SpatialHashGrid,
     init_pose: torch.Tensor,
     params: ScanMatchParams = ScanMatchParams(),
+    mesh=None,
 ) -> ScanMatchResult:
     """:func:`scan_to_map` for B sessions stacked on a leading axis (scan
     [B, N, 3] + mask [B, N], a stacked grid, init_pose [B, 6]); every field
@@ -155,7 +171,11 @@ def scan_to_map_lanes(
     matches) is frozen — its pose, match count and iteration count stay as
     its single-session loop left them, as a vmapped ``lax.while_loop``
     does. The host reads one "all done" flag per iteration (in place of
-    the JAX package's ``lax.while_loop``, scan_match.py:205 there)."""
+    the JAX package's ``lax.while_loop``, scan_match.py:205 there).
+
+    With a ``mesh`` the scans are this rank's blocks of points and the
+    normal equations are all-reduced (:func:`_build_system_lanes`): every
+    rank then takes the same steps and reads the same flag."""
     B = scan_xyz.shape[0]
     dev = scan_xyz.device
     scan_norm_quarter = torch.sqrt(
@@ -171,7 +191,7 @@ def scan_to_map_lanes(
     it = 0
     while it < params.max_iters:
         H, g, cnt = _build_system_lanes(
-            pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params
+            pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params, mesh
         )
         live = ~done
         enough = cnt >= params.min_points

@@ -230,18 +230,23 @@ def frame_core(
     params: FrameParams,
     imu_rpy: torch.Tensor | None = None,
     imu_rpy_ok: torch.Tensor | None = None,
+    mesh=None,
 ) -> FrameCore:
     """The per-frame policy chain: deskew -> voxel downsample -> IMU
     preintegration guess -> scan-to-map GN -> 9-axis attitude slerp + z/rot
     clamps (transformUpdate, mapOptmization.cpp:1323-1353) -> fusion
     correction with divergence reinit -> keyframe gate (saveFrame,
-    :1365-1384)."""
+    :1365-1384).
+
+    With a ``mesh`` (``dist.sharded.GraphMesh``) the registration's points
+    are split in contiguous blocks over its ranks; everything else runs
+    whole on every rank (``dist/resident_sharded.py``)."""
     deskewed, ds_xyz, ds_mask, pre, guess = _frame_front(
         xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
         fu_acc, fu_gyr, fu_dts, fu_mask, filt, params,
     )
     # --- scan-to-map GN (mapOptmization.scan2MapOptimization) ---
-    res = scan_to_map(ds_xyz, ds_mask, grid, guess, params.match)
+    res = scan_to_map(ds_xyz, ds_mask, grid, guess, params.match, mesh=mesh)
     pose, new_filt, diverged, is_kf = _frame_back(
         res.pose, res.degenerate, pre, filt, last_kf_pose, params, imu_rpy, imu_rpy_ok
     )

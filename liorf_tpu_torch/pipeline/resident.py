@@ -587,11 +587,14 @@ def resident_step(
     ext_has: bool, ext_t_cur, ext_t_pre,
     params: ResidentParams,
     tally: Counter,
+    mesh=None,
 ) -> tuple[ResidentState, HostView, torch.Tensor]:
     """One frame. Tensors on the state's device; the three flags are host
     bools. Updates ``state`` in place and returns ``(state, host, gn_iters)``:
     the new host view and the scan matcher's GN iteration count (a device
-    tensor). ``tally`` counts host reads by kind (``read:*``) and ICP runs."""
+    tensor). ``tally`` counts host reads by kind (``read:*``) and ICP runs.
+    A ``mesh`` splits the registration's points over its ranks
+    (``frame_step.frame_core``)."""
     fp = params.frame
     dev = state.kf_poses.device
 
@@ -618,7 +621,7 @@ def resident_step(
         xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask,
         fu_acc, fu_gyr, fu_dts, fu_mask,
         state.grid, state.filt, state.last_kf_pose, fp,
-        imu_rpy if fp.imu_rpy_weight > 0 else None, imu_rpy_ok,
+        imu_rpy if fp.imu_rpy_weight > 0 else None, imu_rpy_ok, mesh=mesh,
     )
     state = state._replace(filt=core.filter)
     tally["read:is_kf"] += 1
@@ -1039,7 +1042,7 @@ def _unpack_frame(buf: torch.Tensor, host_buf: np.ndarray, S: int, W: int):
 
 def resident_step_packed(
     state: ResidentState, host: HostView, buf: np.ndarray, params: ResidentParams,
-    S: int, W: int, tally: Counter,
+    S: int, W: int, tally: Counter, mesh=None,
 ) -> tuple[ResidentState, HostView, torch.Tensor]:
     """resident_step with ALL per-frame inputs fused into ONE f32 host
     buffer: one host->device copy per frame instead of 21.
@@ -1050,7 +1053,7 @@ def resident_step_packed(
     dev = state.kf_poses.device
     buf_d = torch.from_numpy(buf).to(dev, non_blocking=True)
     args = _unpack_frame(buf_d, buf, S, W)
-    return resident_step(state, host, *args, params=params, tally=tally)
+    return resident_step(state, host, *args, params=params, tally=tally, mesh=mesh)
 
 
 def make_initial_state(

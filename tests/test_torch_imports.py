@@ -54,6 +54,50 @@ def test_pipeline_exports():
     } <= set(dir(pipeline))
 
 
+def test_dist_exports():
+    from liorf_tpu_torch import dist
+
+    assert {
+        "make_mesh", "ShardedResidentPipeline", "GraphMesh", "solve_shard_map", "solve_sharded",
+        "shard_graph", "scan_to_map_sharded", "detect_loop_sharded",
+    } <= set(dir(dist))
+    for name in ("sharded", "shard_map_solver", "sharded_frontend", "resident_sharded",
+                 "multihost", "launch", "cases"):
+        assert (PKG / "dist" / f"{name}.py").exists(), name
+
+
+def test_dist_entry_points_default_to_cuda(tmp_path):
+    """The distributed entry points follow the pipeline's device rule too:
+    no device named means the GPU, and raises here where there is none."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from liorf_tpu_torch import cli
+    from liorf_tpu_torch.dist import make_mesh
+    from liorf_tpu_torch.dist.multihost import init_multihost
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the CPU-only behaviour")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_multihost(f"file://{tmp_path}/rdv", 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["optimize", "--checkpoint", str(tmp_path / "none.pkl")])
+    assert not tdist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(device="cpu")
+    tdist.init_process_group("gloo", store=tdist.HashStore(), rank=0, world_size=1,
+                             timeout=datetime.timedelta(seconds=30))
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh()
+        with pytest.raises(ValueError, match="2 devices"):
+            make_mesh(2, device="cpu")
+        assert make_mesh(1, device="cpu").device.type == "cpu"
+    finally:
+        tdist.destroy_process_group()
+
+
 def test_default_device_is_cuda_and_raises_without_one():
     from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig
 
