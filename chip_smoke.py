@@ -3,22 +3,30 @@
 
     python3 chip_smoke.py            # every phase, one card, < 20 minutes
 
-Builds the CUDA k-NN kernels from ``liorf_tpu_torch/csrc`` with nvcc, holds
-each against its plain PyTorch version on the card (bit for bit) at the
-shapes the pipeline gives it, then drives the streaming SLAM pipeline
-(``LiorfPipeline``: push_imu / process_scan / trajectory_arrays) at the
-repo's bench size and on the loop-closure course, the device-resident
-pipeline (``make_pipeline``, ``ResidentPipeline``) on the same two courses,
-multi-session serving (``MultiStreamPipeline``, N = 1, 4, 8 lock-step
-sessions at the multistream operating point, then N = 4 on the loop
-course), the ``cli run`` entry point (run, then ``--resume``), and the
-distributed modes (``liorf_tpu_torch.dist``: the keyframe-sharded solver,
-point-sharded registration, the sharded loop search and
-``ShardedResidentPipeline``, over NCCL on every visible card and over 4 gloo
-ranks sharing card 0, against the single-device port), and checks the
-outputs. K1 (``knn_grid_topk``) is timed at the main path's
-shapes on the main path's own final grid, right after that path; both
-kernels with a lane axis at N = 8 in the kernels phase.
+Builds the CUDA kernels from ``liorf_tpu_torch/csrc`` (one nvcc a source,
+started together), holds each against its plain PyTorch version on the card
+at the shapes the pipeline gives it (the k-NN kernels bit for bit; the
+fixed-order segment sum against a float64 reduction and the CPU's index_add),
+then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
+process_scan / trajectory_arrays) at the repo's bench size and on the
+loop-closure course, the device-resident pipeline (``make_pipeline``,
+``ResidentPipeline``) on the same two courses, two default-mode runs of each
+course that must be bit-equal (``repeat``), GPS factors through a whole
+stream (``gps_path``, also through ``cli run --gps``), ring growth on the
+loop course (``growth_path``), the fault-injection cases of
+tests/test_fault_injection.py (``faults``), multi-session serving
+(``MultiStreamPipeline``, N = 1, 4, 8 lock-step sessions at the multistream
+operating point, then N = 4 on the loop course), the ``cli run`` entry point
+(run with ``--viz``, then ``--resume``), and the distributed modes
+(``liorf_tpu_torch.dist``: the keyframe-sharded solver, point-sharded
+registration, the sharded loop search and ``ShardedResidentPipeline``, over
+NCCL on every visible card and over 4 gloo ranks sharing card 0, against the
+single-device port), and checks the outputs. K1 (``knn_grid_topk``) is timed
+at the main path's shapes on the main path's own final grid, and the segment
+sum and the fixed-order dot on the arguments the main path gave them, right
+after that path, and on the 8-lane launches of multistream_path; both
+k-NN kernels with a lane axis at N = 8 in the kernels phase. Everything runs
+in the default mode (``torch.use_deterministic_algorithms`` off).
 
 Each phase prints one JSON line. Any failed check raises, so the exit code is
 non-zero and the closing ``{"ok": true, ...}`` line is never printed. There is
@@ -26,9 +34,14 @@ no CPU fallback: without a CUDA device the script exits with code 5.
 
 Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
-             multistream_path,cli,dist[,profile]
-                      "profile" (not run by default) traces 8 warm frames with
-                      torch.profiler: device-busy share and kernel time by name
+             repeat,gps_path,growth_path,faults,multistream_path,cli,dist
+             [,profile][,edge_floor][,repair_cost]
+                      not run by default: "profile" traces 8 warm frames with
+                      torch.profiler (device-busy share, kernel time by name);
+                      "edge_floor" times main_path with and without the pose
+                      graph's edge-batch floor; "repair_cost" times
+                      resident_path here and in the --parent checkout, in turns
+    --parent DIR      the checkout repair_cost compares with
     --ptxas           print ptxas' register / shared-memory report
 """
 
@@ -37,14 +50,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -54,7 +70,9 @@ if not torch.cuda.is_available():
     sys.exit(5)
 
 from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
+from liorf_tpu_torch.core import build  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
+from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
 from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig, make_pipeline  # noqa: E402
 from liorf_tpu_torch.pipeline import resident as tres  # noqa: E402
 from liorf_tpu_torch.sensors.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
@@ -63,6 +81,7 @@ DEV = torch.device("cuda", 0)
 SEED = 0
 MAIN_FRAMES = 60  # main path, at the bench size
 LOOP_FRAMES = 64  # loop course
+LOOP_PATH_FRAMES = 32  # loop_path's depth: through its first loop closures (frame ~26)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the bounds below are
 # stated against these, with the card's power limit printed beside them.
@@ -70,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
+SEGSUM_SOURCE = "liorf_tpu_torch/csrc/segment_sum.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -103,8 +123,26 @@ MULTI_CAPS = dict(
 MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count to 0 (just before a path runs)."""
+    knn_cuda.reset_launch_counts()
+    segsum.reset_launch_counts()
+
+
+def launch_counts() -> dict[str, int]:
+    return {**knn_cuda.launch_counts(), **segsum.launch_counts()}
+
+
+_EMIT = threading.Lock()
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    # one write a line: the closing phases run side by side in threads
+    line = json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _T0}) + "\n"
+    with _EMIT:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def check(cond, msg: str) -> None:
@@ -182,19 +220,30 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
+    """The card, the toolchain, and both kernel libraries built at once (one
+    nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
-        [knn_cuda._find_nvcc(), "--version"], capture_output=True, text=True, check=True
+        [build.find_nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-2:]
-    knn_cuda.load_library(("-Xptxas", "-v") if ptxas else ())
+    flags = ("-Xptxas", "-v") if ptxas else ()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum)]:
+            f.result()
     emit(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=" | ".join(nvcc), python=sys.version.split()[0],
-        kernel_build_seconds=knn_cuda.build_seconds,
+        kernel_build_seconds=dict(knn_kernels=knn_cuda.build_seconds,
+                                  segment_sum=segsum.build_seconds,
+                                  both_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
+        deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
     )
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must be off")
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "the script runs in the default mode: deterministic algorithms must be off")
     return smi
 
 
@@ -498,20 +547,6 @@ def run_pipeline(pipe: LiorfPipeline, syn: SyntheticDataset, n_frames: int):
     return results, frame_ms
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch.use_deterministic_algorithms for the block (scatter-adds such as
-    index_add without atomics); yields the warnings of ops that have no
-    deterministic version."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield caught
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p))
 
@@ -528,10 +563,113 @@ def main_synthetic(n_frames: int) -> dict:
     return dict(n_frames=n_frames, n_rings=32, points_per_ring=900, seed=SEED)
 
 
-def main_dataset(n_frames: int) -> SyntheticDataset:
-    # a fresh dataset of one seed draws the same streams when read in the
-    # same order (run_pipeline's), so every path of one course sees one input
-    return SyntheticDataset(SyntheticConfig(**main_synthetic(n_frames)))
+class Course:
+    """A synthetic course drawn once, at the longest length a phase runs it,
+    and replayed by every phase that runs it. Its scans are ray casts of the
+    noise-free trajectory (no random draw) and its IMU noise is drawn one
+    sample after another, first of all; so the first n frames of the long
+    draw are what a fresh draw of n frames gives, read in run_pipeline's
+    order (the city world's geometry does not depend on the length). With a
+    pool, the scans are cast in its worker processes ahead of use."""
+
+    def __init__(self, synthetic: dict, pool=None):
+        self.syn = SyntheticDataset(SyntheticConfig(**synthetic))
+        self.frames = synthetic["n_frames"]
+        self.imu = self.syn.imu_stream()
+        self.gt = self.syn.ground_truth()
+        self.scans = {}
+        self.gps = None
+        if pool is not None:
+            for lo in range(0, self.frames, SCAN_CHUNK):
+                hi = min(lo + SCAN_CHUNK, self.frames)
+                job = pool.submit(draw_scans, synthetic, lo, hi)
+                self.scans.update({f: (job, f - lo) for f in range(lo, hi)})
+
+    def scan(self, f: int):
+        s = self.scans.get(f)
+        if s is None:
+            s = self.scans[f] = self.syn.scan(f)
+        elif isinstance(s, tuple):
+            s = self.scans[f] = s[0].result()[s[1]]
+        return s
+
+    def gps_stream(self):
+        # drawn after the whole IMU stream, as a fresh dataset of this
+        # length draws it
+        if self.gps is None:
+            self.gps = self.syn.gps_stream()
+        return self.gps
+
+
+SCAN_CHUNK = 8  # scans a worker casts in one job
+SCAN_WORKERS = 6
+
+
+def draw_scans(synthetic: dict, lo: int, hi: int) -> list:
+    """Scans lo..hi-1 of a course (in a worker process)."""
+    syn = SyntheticDataset(SyntheticConfig(**synthetic))
+    return [syn.scan(f) for f in range(lo, hi)]
+
+
+class CoursePrefix:
+    """The first ``n`` frames of a Course, with SyntheticDataset's readers."""
+
+    def __init__(self, course: Course, n: int):
+        check(n <= course.frames, f"{n} frames of a course drawn to {course.frames}")
+        self.course, self.n = course, n
+
+    def imu_stream(self):
+        return self.course.imu  # run_pipeline reads it up to each scan's end
+
+    def scan(self, f: int):
+        check(f < self.n, f"frame {f} of a {self.n}-frame course")
+        return self.course.scan(f)
+
+    def ground_truth(self):
+        t, p = self.course.gt
+        return t[: self.n], p[: self.n]
+
+    def gps_stream(self):
+        check(self.n == self.course.frames, "GPS fixes are drawn for the whole course only")
+        return self.course.gps_stream()
+
+
+def course_synthetic(name: str, lane: int = 0) -> dict:
+    """The generator's settings of a course at its longest: the main course
+    (as long as gps_path runs it), the loop course (lane 0 as long as the
+    resident loop paths run it, lanes 1.. as multistream_loop_course does)
+    and multistream_path's streams (lane ``lane``'s own seed, and on odd
+    lanes tests/test_multistream.py's second course: yaw rate 0.4, 3 m/s)."""
+    if name == "main":
+        return main_synthetic(GPS_FRAMES)
+    if name == "loop":
+        return dict(loop_synthetic(LOOP_FRAMES if lane == 0 else MULTI_LOOP_TICKS),
+                    seed=SEED + 101 * lane)
+    kw = dict(yaw_rate=0.4, speed=3.0) if lane % 2 else {}
+    return dict(n_frames=MULTI_TICKS, n_rings=16, points_per_ring=720, seed=SEED + 101 * lane,
+                **kw)
+
+
+_COURSES: dict = {}
+
+
+def course(name: str, lane: int = 0, pool=None) -> Course:
+    if (name, lane) not in _COURSES:
+        _COURSES[name, lane] = Course(course_synthetic(name, lane), pool)
+    return _COURSES[name, lane]
+
+
+def draw_courses(pool) -> None:
+    """Every course the script runs, its scans cast by ``pool``."""
+    for name, lanes in (("main", 1), ("loop", MULTI_PARITY_LANES), ("multi", max(MULTI_LANES))):
+        for lane in range(lanes):
+            course(name, lane, pool)
+
+
+def main_dataset(n_frames: int) -> CoursePrefix:
+    # every path of one course sees one input: the first n_frames frames of
+    # the course drawn once
+    return CoursePrefix(course("main"), n_frames)
 
 
 LOOP_KW = dict(**BENCH_CAPS, mappingSurfLeafSize=0.4, surroundingKeyframeMapLeafSize=0.4,
@@ -548,8 +686,8 @@ def loop_synthetic(n_frames: int) -> dict:
                 gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01, seed=SEED)
 
 
-def loop_dataset(n_frames: int) -> SyntheticDataset:
-    return SyntheticDataset(SyntheticConfig(**loop_synthetic(n_frames)))
+def loop_dataset(n_frames: int) -> CoursePrefix:
+    return CoursePrefix(course("loop"), n_frames)
 
 
 def phase_main_path(n_frames: int = MAIN_FRAMES):
@@ -557,9 +695,9 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
     syn = main_dataset(n_frames)
     pipe = LiorfPipeline(cfg)  # device=None: the card
     check(pipe.device.type == "cuda", "pipeline must default to the GPU")
-    knn_cuda.reset_launch_counts()
+    reset_counts()
     results, frame_ms = run_pipeline(pipe, syn, n_frames)
-    counts = knn_cuda.launch_counts()
+    counts = launch_counts()
 
     _, poses = pipe.trajectory_arrays()
     _, gt = syn.ground_truth()
@@ -644,7 +782,7 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     if resident is not None:
         rstages, resident_notes = resident_stages(*resident)
         stages.update(rstages)
-    out = {name: cuda_ms(fn, reps=10, warm=2) for name, fn in stages.items()}
+    out = {name: cuda_ms(fn, reps=5, warm=1) for name, fn in stages.items()}
     # what one knn_grid call puts on the device, by kernel name
     from torch.profiler import ProfilerActivity, profile
 
@@ -730,15 +868,119 @@ def phase_profile(warm: int = 12, traced: int = 8) -> None:
     )
 
 
-def phase_loop_path(n_frames: int = LOOP_FRAMES):
+REPAIR_FRAMES = 40
+# one resident_path run in a subprocess, from the checkout it starts in
+REPAIR_RUN = (
+    "import hashlib, json, statistics, numpy as np, chip_smoke as cs; "
+    "rp = cs.make_pipeline(cs.main_config()); "
+    "_, ms = cs.run_pipeline(rp, cs.main_dataset({n}), {n}); "
+    "t = np.ascontiguousarray(rp.trajectory_arrays()[1]); "
+    "print(json.dumps(dict(ms_per_frame_p50=statistics.median(ms[1:]), "
+    "ms_per_frame_mean=float(np.mean(ms[1:])), "
+    "trajectory_sha=hashlib.sha256(t.tobytes()).hexdigest()[:16])))"
+)
+
+
+def phase_repair_cost(parent: str, turns=("parent", "this", "this", "parent")) -> None:
+    """What the fixed-order reductions cost end to end: resident_path's
+    frame time on the main course (REPAIR_FRAMES frames) in a checkout from
+    before them (``--parent DIR``: ``git archive <commit> | tar -x -C DIR``)
+    and in this one, in turns, each run a process of its own in its own
+    checkout (and build directory). Not in the default run:
+    ``--phases device,repair_cost --parent DIR``."""
+    check(parent is not None and os.path.isfile(os.path.join(parent, "chip_smoke.py")),
+          "repair_cost needs --parent DIR, a checkout from before the repair")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in ("LIORF_TORCH_BUILD_DIR", "PYTHONPATH")}
+    runs = []
+    for turn in turns:
+        root = os.path.abspath(parent) if turn == "parent" else here
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", REPAIR_RUN.format(n=REPAIR_FRAMES)], cwd=root,
+                           env=env, capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0, f"repair_cost: the {turn} run exited {r.returncode}: {r.stderr[-2000:]}")
+        runs.append(dict(checkout=turn, process_s=time.perf_counter() - t0,
+                         **json.loads(r.stdout.strip().splitlines()[-1])))
+    summary = {t: dict(median_p50=statistics.median(r["ms_per_frame_p50"] for r in runs
+                                                    if r["checkout"] == t),
+                       runs_equal=len({r["trajectory_sha"] for r in runs if r["checkout"] == t}) == 1)
+               for t in dict.fromkeys(turns)}
+    emit("repair_cost", nvidia_smi=nvidia_smi_line(), frames=REPAIR_FRAMES, turns=runs, **summary)
+
+
+EDGE_BATCH_SIZES = (8, 16, 32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 768, 1024, 1152, 1536,
+                    2048, 4096)
+
+
+def phase_edge_floor(turns=("floor", "none", "none", "floor")) -> None:
+    """What the between factors' edge-batch floor (graph/pose_graph.py,
+    _EDGE_BATCH_FLOOR) costs: main_path's frame time with it and with none
+    (0), a fresh LiorfPipeline on the main course each turn, in turns; and
+    one linearization of 256 edges (the classic solve's smallest capacity)
+    padded and not. Then the classes of unpadded edge-batch sizes whose
+    first 8 rows (residuals and both Jacobians) have the same bits, for two
+    seeded inputs. Not in the default run: ``--phases device,edge_floor``."""
+    from liorf_tpu_torch.core import se3
+    from liorf_tpu_torch.graph import pose_graph as pg
+
+    floor = pg._EDGE_BATCH_FLOOR
+    runs = []
+
+    def edges(seed: int, n: int):
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        return [se3.so3_exp(0.5 * torch.randn((n, 3), generator=gen, device=DEV))
+                if i % 2 == 0 else torch.randn((n, 3), generator=gen, device=DEV)
+                for i in range(6)]
+
+    try:
+        for turn in turns:
+            pg._EDGE_BATCH_FLOOR = floor if turn == "floor" else 0
+            pipe = LiorfPipeline(main_config())
+            _, frame_ms = run_pipeline(pipe, main_dataset(MAIN_FRAMES), MAIN_FRAMES)
+            runs.append(dict(floor=pg._EDGE_BATCH_FLOOR, ms_per_frame_p50=percentile(frame_ms[1:], 50),
+                             ms_per_frame_mean=float(np.mean(frame_ms[1:])),
+                             edges=len(pipe.edges), traj=pipe.trajectory_arrays()[1]))
+            del pipe
+        e256 = edges(SEED + 7, 256)
+        linearize_ms = {}
+        for f in (floor, 0, 0, floor):
+            pg._EDGE_BATCH_FLOOR = f
+            linearize_ms.setdefault(f"floor {f}", []).append(cuda_ms(lambda: pg._between_rJ(*e256)))
+        pg._EDGE_BATCH_FLOOR = 0
+        classes = {}
+        for seed in (SEED + 7, 0):
+            args = edges(seed, max(EDGE_BATCH_SIZES))
+            groups = []  # [(rows, [sizes])]
+            for n in EDGE_BATCH_SIZES:
+                rows = torch.cat([x[:8].reshape(8, -1) for x in pg._between_rJ(*(x[:n] for x in args))], 1)
+                for ref, sizes in groups:
+                    if torch.equal(rows, ref):
+                        sizes.append(n)
+                        break
+                else:
+                    groups.append((rows, [n]))
+            classes[f"seed {seed}"] = [sizes for _, sizes in groups]
+    finally:
+        pg._EDGE_BATCH_FLOOR = floor
+    ref_traj = runs[0].pop("traj")
+    for r in runs[1:]:
+        r["max_abs_diff_to_first"] = float(np.abs(r.pop("traj") - ref_traj).max())
+    p50 = {t: statistics.median(r["ms_per_frame_p50"] for r, u in zip(runs, turns) if u == t)
+           for t in dict.fromkeys(turns)}
+    emit("edge_floor", nvidia_smi=nvidia_smi_line(), frames=MAIN_FRAMES, floor=floor, turns=runs,
+         median_p50=p50, between_256_edges_ms=linearize_ms,
+         unpadded_size_classes_equal_first_rows=classes)
+
+
+def phase_loop_path(n_frames: int = LOOP_PATH_FRAMES):
     """The repo's loop course (tests/test_loop_efficacy.py): a self-revisiting
     circle with a biased, noisy IMU; loop closure on."""
     cfg = loop_config()
     syn = loop_dataset(n_frames)
     pipe = LiorfPipeline(cfg)
-    knn_cuda.reset_launch_counts()
+    reset_counts()
     results, frame_ms = run_pipeline(pipe, syn, n_frames)
-    counts = knn_cuda.launch_counts()
+    counts = launch_counts()
     _, poses = pipe.trajectory_arrays()
     _, gt = syn.ground_truth()
     loop_edges = [e for e in pipe.edges if e["j"] - e["i"] != 1]
@@ -817,9 +1059,9 @@ def phase_resident_path(main_poses: np.ndarray, n_frames: int = MAIN_FRAMES):
 
     rp._dispatch_step = capture
     syn = main_dataset(n_frames)
-    knn_cuda.reset_launch_counts()
+    reset_counts()
     _, frame_ms = run_pipeline(rp, syn, n_frames)
-    counts = knn_cuda.launch_counts()
+    counts = launch_counts()
     rp._dispatch_step = dispatch
 
     _, poses = rp.trajectory_arrays()
@@ -886,7 +1128,7 @@ def phase_resident_loop_path(n_frames: int = LOOP_FRAMES):
     reported, so this path's frame times are not comparable."""
     rp = make_pipeline(loop_config())
     syn = loop_dataset(n_frames)
-    knn_cuda.reset_launch_counts()
+    reset_counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -894,7 +1136,7 @@ def phase_resident_loop_path(n_frames: int = LOOP_FRAMES):
             _, frame_ms = run_pipeline(rp, syn, n_frames)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    counts = knn_cuda.launch_counts()
+    counts = launch_counts()
     sync_sites = Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}"
         for w in caught if "synchroniz" in str(w.message).lower()
@@ -915,32 +1157,46 @@ def phase_resident_loop_path(n_frames: int = LOOP_FRAMES):
     check(rep["loop_factors"] >= 1, "no loop factor landed on the resident loop path")
     check(counts["knn_bruteforce"] > 0, "K2 never launched on the resident loop path")
     check(counts["knn_grid_topk"] == rep["gn_iters_total"], "K1 count != GN iterations")
-    return counts
+    return counts, resident_run(rp)
+
+
+def resident_run(rp) -> dict:
+    """What two runs of one stream are compared on: the trajectory, the
+    keyframe poses and the loop factors (one read each)."""
+    st = rp.state
+    kf, nl = int(st.kf_count), int(st.l_count)
+    return dict(traj=rp.trajectory_arrays()[1], kf_poses=st.kf_poses[:kf].cpu().numpy(),
+                loops=torch.stack([st.l_i[:nl], st.l_j[:nl]], 1).cpu().numpy(),
+                is_kf=[r.is_keyframe for r in rp.trajectory])
 
 
 # ---------------------------------------------------------------------------
 # phase: multistream_path
 # ---------------------------------------------------------------------------
 
-MULTI_TICKS = 60
+# cut from 60 (and then 32) ticks, and the loop course from 64, to keep the
+# whole run well inside its time limit on a slow host
+MULTI_TICKS = 20
 MULTI_WARM = 12  # ticks before the rate chunks (bench.py's method)
 MULTI_CHUNK = 8
+MULTI_LOOP_TICKS = 32  # through the first loop closures (frame ~26)
 MULTI_LANES = (1, 4, 8)
 MULTI_PARITY_LANES = 4
-# Every lane at N = 4 against a single-session run of its stream, both under
-# torch.use_deterministic_algorithms (the voxel filter's and the pose graph's
-# scatter-adds are atomics in no fixed order otherwise, and the card would
-# not repeat even one session). What is left is the batched products' and
-# solves' own rounding. One tick from the single sessions' carried states
-# shows it before it compounds: each lane's new trajectory row and keyframe
-# poses within MULTI_STEP_M (m, rad) of the single step's, flags equal. Over
-# 60 frames of scan matching it compounds on the ill-conditioned courses, so
+# Every lane at N = 4 against a single-session run of its stream, both in
+# the default mode (the voxel filter's and the pose graph's scatter-adds are
+# fixed-order segment sums, so one session repeats bit for bit; before them
+# this parity needed torch.use_deterministic_algorithms). What is left is
+# the batched products' and solves' own rounding. One tick from the single
+# sessions' carried states shows it before it compounds: each lane's new
+# trajectory row and keyframe poses within MULTI_STEP_M (m, rad) of the
+# single step's, flags equal. Over
+# the frames of scan matching it compounds on the ill-conditioned courses, so
 # whole trajectories are held to the bound tests/test_resident.py:87 puts
 # between two pipelines on the same streams (as resident_path is to
 # main_path), keyframe indices and loop factors equal, ATE within
 # MULTI_PARITY_ATE_M.
 MULTI_STEP_M = 1e-5
-MULTI_STEP_EVERY = 6  # frames between the carried states stepped batched
+MULTI_STEP_EVERY = 3  # frames between the carried states stepped batched
 MULTI_PARITY_M = 0.15
 MULTI_PARITY_ATE_M = 0.01
 
@@ -954,13 +1210,10 @@ def multi_config() -> SlamConfig:
 
 
 def multi_stream(lane: int):
-    """Lane ``lane``'s own stream (16 rings x 720 points): its own seed, and
-    on odd lanes tests/test_multistream.py's second course (yaw rate 0.4,
-    3 m/s). Scans and IMU frozen, with the generator's ground truth."""
-    kw = dict(yaw_rate=0.4, speed=3.0) if lane % 2 else {}
-    syn = SyntheticDataset(SyntheticConfig(
-        n_frames=MULTI_TICKS, n_rings=16, points_per_ring=720, seed=SEED + 101 * lane, **kw))
-    return [syn.scan(f) for f in range(MULTI_TICKS)], syn.imu_stream(), syn.ground_truth()[1]
+    """Lane ``lane``'s own stream (16 rings x 720 points, course_synthetic):
+    scans and IMU, with the generator's ground truth."""
+    c = course("multi", lane)
+    return [c.scan(f) for f in range(MULTI_TICKS)], c.imu, c.gt[1]
 
 
 def feed_imu(push, scan, imu, at: int) -> int:
@@ -1000,12 +1253,12 @@ def multistream_step_parity(rp, carried) -> list[dict]:
 def phase_multistream_path() -> dict:
     """MultiStreamPipeline at the repo's multistream operating point
     (bench.py:303-315, scripts/bench_multistream.py:39-55) for N = 1, 4, 8
-    distinct streams, 60 ticks each: aggregate scans/s (median over 8-tick
+    distinct streams, MULTI_TICKS ticks each: aggregate scans/s (median over 8-tick
     chunks after 12 warm ticks), scaling efficiency against N = 1 of this
     run, tick p50/p99, host reads and K1/K2 launches per tick (each tick's
     K1 launches = its slowest lane's GN iterations). Every lane at N = 4
     is held to a single-session ResidentPipeline run on its stream, both
-    under deterministic algorithms: one tick from carried states within
+    in the default mode: one tick from carried states within
     MULTI_STEP_M (m, rad); over the stream keyframe flags and loop factors
     equal, poses within MULTI_PARITY_M, ATE within MULTI_PARITY_ATE_M of
     the single run. Then N = 4 on the loop course
@@ -1048,28 +1301,33 @@ def phase_multistream_path() -> dict:
         rp.finish()
         return rp, ms
 
-    def multi(n):
+    def multi(n, captured=None):
         """n lanes through MultiStreamPipeline: tick ms, K1 launches per tick
         and each tick's per-lane GN iterations (kept on the device, read
-        once at the end)."""
+        once at the end). With ``captured`` (a dict), the arguments of the
+        run's last n-lane segment sums and dot of each kind go into it."""
         mp = MultiStreamPipeline(cfg, n_streams=n)
         check(mp.device.type == "cuda", "MultiStreamPipeline must default to the GPU")
         iis = [0] * n
         tick_ms, k1_tick, gn_tick = [], [], []
-        knn_cuda.reset_launch_counts()
+        reset_counts()
         for f in range(MULTI_TICKS):
             scans = [streams[b][0][f] for b in range(n)]
             for b in range(n):
                 iis[b] = feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], streams[b][1], iis[b])
-            k1 = knn_cuda.launch_counts()["knn_grid_topk"]
+            k1 = launch_counts()["knn_grid_topk"]
             torch.cuda.synchronize()
             a = time.perf_counter()
-            mp.step(scans)
+            if captured is None:
+                mp.step(scans)
+            else:
+                with capture_segment_sums(captured, n):
+                    mp.step(scans)
             torch.cuda.synchronize()
             tick_ms.append((time.perf_counter() - a) * 1e3)
-            k1_tick.append(knn_cuda.launch_counts()["knn_grid_topk"] - k1)
+            k1_tick.append(launch_counts()["knn_grid_topk"] - k1)
             gn_tick.append(mp.last_gn_iters)
-        counts = knn_cuda.launch_counts()
+        counts = launch_counts()
         mp.finish()
         return mp, counts, tick_ms, k1_tick, gn_tick
 
@@ -1085,42 +1343,27 @@ def phase_multistream_path() -> dict:
             loops.append(int(shell.state.l_count))
         return ates, kf_counts, loops
 
-    # Parity, under deterministic algorithms (ops that have no deterministic
-    # version warn, and the warnings are reported): each lane's stream
-    # through ResidentPipeline, single ticks of the four lanes from their
-    # carried states, then the four lanes batched over the whole stream.
-    with deterministic() as det_warnings:
-        carried = [{} for _ in range(MULTI_PARITY_LANES)]
-        singles = [single(b, carried[b])[0] for b in range(MULTI_PARITY_LANES)]
-        step_parity = multistream_step_parity(singles[0], carried)
-        del carried
-        mp_det = multi(MULTI_PARITY_LANES)[0]
-    det_ates = lane_report(mp_det, MULTI_PARITY_LANES)[0]
-    parity = []
-    for b, rp in enumerate(singles):
-        shell = mp_det.stream(b)
-        d = np.abs(shell.trajectory_arrays()[1] - rp.trajectory_arrays()[1]).max(axis=1)
-        kf_m = [i for i, r in enumerate(shell.trajectory) if r.is_keyframe]
-        kf_s = [i for i, r in enumerate(rp.trajectory) if r.is_keyframe]
-        over = np.flatnonzero(d > 1e-4)
-        parity.append(dict(
-            lane=b, max_abs_pose_diff=float(d.max()),
-            diff_every_10th_frame=[float(x) for x in d[::10]],
-            first_frame_over_1e4=int(over[0]) if len(over) else None,
-            keyframes_equal=kf_m == kf_s,
-            loop_factors=[int(shell.state.l_count), int(rp.state.l_count)],
-            ate_single_m=ate_rmse(rp.trajectory_arrays()[1][:, 3:6].astype(np.float64),
-                                  streams[b][2][:MULTI_TICKS]),
-            ate_lane_m=det_ates[b], **step_parity[b]))
-    del singles, mp_det
-    det_warned = sorted({str(w.message)[:160] for w in det_warnings})
+    # Parity: each lane's stream through ResidentPipeline and single ticks of
+    # the four lanes from their carried states; the four lanes batched over
+    # the whole stream are the timed N = 4 run below (both in the default
+    # mode, so a run repeats).
+    carried = [{} for _ in range(MULTI_PARITY_LANES)]
+    singles, single_ms = [], None
+    for b in range(MULTI_PARITY_LANES):
+        rp, ms = single(b, carried[b])
+        singles.append(rp)
+        if single_ms is None:
+            # lane 0's single-session frame times, but the bootstrap and the
+            # frames whose state was copied inside the timed call
+            single_ms = [m for f, m in enumerate(ms) if f > 0 and f not in carried[b]]
+    step_parity = multistream_step_parity(singles[0], carried)
+    del carried
 
-    # Timing, in the default (non-deterministic) mode: one single session,
-    # then N = 1, 4, 8 lanes.
-    single_ms = single(0)[1][1:]
-    out, per_n = {}, {}
+    # Timing: N = 1, 4, 8 lanes.
+    out, per_n, lane_cases, mp_det = {}, {}, {}, None
     for n in MULTI_LANES:
-        mp, counts, tick_ms, k1_tick, gn_tick = multi(n)
+        mp, counts, tick_ms, k1_tick, gn_tick = multi(
+            n, lane_cases if n == max(MULTI_LANES) else None)
         ticks = mp.ticks
         # per tick: the batched GN loop runs until its slowest lane stops,
         # one K1 launch per iteration (the bootstrap tick runs no GN)
@@ -1151,19 +1394,41 @@ def phase_multistream_path() -> dict:
             growth_events=mp.growth_events,
         )
         out[f"n{n}"] = counts
+        if n == MULTI_PARITY_LANES:
+            mp_det = mp
         del mp
+    parity = []
+    for b, rp in enumerate(singles):
+        shell = mp_det.stream(b)
+        d = np.abs(shell.trajectory_arrays()[1] - rp.trajectory_arrays()[1]).max(axis=1)
+        kf_m = [i for i, r in enumerate(shell.trajectory) if r.is_keyframe]
+        kf_s = [i for i, r in enumerate(rp.trajectory) if r.is_keyframe]
+        over = np.flatnonzero(d > 1e-4)
+        parity.append(dict(
+            lane=b, max_abs_pose_diff=float(d.max()),
+            diff_every_5th_frame=[float(x) for x in d[::5]],
+            first_frame_over_1e4=int(over[0]) if len(over) else None,
+            keyframes_equal=kf_m == kf_s,
+            loop_factors=[int(shell.state.l_count), int(rp.state.l_count)],
+            ate_single_m=ate_rmse(rp.trajectory_arrays()[1][:, 3:6].astype(np.float64),
+                                  streams[b][2][:MULTI_TICKS]),
+            ate_lane_m=per_n[MULTI_PARITY_LANES]["ate_rmse_m"][b], **step_parity[b]))
+    del singles, mp_det
     base = per_n[MULTI_LANES[0]]["scans_per_sec"]
     for n, row in per_n.items():
         row["scaling_efficiency"] = row["scans_per_sec"] / (n * base)
     k1_1, k1_8 = per_n[1]["k1_per_tick"], per_n[max(MULTI_LANES)]["k1_per_tick"]
     emit("multistream_path", nvidia_smi=nvidia_smi_line(), points_per_scan=16 * 720,
          stream_generation_s=gen_s, parity_bound=MULTI_PARITY_M, one_tick_bound=MULTI_STEP_M,
-         parity_ate_bound=MULTI_PARITY_ATE_M, vs_single_session_n4_deterministic=parity,
-         deterministic_mode_warnings=det_warned,
+         parity_ate_bound=MULTI_PARITY_ATE_M, vs_single_session_n4=parity,
+         single_session_frames_timed=len(single_ms),
          single_session_ms_per_frame_p50=percentile(single_ms, 50),
          single_session_scans_per_sec=1e3 / percentile(single_ms, 50),
          runs=[per_n[n] for n in MULTI_LANES], k1_per_tick_ratio_8_to_1=k1_8 / k1_1)
     out["loop_n4"] = multistream_loop_course(MULTI_PARITY_LANES)
+    # the lane-folded launches of the widest run, held as the main path's are
+    seg_lanes = phase_segment_sum(lane_cases, max(MULTI_LANES))
+    del lane_cases
     # the checks after the lines, so a failing run still shows its numbers
     for p in parity:
         check(p["one_tick_flags_equal"], f"lane {p['lane']}: a tick's flags differ from the single step's")
@@ -1185,7 +1450,7 @@ def phase_multistream_path() -> dict:
               f"N={n}: K1 launches of {row['k1_ticks_off_slowest_lane']} ticks differ from the "
               "slowest lane's GN iterations of that tick")
         check(max(row["ate_rmse_m"]) < 0.3, f"N={n}: ATE {max(row['ate_rmse_m'])} m >= 0.3 m")
-    return out
+    return out, seg_lanes
 
 
 def multistream_loop_course(n: int) -> dict:
@@ -1199,30 +1464,27 @@ def multistream_loop_course(n: int) -> dict:
     cfg = loop_config()
     syns = []
     for b in range(n):
-        syn = SyntheticDataset(SyntheticConfig(
-            n_frames=LOOP_FRAMES, n_rings=16, points_per_ring=360, speed=3.0, yaw_rate=1.2,
-            gyro_bias=(0.01, -0.008, 0.015), accel_noise=0.08, gyro_noise=0.01,
-            seed=SEED + 101 * b))
-        syns.append(([syn.scan(f) for f in range(LOOP_FRAMES)], syn.imu_stream(),
+        syn = CoursePrefix(course("loop", b), MULTI_LOOP_TICKS)
+        syns.append(([syn.scan(f) for f in range(MULTI_LOOP_TICKS)], syn.imu_stream(),
                      syn.ground_truth()[1]))
     mp = MultiStreamPipeline(cfg, n_streams=n)
     iis = [0] * n
-    knn_cuda.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
-    for f in range(LOOP_FRAMES):
+    for f in range(MULTI_LOOP_TICKS):
         scans = [syns[b][0][f] for b in range(n)]
         for b in range(n):
             iis[b] = feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], syns[b][1], iis[b])
         mp.step(scans)
     mp.finish()
     wall = time.perf_counter() - t0
-    counts = knn_cuda.launch_counts()
+    counts = launch_counts()
     loops, ates = [], []
     for b in range(n):
         shell = mp.stream(b)
         _, poses = shell.trajectory_arrays()
         check(bool(np.isfinite(poses).all()), f"loop course lane {b}: trajectory not finite")
-        ates.append(ate_rmse(poses[:, 3:6].astype(np.float64), syns[b][2][:LOOP_FRAMES]))
+        ates.append(ate_rmse(poses[:, 3:6].astype(np.float64), syns[b][2]))
         loops.append(int(shell.state.l_count))
     emit("multistream_loop_course", lanes=n, ticks=mp.ticks, wall_s=wall,
          k1_launches=counts["knn_grid_topk"], k2_launches=counts["knn_bruteforce"],
@@ -1256,16 +1518,17 @@ def phase_cli(frames: int = 20, resume_frames: int = 10) -> None:
         packer = [json.loads(x)["packer"] for x in r.stderr.splitlines() if x.startswith('{"packer"')]
         check(len(packer) == 1, f"cli run printed no packer report: {r.stderr[-2000:]}")
         line["packer"] = packer[0]
-        return line, time.perf_counter() - t0
+        return line, time.perf_counter() - t0, r.stderr
 
     with tempfile.TemporaryDirectory(prefix="liorf_cli_") as tmp:
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
-        first, t_first = cli("--frames", str(frames), "--out", a, "--save-map", "--checkpoint", "--imu-tum")
+        first, t_first, err = cli("--frames", str(frames), "--out", a, "--save-map", "--checkpoint",
+                                  "--imu-tum", "--viz")
         check(first["frames"] == frames and first["keyframes"] >= 2 and first["out"] == a, f"cli line {first}")
         # every step frame (all but the bootstrap) packed by the native g++ packer
         check(first["packer"] == {"native": frames - 1}, f"cli run packer {first['packer']}")
         names = ("trajectory_tum.txt", "imu_rate_tum.txt", "checkpoint.pkl", "trajectory.pcd",
-                 "transformations.pcd", "SurfMap.pcd", "GlobalMap.pcd")
+                 "transformations.pcd", "SurfMap.pcd", "GlobalMap.pcd", "trajectory.ply", "map.ply")
         missing = [n for n in names if not os.path.exists(os.path.join(a, n))]
         check(not missing, f"cli run wrote no {missing}")
         tum = np.loadtxt(os.path.join(a, "trajectory_tum.txt"))
@@ -1275,8 +1538,20 @@ def phase_cli(frames: int = 20, resume_frames: int = 10) -> None:
         check(tum.shape == (frames, 8) and bool(np.isfinite(tum).all()), f"trajectory_tum {tum.shape}")
         check(len(imu_tum) > frames and len(gmap["x"]) > 100, "imu_rate_tum / GlobalMap too small")
         check(len(kf_pcd["x"]) == first["keyframes"], "trajectory.pcd != keyframes")
+        # --viz: one PLY vertex a keyframe, and the map.ply of every keyframe
+        # cloud (GlobalMap.pcd at resolution 0 holds the same points)
+        ply = {n: ply_vertices(os.path.join(a, f"{n}.ply")) for n in ("trajectory", "map")}
+        check(ply["trajectory"] == first["keyframes"], f"trajectory.ply {ply['trajectory']} vertices")
+        check(ply["map"] == len(gmap["x"]), f"map.ply {ply['map']} vertices, GlobalMap {len(gmap['x'])}")
+        try:
+            import matplotlib  # noqa: F401
+            png = os.path.getsize(os.path.join(a, "overview.png"))
+            check(png > 10_000, f"overview.png {png} bytes")
+        except ImportError:
+            png = None
+            check("overview.png not drawn" in err, "cli run --viz: no word on the missing PNG")
 
-        second, t_second = cli("--frames", str(resume_frames), "--out", b,
+        second, t_second, _ = cli("--frames", str(resume_frames), "--out", b,
                                "--resume", os.path.join(a, "checkpoint.pkl"))
         tum2 = np.loadtxt(os.path.join(b, "trajectory_tum.txt"))
         check(tum2.shape == (frames + resume_frames, 8) and bool(np.isfinite(tum2).all()),
@@ -1289,7 +1564,575 @@ def phase_cli(frames: int = 20, resume_frames: int = 10) -> None:
         emit("cli", run=first, run_seconds=t_first, resume=second, resume_seconds=t_second,
              packer="native" if native.get_lib() is not None else f"numpy ({native.build_error})",
              trajectory_rows=[len(tum), len(tum2)], imu_rate_rows=len(imu_tum),
-             global_map_points=len(gmap["x"]))
+             global_map_points=len(gmap["x"]), ply_vertices=ply, overview_png_bytes=png)
+
+
+def ply_vertices(path: str) -> int:
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element vertex "):
+                return int(line.split()[2])
+            if line.startswith("end_header"):
+                break
+    raise AssertionError(f"{path}: no vertex element")
+
+
+# ---------------------------------------------------------------------------
+# the segment sum (not a TPU kernel), at the main path's shapes
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def capture_segment_sums(cases: dict, lanes: int = 1):
+    """Keep, by reference (no device work), the arguments of the block's
+    last segment-sum and fixed-order dot launch of each kind over ``lanes``
+    lanes (vmapped calls fold their lanes into the launch's leading axis):
+    the voxel filter (no perm, five columns; by output size), the pose
+    graph's rhs / matvec (6 columns) and block diagonal (36), the PCG's
+    dot."""
+    real, real_dot = segsum._launch, segsum._launch_dot
+
+    def spy(src, perm, keys, num_segments):
+        if src.shape[0] != lanes:
+            return real(src, perm, keys, num_segments)
+        c = src.shape[-1]
+        kind = (f"voxel_filter_out{num_segments}" if perm is None
+                else {6: "pose_graph_matvec", 36: "pose_graph_diag"}.get(c, f"columns{c}"))
+        cases[kind] = (src, perm, keys, num_segments)
+        return real(src, perm, keys, num_segments)
+
+    def spy_dot(a, c):
+        if a.shape[0] == lanes:
+            cases["pcg_dot"] = (a, c)
+        return real_dot(a, c)
+
+    segsum._launch, segsum._launch_dot = spy, spy_dot
+    try:
+        yield cases
+    finally:
+        segsum._launch, segsum._launch_dot = real, real_dot
+
+
+def bench_segsum(src, perm, keys, S: int) -> dict:
+    """The kernel against a float64 reduction of the same rows (within
+    Higham's bound for a sequential float32 sum, (n - 1) 2^-24 sum|x| per
+    output, n the segment's rows), against the CPU's sequential index_add
+    (bit for bit) and against itself; timed beside the plain version
+    (index_add, atomic on the card) and the other candidate, torch's
+    sort-based index_put(accumulate=True) over the rows' own indices. The
+    lanes ([B] axis) are one launch; index_put takes them as one flat
+    scatter, lane b's rows at b (S + 1) + key."""
+    B, M, C = src.shape
+
+    def kernel():
+        return segsum.segment_sum(src, perm, keys, S)
+
+    out, again = kernel(), kernel()
+    src64 = src.double()
+    ref = segsum.segment_sum_plain(src64, perm, keys, S)
+    abs_sum = segsum.segment_sum_plain(src64.abs(), perm, keys, S)
+    rows = segsum.segment_sum_plain(torch.ones_like(src64[..., :1]), perm, keys, S)
+    tol = (rows - 1).clamp(min=0) * 2.0**-24 * abs_sum
+    err = (out.double() - ref).abs()
+    cpu = segsum.segment_sum_plain(src.cpu(), None if perm is None else perm.cpu(), keys.cpu(), S)
+    # candidate (a): the rows in their own order at their own indices, rows
+    # keyed past the last segment into a dump row
+    idx = keys if perm is None else torch.empty_like(keys).scatter_(1, perm, keys)
+    idx = (idx.clamp(max=S) + torch.arange(B, device=DEV)[:, None] * (S + 1)).reshape(-1)
+    flat = src.reshape(B * M, C)
+
+    def index_put():
+        out = torch.zeros((B * (S + 1), C), device=DEV).index_put_((idx,), flat, accumulate=True)
+        return out.reshape(B, S + 1, C)[:, :S]
+
+    a1, a2 = index_put(), index_put()
+    # what the function must move: the rows once, the keys (and perm) once,
+    # the sums once; M * C additions
+    bytes_moved = B * (M * C * 4 + M * 8 * (1 if perm is None else 2) + S * C * 4)
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, B * M * C / FP32_FLOP_PER_S
+    res = dict(
+        shape=[M, C, S], lanes=B, perm=perm is not None,
+        # the plain version on the CPU adds in the kernel's order
+        max_abs_err=float((out.cpu() - cpu).abs().max()),
+        max_abs_err_vs_float64=float(err.max()),
+        max_err_over_bound=float((err / tol.clamp(min=1e-30)).max()),
+        equal_to_cpu_index_add=bool(torch.equal(out.cpu(), cpu)),
+        repeats=bool(torch.equal(out, again)),
+        index_put_repeats=bool(torch.equal(a1, a2)),
+        index_put_max_abs_err_vs_float64=float((a1.double() - ref).abs().max()),
+        **kernel_ms(kernel),
+        plain_ms=cuda_ms(lambda: segsum.segment_sum_plain(src, perm, keys, S), reps=10, batch=20),
+        library_ms=cuda_ms(index_put, reps=10, batch=20),
+        library_ms_single_call=cuda_ms(index_put),
+        library_call="torch.zeros(B (S + 1), C).index_put_((idx,), rows, accumulate=True)",
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved,
+    )
+    what = f"segment_sum {res['shape']} x {B} lanes"
+    check(bool((err <= tol).all()), f"{what}: off the float64 sum by {res['max_abs_err_vs_float64']}")
+    check(res["equal_to_cpu_index_add"], f"{what}: differs from the CPU's index_add")
+    check(res["repeats"], f"{what}: two launches differ")
+    return res
+
+
+def bench_fixed_dot(a, c) -> dict:
+    """The fixed-order dot product against its plain version (the same
+    order of additions: bit for bit, on the card and on the CPU), against
+    itself, against a float64 dot (within n 2^-24 sum|a c|: n roundings), and with
+    the operands zero-padded to 4x their length (bit for bit: the property
+    it exists for); timed beside the plain version and torch.linalg.vecdot."""
+    B, n = a.shape
+    out, again = segsum.fixed_dot(a, c), segsum.fixed_dot(a, c)
+    plain = segsum.fixed_dot_plain(a, c)
+    cpu = segsum.fixed_dot_plain(a.cpu(), c.cpu())
+    pad = [torch.cat([x, torch.zeros((B, 3 * n), device=DEV)], 1) for x in (a, c)]
+    padded = segsum.fixed_dot(*pad)
+    prod = a.double() * c.double()
+    err = (out.double() - prod.sum(-1)).abs()
+    tol = n * 2.0**-24 * prod.abs().sum(-1)
+    bytes_moved = 2 * B * n * 4 + B * 4
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, 2 * B * n / FP32_FLOP_PER_S
+    res = dict(
+        shape=[B, n], lanes=B, max_abs_err=float((out - plain).abs().max()),
+        equal_to_plain=bool(torch.equal(out, plain)), equal_to_cpu_plain=bool(torch.equal(out.cpu(), cpu)),
+        repeats=bool(torch.equal(out, again)), zero_padding_changes_nothing=bool(torch.equal(out, padded)),
+        max_abs_err_vs_float64=float(err.max()), max_err_over_bound=float((err / tol.clamp(min=1e-30)).max()),
+        **kernel_ms(lambda: segsum.fixed_dot(a, c)),
+        plain_ms=cuda_ms(lambda: segsum.fixed_dot_plain(a, c), reps=10, batch=20),
+        library_ms=cuda_ms(lambda: torch.linalg.vecdot(a, c), reps=10, batch=20),
+        library_call="torch.linalg.vecdot(a, c)",
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved,
+    )
+    check(res["equal_to_plain"] and res["equal_to_cpu_plain"], f"fixed_dot {res['shape']}: differs from its plain version")
+    check(res["repeats"] and res["zero_padding_changes_nothing"], f"fixed_dot {res['shape']}: not repeatable or moves with padding")
+    check(bool((err <= tol).all()), f"fixed_dot {res['shape']}: off the float64 dot by {res['max_abs_err_vs_float64']}")
+    return res
+
+
+def phase_segment_sum(cases: dict, lanes: int = 1) -> dict:
+    """Both fixed-order reductions held on the arguments a path gave them
+    (capture_segment_sums): every kind a solve and the voxel filter launch
+    must be there, over ``lanes`` lanes."""
+    kinds = sorted(cases)
+    check("pcg_dot" in kinds and "pose_graph_matvec" in kinds and "pose_graph_diag" in kinds
+          and any(k.startswith("voxel_filter_out") for k in kinds),
+          f"{lanes}-lane segment sums captured: {kinds} only")
+    out = {kind: bench_segsum(*cases[kind]) for kind in kinds if kind != "pcg_dot"}
+    out["pcg_dot"] = bench_fixed_dot(*cases["pcg_dot"])
+    check(all(r["lanes"] == lanes for r in out.values()), f"not every capture has {lanes} lanes")
+    emit("kernels_segment_sum" if lanes == 1 else f"kernels_segment_sum_lanes{lanes}", lanes=lanes,
+         tolerance="against float64: segment sums (n - 1) 2^-24 sum|x|, dots n 2^-24 sum|a c|", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: repeat (the default mode gives one answer per input)
+# ---------------------------------------------------------------------------
+
+REPEAT_MAIN_FRAMES = 30
+REPEAT_LOOP_FRAMES = 32  # through the first loop closure (frame ~26)
+
+
+def phase_repeat() -> dict:
+    """The main course and the loop course twice each through
+    make_pipeline in the default mode: the trajectories, keyframe poses and
+    loop factors of the two runs must be equal (np.array_equal)."""
+    check(not torch.are_deterministic_algorithms_enabled(), "repeat runs in the default mode")
+    report, counts = {}, Counter()
+    for name, cfg, dataset, n in (("main", main_config, main_dataset, REPEAT_MAIN_FRAMES),
+                                  ("loop", loop_config, loop_dataset, REPEAT_LOOP_FRAMES)):
+        runs = []
+        for _ in range(2):
+            rp = make_pipeline(cfg())
+            reset_counts()
+            run_pipeline(rp, dataset(n), n)
+            counts.update(launch_counts())
+            runs.append(resident_run(rp))
+        a, b = runs
+        d = np.abs(a["traj"] - b["traj"]).max(axis=1)
+        report[name] = dict(
+            frames=n, keyframes=len(a["kf_poses"]), loop_factors=len(a["loops"]),
+            trajectory_equal=bool(np.array_equal(a["traj"], b["traj"])),
+            kf_poses_equal=bool(np.array_equal(a["kf_poses"], b["kf_poses"])),
+            loops_equal=bool(np.array_equal(a["loops"], b["loops"])),
+            max_abs_diff=float(d.max()),
+            first_frame_differs=next((int(f) for f in np.flatnonzero(d > 0)), None))
+    emit("repeat", **report)
+    for name, r in report.items():
+        check(r["trajectory_equal"] and r["kf_poses_equal"] and r["loops_equal"],
+              f"repeat: two default-mode runs of the {name} course differ "
+              f"(max {r['max_abs_diff']}, first frame {r['first_frame_differs']})")
+    check(report["loop"]["loop_factors"] >= 1, "repeat: the loop course closed no loop")
+    return dict(counts)
+
+
+# ---------------------------------------------------------------------------
+# phase: gps_path (GPS factors through a whole stream)
+# ---------------------------------------------------------------------------
+
+# The main course at the bench size with GPS from the generator at its
+# defaults (1 Hz, 0.5 m noise). poseCovThreshold 0 opens the marginal gate
+# (at 25, the default, it stays shut on a course this short), leaving the
+# time (+-0.2 s), covariance and 5 m spacing gates. The host offers each
+# frame the fix of its own stamp, which lands only on a keyframe frame: at
+# 4 m/s a keyframe comes every third frame (1.2 m), so the fixes of t = 3,
+# 6, 9 s land (12 m apart); 100 frames (fixes up to t = 9 s) land three
+# factors, each followed by a full solve.
+GPS_FRAMES = 100
+GPS_KW = dict(poseCovThreshold=0.0)
+GPS_MIN_FACTORS = 3
+# the CPU test's course (tests/test_torch_gps.py): on the card and on the CPU
+GPS_SMALL_KW = dict(
+    scan_capacity=4096, map_capacity=16384, kf_cloud_capacity=4096,
+    near_kf_capacity=8, imu_window=32, mappingSurfLeafSize=0.2,
+    surroundingKeyframeMapLeafSize=0.2, point_filter_num=1, downsampleRate=1,
+    N_SCAN=16, loopClosureEnableFlag=False, surroundingkeyframeAddingDistThreshold=0.3,
+    kf_capacity=32, traj_capacity=64, gps_capacity=8, loop_capacity=8,
+    imu_rate_capacity=1024, poseCovThreshold=0.0,
+)
+GPS_SMALL_FRAMES = 21
+GPS_CARD_VS_CPU_M = 0.15  # resident_path's bound between two pipelines
+
+
+def run_frozen(rp, scans, imu, gps=()):
+    """Frozen streams through a pipeline: IMU up to each scan's end, GPS
+    fixes up to its stamp. Returns the frame times (ms)."""
+    ii = gi = 0
+    ms = []
+    for scan in scans:
+        ii = feed_imu(rp.push_imu, scan, imu, ii)
+        while gi < len(gps) and gps[gi].stamp <= scan.stamp:
+            rp.push_gps(gps[gi])
+            gi += 1
+        sync = torch.cuda.synchronize if rp.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        rp.process_scan(scan)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_gps_path() -> dict:
+    """GPS factors through ResidentPipeline at the bench size, against the
+    same frozen streams without GPS; the CPU test's small course on the card
+    against the port on the CPU; then ``cli run --gps``."""
+    syn = main_dataset(GPS_FRAMES)
+    imu = syn.imu_stream()
+    scans = [syn.scan(f) for f in range(GPS_FRAMES)]
+    gps = syn.gps_stream()
+    gt = syn.ground_truth()[1]
+
+    rp = make_pipeline(SlamConfig(**MAIN_KW, **GPS_KW))
+    solves = []  # each keyframe's graph solve: full (True) or window
+    solve = tres._solve_graph_resident
+
+    def recorded_solve(state, params, full):
+        solves.append(bool(full))
+        return solve(state, params, full)
+
+    reset_counts()
+    tres._solve_graph_resident = recorded_solve
+    try:
+        ms = run_frozen(rp, scans, imu, gps)
+    finally:
+        tres._solve_graph_resident = solve
+    counts = launch_counts()
+    st = rp.state
+    n_g = int(st.g_count)
+    g_i = st.g_i[:n_g].tolist()
+    poses = rp.trajectory_arrays()[1]
+    ate = ate_rmse(poses[:, 3:6].astype(np.float64), gt)
+    gn = rp.gn_iters_total()
+
+    plain = make_pipeline(SlamConfig(**MAIN_KW, **GPS_KW))
+    run_frozen(plain, scans, imu)
+    plain_poses = plain.trajectory_arrays()[1]
+    del plain
+
+    small = gps_small_course()
+    on_card = make_pipeline(SlamConfig(**GPS_SMALL_KW))
+    run_frozen(on_card, *small)
+    GPS_SMALL_CARD.update(traj=on_card.trajectory_arrays()[1], g_count=int(on_card.state.g_count))
+
+    report = dict(
+        frames=GPS_FRAMES, points_per_scan=32 * 900, pose_cov_threshold=GPS_KW["poseCovThreshold"],
+        gps_fixes=len(gps), gps_factors=n_g, gps_keyframes=g_i,
+        gps_targets=st.g_t[:n_g].cpu().numpy().round(4).tolist(),
+        full_solves=sum(solves), window_solves=len(solves) - sum(solves), keyframes=int(st.kf_count),
+        ate_rmse_m=ate, ate_rmse_without_gps_m=ate_rmse(plain_poses[:, 3:6].astype(np.float64), gt),
+        max_dist_to_without_gps_m=float(np.linalg.norm(poses[:, 3:6] - plain_poses[:, 3:6], axis=1).max()),
+        gn_iters_total=gn, k1_launches=counts["knn_grid_topk"],
+        segment_sum_launches=counts["segment_sum"],
+        ms_per_frame_p50=percentile(ms[1:], 50), ms_per_frame_p99=percentile(ms[1:], 99),
+        host_reads=rp.host_reads(),
+    )
+    emit("gps_path", **report)
+    check(n_g >= GPS_MIN_FACTORS, f"gps_path: {n_g} GPS factors landed, expected >= {GPS_MIN_FACTORS}")
+    check(sum(solves) >= n_g, f"gps_path: {sum(solves)} full solves for {n_g} GPS factors")
+    check(ate < 0.3, f"gps_path: ATE {ate} m >= 0.3 m")
+    check(counts["knn_grid_topk"] == gn, "gps_path: K1 launches != GN iterations")
+    return counts
+
+
+GPS_SMALL_CARD: dict = {}  # gps_path's run of the small course on the card
+
+
+def gps_small_course():
+    """The CPU test's small course: scans, IMU and GPS fixes."""
+    small = SyntheticDataset(SyntheticConfig(n_frames=25, n_rings=16, points_per_ring=250,
+                                             speed=6.0, gps_hz=2.0))
+    scans = [small.scan(f) for f in range(GPS_SMALL_FRAMES)]
+    return scans, small.imu_stream(), small.gps_stream()
+
+
+def phase_gps_small_cpu() -> None:
+    """gps_path's small course through the port on the CPU, against
+    gps_path's run of it on the card (run while the dist ranks run: the CPU
+    pipeline needs no card)."""
+    on_cpu = make_pipeline(SlamConfig(**GPS_SMALL_KW), device="cpu")
+    t0 = time.perf_counter()
+    run_frozen(on_cpu, *gps_small_course())
+    cpu_s = time.perf_counter() - t0
+    small_d = float(np.abs(GPS_SMALL_CARD["traj"] - on_cpu.trajectory_arrays()[1]).max())
+    small_g = [GPS_SMALL_CARD["g_count"], int(on_cpu.state.g_count)]
+    emit("gps_small_course", frames=GPS_SMALL_FRAMES, gps_factors_card_cpu=small_g,
+         max_abs_card_vs_cpu=small_d, bound=GPS_CARD_VS_CPU_M, cpu_seconds=cpu_s)
+    check(small_g[0] == small_g[1] >= 2, f"gps_path: small course factors card/cpu {small_g}")
+    check(small_d < GPS_CARD_VS_CPU_M, f"gps_path: the card {small_d} from the CPU on the small course")
+
+
+def gps_cli_run(tmp: str) -> dict:
+    """gps_path through ``cli run --gps``: its synthetic course for
+    GPS_FRAMES frames with a config whose poseCovThreshold opens the gate,
+    writing its checkpoint under ``tmp`` (a subprocess; run in a closing
+    thread)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = os.path.join(tmp, "gps.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"liorf:\n  poseCovThreshold: {GPS_KW['poseCovThreshold']}\n")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "liorf_tpu_torch.cli", "run", "--dataset", "synthetic",
+         "--frames", str(GPS_FRAMES), "--gps", "--config", cfg, "--out", os.path.join(tmp, "out"),
+         "--checkpoint"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    check(r.returncode == 0, f"cli run --gps exited {r.returncode}: {r.stderr[-2000:]}")
+    return dict(json.loads(r.stdout.strip().splitlines()[-1]), seconds=time.perf_counter() - t0)
+
+
+def phase_gps_cli(line: dict, tmp: str) -> None:
+    """gps_cli_run's factors, read back from its checkpoint."""
+    from liorf_tpu_torch.mapping.export import load_checkpoint
+
+    rp = load_checkpoint(tres.ResidentPipeline(SlamConfig(), device="cpu"),
+                         os.path.join(tmp, "out", "checkpoint.pkl"))
+    n_g = int(rp.state.g_count)
+    emit("gps_cli", **line, gps_factors=n_g)
+    check(n_g >= GPS_MIN_FACTORS, f"cli run --gps landed {n_g} factors")
+
+
+# ---------------------------------------------------------------------------
+# phase: growth_path (ring growth on the card)
+# ---------------------------------------------------------------------------
+
+# tests/test_resident.py:236's rings: every one but the GPS ring outgrows
+# them on the loop course; held to resident_loop_path's large-ring run
+# (keyframes and loop factors equal, trajectory within
+# tests/test_torch_resident.py:333's 1e-5).
+GROWTH_RINGS = dict(kf_capacity=8, traj_capacity=16, gps_capacity=8, loop_capacity=8)
+GROWTH_M = 1e-5
+
+
+def phase_growth_path(large: dict) -> dict:
+    out, counts = {}, Counter()
+    for pull_free in (False, True):
+        rp = make_pipeline(SlamConfig(**LOOP_KW, **GROWTH_RINGS, pull_free_growth=pull_free))
+        reset_counts()
+        ms = run_frozen(rp, *frozen_loop_course())
+        c = launch_counts()
+        counts.update(c)
+        run = resident_run(rp)
+        st = rp.state
+        per_frame = np.abs(run["traj"] - large["traj"]).max(axis=1)
+        d = per_frame.max()
+        out[f"pull_free_growth_{pull_free}"] = r = dict(
+            growth_events=rp.growth_events,
+            rings=dict(kf=st.kf_poses.shape[0], traj=st.traj.shape[0], gps=st.g_i.shape[0],
+                       loop=st.l_i.shape[0]),
+            keyframes=len(run["kf_poses"]), loop_factors=len(run["loops"]),
+            keyframes_equal=run["is_kf"] == large["is_kf"]
+            and len(run["kf_poses"]) == len(large["kf_poses"]),
+            loops_equal=bool(np.array_equal(run["loops"], large["loops"])),
+            max_abs_vs_large_rings=float(d),
+            first_frame_differs=next((int(f) for f in np.flatnonzero(per_frame > 0)), None),
+            trajectory_equal=bool(np.array_equal(run["traj"], large["traj"])),
+            kf_poses_equal=bool(np.array_equal(run["kf_poses"], large["kf_poses"])),
+            gn_iters_total=rp.gn_iters_total(), k1_launches=c["knn_grid_topk"],
+            k2_launches=c["knn_bruteforce"], host_reads=rp.host_reads(),
+            ms_per_frame_p50=percentile(ms[1:], 50))
+    emit("growth_path", frames=LOOP_FRAMES, rings=GROWTH_RINGS, bound=GROWTH_M, **out)
+    for name, r in out.items():
+        check(r["growth_events"] >= 2, f"growth_path {name}: {r['growth_events']} growth events")
+        check(r["keyframes_equal"] and r["loops_equal"],
+              f"growth_path {name}: keyframes or loop factors differ from the large rings")
+        check(r["max_abs_vs_large_rings"] < GROWTH_M,
+              f"growth_path {name}: {r['max_abs_vs_large_rings']} from the large-ring run "
+              f"(first at frame {r['first_frame_differs']})")
+        check(r["k1_launches"] == r["gn_iters_total"], "growth_path: K1 launches != GN iterations")
+        check(r["k2_launches"] > 0, "growth_path: K2 never launched")
+    return dict(counts)
+
+
+def frozen_loop_course():
+    """The loop course's streams, as loop_dataset feeds them to run_pipeline."""
+    syn = loop_dataset(LOOP_FRAMES)
+    imu = syn.imu_stream()
+    return [syn.scan(f) for f in range(LOOP_FRAMES)], imu
+
+
+# ---------------------------------------------------------------------------
+# phase: faults (tests/test_fault_injection.py's behaviours on the card)
+# ---------------------------------------------------------------------------
+
+FAULT_KW = dict(
+    scan_capacity=4096, map_capacity=32768, kf_cloud_capacity=2048, near_kf_capacity=16,
+    imu_window=64, point_filter_num=1, downsampleRate=1, mappingSurfLeafSize=0.4,
+    surroundingKeyframeMapLeafSize=0.4, loopClosureEnableFlag=False, kf_capacity=64,
+    traj_capacity=128, gps_capacity=16,
+)
+FAULT_FRAMES = 10
+FAULT_DRIFT_M = 2.0
+FAULT_STEP_M = 5.0
+
+
+def fault_drift(rp, syn) -> float:
+    _, poses = rp.trajectory_arrays()
+    check(bool(np.isfinite(poses).all()), "a non-finite pose escaped the pipeline")
+    _, gt = syn.ground_truth()
+    rel = poses[:, 3:6] - poses[0, 3:6]
+    return float(np.linalg.norm(rel - (gt[: len(poses)] - gt[0]), axis=1).max())
+
+
+def phase_faults() -> dict:
+    """The 8 cases of tests/test_fault_injection.py at its size (16 x 360
+    points, 10 frames, leaves 0.4) through the port's ResidentPipeline on
+    the card, each held to that test's assertions: finite poses, drift from
+    the ground truth's shape < 2.0 m, and after the IMU spike each of the
+    last frames' steps < 5 m. One dataset serves all cases, each drawing
+    fresh noise, as the test's module fixture does."""
+    from dataclasses import replace
+
+    from liorf_tpu_torch.sensors.types import GpsFix, ImuSample, LidarScan
+
+    syn = SyntheticDataset(SyntheticConfig(n_frames=FAULT_FRAMES, n_rings=16, points_per_ring=360))
+    cfg = SlamConfig(**FAULT_KW)
+
+    def run(mutate_scan=None, mutate_imu=None, config=cfg, each=None):
+        rp = make_pipeline(config)
+        imu = syn.imu_stream()
+        ii = 0
+        for f in range(FAULT_FRAMES):
+            scan = syn.scan(f)
+            if mutate_scan is not None:
+                scan = mutate_scan(f, scan)
+            while ii < len(imu) and imu[ii].stamp <= scan.end_time + 0.02:
+                s = imu[ii] if mutate_imu is None else mutate_imu(ii, imu[ii])
+                if s is not None:
+                    rp.push_imu(s)
+                ii += 1
+            if each is not None:
+                each(rp, scan)
+            rp.process_scan(scan)
+        return rp
+
+    def bad_imu(i, s):
+        if i % 7 == 3:
+            return ImuSample(s.stamp, np.full(3, np.nan), s.gyr, s.quat_wxyz)
+        if i % 11 == 5:
+            return ImuSample(s.stamp, s.acc, np.full(3, np.inf), s.quat_wxyz)
+        return s
+
+    def bad_scan(f, scan):
+        if f % 2 == 1:
+            xyz = scan.xyz.copy()
+            xyz[::5] = np.nan
+            xyz[1::97] = np.inf
+            return LidarScan(stamp=scan.stamp, xyz=xyz, intensity=scan.intensity,
+                             ring=scan.ring, rel_time=scan.rel_time)
+        return scan
+
+    def empty(f, scan):
+        if f == 4:
+            return LidarScan(stamp=scan.stamp, xyz=np.zeros((0, 3), np.float32),
+                             intensity=np.zeros(0, np.float32), ring=np.zeros(0, np.int32),
+                             rel_time=np.zeros(0, np.float32))
+        return scan
+
+    def duplicate_and_stale():
+        rp = make_pipeline(cfg)
+        imu = syn.imu_stream()
+        ii = 0
+        scans = [syn.scan(f) for f in range(8)]
+        for f, scan in enumerate(scans):
+            ii = feed_imu(rp.push_imu, scan, imu, ii)
+            rp.process_scan(scan)
+            if f == 3:
+                rp.process_scan(scan)  # exact duplicate
+            if f == 5:
+                rp.process_scan(scans[2])  # stale out-of-order replay
+        return rp
+
+    def spike(i, s):
+        if i == 150:
+            return ImuSample(s.stamp, np.array([2.0e4, 0.0, 9.81]), np.array([0.0, 0.0, 500.0]),
+                             s.quat_wxyz)
+        return s
+
+    ident = np.array([1.0, 0.0, 0.0, 0.0])
+
+    def bad_quat(i, s):
+        return ImuSample(s.stamp, s.acc, s.gyr, np.full(4, np.nan) if i % 5 == 2 else ident)
+
+    def nan_gps(rp, scan):
+        rp.push_gps(GpsFix(scan.stamp, np.nan, np.nan, np.nan))
+        rp.push_gps(GpsFix(scan.stamp, 47.0, 8.0, 400.0, cov_xyz=np.full(3, np.nan)))
+
+    cases = {
+        "nan_imu_samples": lambda: run(mutate_imu=bad_imu),
+        "nan_points_in_scan": lambda: run(mutate_scan=bad_scan),
+        "empty_scan": lambda: run(mutate_scan=empty),
+        "imu_dropout": lambda: run(mutate_imu=lambda i, s: None if 100 <= i < 300 else s),
+        "duplicate_and_stale_scan": duplicate_and_stale,
+        "imu_spike": lambda: run(mutate_imu=spike),
+        "nan_quaternion_9axis": lambda: run(mutate_imu=bad_quat, config=replace(cfg, imuType=1)),
+        "nan_gps_fix": lambda: run(each=nan_gps),
+    }
+    report, counts, failed = {}, Counter(), []
+    for name, case in cases.items():
+        reset_counts()
+        rp = case()
+        c = launch_counts()
+        counts.update(c)
+        _, poses = rp.trajectory_arrays()
+        r = report[name] = dict(frames=len(poses), finite=bool(np.isfinite(poses).all()),
+                                gn_iters=rp.gn_iters_total(), k1_launches=c["knn_grid_topk"])
+        if name == "imu_spike":
+            steps = np.linalg.norm(np.diff(poses[-3:, 3:6], axis=0), axis=1)
+            r["last_steps_m"] = steps.tolist()
+            ok = r["finite"] and bool((steps < FAULT_STEP_M).all())
+        else:
+            r["drift_m"] = fault_drift(rp, syn) if r["finite"] else None
+            ok = r["finite"] and r["drift_m"] < FAULT_DRIFT_M
+        r["held"] = ok
+        if not ok:
+            failed.append(name)
+    emit("faults", cases=report, drift_bound_m=FAULT_DRIFT_M, step_bound_m=FAULT_STEP_M)
+    check(not failed, f"faults: {failed} broke the fault-injection assertions on the card")
+    for name, r in report.items():
+        check(r["k1_launches"] == r["gn_iters"], f"faults {name}: K1 launches != GN iterations")
+    return dict(counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1338,7 +2181,7 @@ def timed_s(fn, repeats: int = 1):
 
 def dist_references():
     """The single-device port on the dist phase's inputs, on the card: the
-    pipeline (under deterministic algorithms, as the sharded one runs),
+    pipeline (in the default mode, as the sharded one runs),
     then the registration on its final map, the loop search, the solves."""
     from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
     from liorf_tpu_torch.graph import pose_graph as pg
@@ -1348,8 +2191,7 @@ def dist_references():
     ref = {}
     rp = tres.ResidentPipeline(main_config(), device=DEV)
     syn = main_dataset(DIST_FRAMES)
-    with deterministic():
-        _, frame_ms = run_pipeline(rp, syn, DIST_FRAMES)
+    _, frame_ms = run_pipeline(rp, syn, DIST_FRAMES)
     n = int(rp.state.traj_count)
     ref["pipeline"] = dict(traj=rp.state.traj[:n].cpu().numpy(), ms=frame_ms[1:],
                            gn_iters=rp.gn_iters_total())
@@ -1472,6 +2314,11 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
             frames=DIST_FRAMES, ms_per_frame_p50=percentile(pipe[0]["frame_ms"][1:], 50),
             single_ms_per_frame_p50=percentile(ref["pipeline"]["ms"], 50),
             max_abs_trans_vs_single_m=float(np.abs(traj[:, 3:6] - rtraj[:, 3:6]).max()),
+            # both in the default mode: bit-equal, else the first frame whose
+            # trajectory row parts
+            bit_equal_to_single=bool(np.array_equal(traj, rtraj)),
+            first_frame_differs=next((int(f) for f in np.flatnonzero(
+                (traj != rtraj).any(axis=1))), None) if traj.shape == rtraj.shape else 0,
             max_abs_rot_vs_single=float(np.abs(traj[:, :3] - rtraj[:, :3]).max()),
             keyframe_flags_equal=float((traj[:, 6] == rtraj[:, 6]).mean()),
             gn_iters_per_rank=[p["gn_iters"] for p in pipe],
@@ -1503,6 +2350,10 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
           and float(out["detect/yaw"]) == ref["detect"]["yaw"],
           f"{label}: loop search disagrees with the single-device one")
     check(traj.shape == rtraj.shape, f"{label}: trajectory shape {traj.shape} != {rtraj.shape}")
+    # one rank runs the single pipeline's reductions in their fixed order
+    check(world > 1 or report["pipeline"]["bit_equal_to_single"],
+          f"{label}: world 1 parts from the single pipeline at frame "
+          f"{report['pipeline']['first_frame_differs']}")
     check(report["pipeline"]["max_abs_trans_vs_single_m"] < DIST_TRANS_M
           and report["pipeline"]["max_abs_rot_vs_single"] < DIST_ROT
           and report["pipeline"]["keyframe_flags_equal"] >= DIST_KF_AGREE,
@@ -1521,14 +2372,16 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
             for k, n in (("knn_grid_topk", "k1"), ("knn_bruteforce", "k2"))}
 
 
-def phase_dist() -> dict:
+def phase_dist(pool: ThreadPoolExecutor, meanwhile=None) -> dict:
     """The distributed modes on the card, against the single-device port on
     the same inputs: one launch over every visible card on NCCL (one rank a
     card), one of DIST_GLOO_RANKS gloo ranks sharing card 0 (NCCL refuses
     two ranks on one card): the sharded arithmetic — padding, blocks,
     all-gather, reduce-scatter, the first rank's prior — runs on the card.
     Four ranks on one card show correctness, not scaling. The kernels were
-    built here (phase_device), so the ranks load the same library."""
+    built here (phase_device), so the ranks load the same library. The two
+    launches run side by side (threads of ``pool``), so their times are
+    taken on a shared card; ``meanwhile`` runs here while they run."""
     knn_cuda.load_library()
     t0 = time.perf_counter()
     ref = dist_references()
@@ -1537,12 +2390,17 @@ def phase_dist() -> dict:
                                       if k.startswith("solve")},
          single_scan_ms_per_iter=ref["scan"]["ms_per_iter"],
          single_pipeline_ms_per_frame_p50=percentile(ref["pipeline"]["ms"], 50))
-    counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        counts["dist_nccl"] = dist_run("nccl", torch.cuda.device_count(), "nccl", None, ref, tmp)
-        counts[f"dist_gloo{DIST_GLOO_RANKS}"] = dist_run(
-            f"gloo{DIST_GLOO_RANKS}", DIST_GLOO_RANKS, "gloo", "cuda:0", ref, tmp)
-    return counts
+        runs = {
+            "dist_nccl": pool.submit(dist_run, "nccl", torch.cuda.device_count(), "nccl", None,
+                                     ref, tmp),
+            f"dist_gloo{DIST_GLOO_RANKS}": pool.submit(
+                dist_run, f"gloo{DIST_GLOO_RANKS}", DIST_GLOO_RANKS, "gloo", "cuda:0", ref, tmp),
+        }
+        if meanwhile is not None:
+            meanwhile()
+        wait(runs.values())
+        return {k: f.result() for k, f in runs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1552,24 +2410,43 @@ def main() -> None:
     ap.add_argument(
         "--phases",
         default="device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,"
-                "multistream_path,cli,dist",
+                "repeat,gps_path,growth_path,faults,multistream_path,cli,dist",
     )
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--parent", help="repair_cost: a checkout from before the fixed-order reductions")
     args = ap.parse_args()
     phases = args.phases.split(",")
     full = {
         "device", "kernels", "main_path", "resident_path", "loop_path",
-        "resident_loop_path", "multistream_path", "cli", "dist",
+        "resident_loop_path", "repeat", "gps_path", "growth_path", "faults", "multistream_path",
+        "cli", "dist",
     } <= set(phases)
 
     t_start = time.perf_counter()
+    # The worker processes fork here, before this process makes a CUDA
+    # context, and cast every course's scans while the kernels build.
+    start = "forkserver" if torch.cuda.is_initialized() else "fork"
+    scan_pool = ProcessPoolExecutor(SCAN_WORKERS, mp_context=multiprocessing.get_context(start))
+    try:
+        run_phases(args, phases, full, t_start, scan_pool)
+    finally:
+        scan_pool.shutdown(cancel_futures=True)
+
+
+def run_phases(args, phases, full, t_start, scan_pool) -> None:
+    draw_courses(scan_pool)
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
+    seg_lanes = None
+    res_loop_run, new_counts = None, {}
     if "main_path" in phases:
-        pipe, main_counts = phase_main_path()
+        seg_cases = {}
+        with capture_segment_sums(seg_cases):
+            pipe, main_counts = phase_main_path()
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
+            kern["segment_sum"] = phase_segment_sum(seg_cases)
         resident = None
         if "resident_path" in phases:
             resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
@@ -1578,16 +2455,43 @@ def main() -> None:
         del pipe, resident
     if "profile" in phases:
         phase_profile()
+    if "edge_floor" in phases:
+        phase_edge_floor()
+    if "repair_cost" in phases:
+        phase_repair_cost(args.parent)
     if "loop_path" in phases:
         loop_counts = phase_loop_path()
     if "resident_loop_path" in phases:
-        res_loop_counts = phase_resident_loop_path()
+        res_loop_counts, res_loop_run = phase_resident_loop_path()
+    if "repeat" in phases:
+        new_counts["repeat"] = phase_repeat()
+    if "gps_path" in phases:
+        new_counts["gps_path"] = phase_gps_path()
+    if "growth_path" in phases:
+        if res_loop_run is None:
+            res_loop_run = phase_resident_loop_path()[1]
+        new_counts["growth_path"] = phase_growth_path(res_loop_run)
+    if "faults" in phases:
+        new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts = phase_multistream_path()
-    if "cli" in phases:
-        phase_cli()
-    if "dist" in phases:
-        dist_counts = phase_dist()
+        multi_counts, seg_lanes = phase_multistream_path()
+    # The closing phases wait on processes of their own (cli runs, dist
+    # ranks), so those run side by side in threads; this process's own
+    # torch work stays on this thread (torch.func's forward-AD levels are
+    # process-wide), the dist references and every path before alone.
+    small_cpu = phase_gps_small_cpu if "gps_path" in phases else None
+    with ThreadPoolExecutor(4) as pool, tempfile.TemporaryDirectory(prefix="liorf_gps_") as tmp:
+        gps_cli = pool.submit(gps_cli_run, tmp) if "gps_path" in phases else None
+        side = [pool.submit(phase_cli)] if "cli" in phases else []
+        if "dist" in phases:
+            dist_counts = phase_dist(pool, small_cpu)
+        elif small_cpu is not None:
+            small_cpu()
+        wait(side + [gps_cli] if gps_cli else side)
+        for f in side:
+            f.result()
+        if gps_cli is not None:
+            phase_gps_cli(gps_cli.result(), tmp)
     torch.cuda.synchronize()
     emit("done", seconds=time.perf_counter() - t_start, phases=phases)
     if not full:
@@ -1595,10 +2499,10 @@ def main() -> None:
         print("partial run: no result line", file=sys.stderr)
         sys.exit(4)
 
-    def row(name, replaces, launches, **extra):
-        r = kern[name]
+    def row(name, replaces, launches, r=None, source=KERNEL_SOURCE, **extra):
+        r = kern[name] if r is None else r
         return {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "ms_cold_l2": r["ms_cold_l2"],
@@ -1606,15 +2510,17 @@ def main() -> None:
             **extra,
         }
 
-    # launches: K1 from the main path's run, K2 from the loop path's run (the
-    # only classic path that reaches it); each counted from 0 just before its
-    # path. launches_by_path adds the resident paths' counts.
+    # launches: K1 and the segment sum from the main path's run, K2 from the
+    # loop path's run (the only classic path that reaches it); each counted
+    # from 0 just before its path. launches_by_path adds the other paths'
+    # counts (the dist ranks count K1 and K2 only).
     def by_path(name):
         return {
             "main_path": main_counts[name], "loop_path": loop_counts[name],
             "resident_path": res_counts[name], "resident_loop_path": res_loop_counts[name],
+            **{path: c[name] for path, c in new_counts.items()},
             **{f"multistream_path_{n}": c[name] for n, c in multi_counts.items()},
-            **{path: c[name] for path, c in dist_counts.items()},
+            **{path: c[name] for path, c in dist_counts.items() if name in c},
         }
 
     def lanes8(name):
@@ -1632,6 +2538,28 @@ def main() -> None:
         row("knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187", loop_counts["knn_bruteforce"],
             launches_by_path=by_path("knn_bruteforce"), lanes8=lanes8("knn_bruteforce_lanes8")),
     ]
+    lane_fields = ("shape", "lanes", "ms", "ms_single_call", "plain_ms", "bound_ms", "bound_by",
+                   "max_abs_err", "max_err_over_bound", "repeats")
+    seg = kern["segment_sum"]
+    dot = seg.pop("pcg_dot")
+    dot_lanes = seg_lanes.pop("pcg_dot")
+    scan_voxel = seg[f"voxel_filter_out{BENCH_CAPS['scan_capacity']}"]
+    kernels.append(row(
+        "segment_sum",
+        "none (not a TPU kernel): the card's atomic index_add in liorf_tpu_torch/core/voxel.py, "
+        "graph/pose_graph.py and dist/shard_map_solver.py",
+        main_counts["segment_sum"], r=scan_voxel, source=SEGSUM_SOURCE,
+        shape=scan_voxel["shape"], launches_by_path=by_path("segment_sum"),
+        by_site={k: {f: v[f] for f in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                        "max_abs_err", "index_put_repeats")}
+                 for k, v in seg.items()},
+        lanes8={k: {f: v[f] for f in lane_fields} for k, v in seg_lanes.items()}))
+    kernels.append(row(
+        "fixed_dot",
+        "none (not a TPU kernel): torch.sum(a * b) of the PCG in liorf_tpu_torch/graph/pose_graph.py",
+        main_counts["fixed_dot"], r=dot, source=SEGSUM_SOURCE, shape=dot["shape"],
+        launches_by_path=by_path("fixed_dot"),
+        lanes8={f: dot_lanes[f] for f in lane_fields}))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
     check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
@@ -1640,6 +2568,12 @@ def main() -> None:
           "K1 never launched on the multistream path")
     check(all(c["knn_grid_topk"] > 0 and c["knn_bruteforce"] > 0 for c in dist_counts.values()),
           "K1 or K2 never launched on the dist path")
+    check(all(c["knn_grid_topk"] > 0 and c["segment_sum"] > 0 and c["fixed_dot"] > 0
+              for c in new_counts.values()),
+          "K1, the segment sum or the fixed-order dot never launched on a path of this slice")
+    check(new_counts["growth_path"]["knn_bruteforce"] > 0, "K2 never launched on growth_path")
+    check(all(c["segment_sum"] > 0 and c["fixed_dot"] > 0 for c in (res_counts, *multi_counts.values())),
+          "the segment sum or the fixed-order dot never launched on the resident or multistream path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

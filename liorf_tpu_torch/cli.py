@@ -17,6 +17,10 @@ The off-ROS equivalent of ``roslaunch liorf run_*.launch`` + ``rosbag play``
 synthetic, KITTI raw, MulRan or rosbag dataset and prints one JSON line; its
 files and that line are those of ``liorf_tpu.cli run``. On stderr it also
 prints which scan packer ran (``{"packer": {"native": n, "numpy": m}}``).
+``--viz`` writes the PLY files and, where matplotlib imports, overview.png;
+without matplotlib it says so on stderr and goes on (the JAX cli raises).
+``--resume`` and ``optimize --checkpoint`` read this package's checkpoints
+and the JAX package's resident ones.
 ``optimize`` relaxes a checkpoint's whole keyframe graph with the
 distributed solver over the current process group (a group of one when
 there is none; under ``torchrun`` or ``dist.launch``, one rank a process).
@@ -143,6 +147,16 @@ def cmd_run(args):
         save_map(pipe, dest)
     if args.checkpoint:
         save_checkpoint(pipe, os.path.join(args.out, "checkpoint.pkl"))
+    if args.viz:
+        from .mapping.viz import export_ply, render_overview
+
+        export_ply(pipe, args.out)
+        # the PNG needs matplotlib, which a GPU host may lack: the PLY files
+        # and the JSON line are written all the same
+        try:
+            render_overview(pipe, os.path.join(args.out, "overview.png"))
+        except ImportError as e:
+            print(f"cli run --viz: overview.png not drawn ({e})", file=sys.stderr)
     print(
         json.dumps(
             dict(
@@ -309,7 +323,16 @@ def main(argv=None):
     r.add_argument("--cloud-topic", help="rosbag: PointCloud2 topic (default: config)")
     r.add_argument("--imu-topic", help="rosbag: Imu topic (default: config)")
     r.add_argument("--gps-topic", help="rosbag: NavSatFix topic (default: config)")
-    r.add_argument("--resume", help="resume from a checkpoint.pkl of this package")
+    r.add_argument(
+        "--resume",
+        help="resume from a checkpoint.pkl: this package's, or a resident one "
+        "(resident-v1 / resident-v2) of the JAX package",
+    )
+    r.add_argument(
+        "--viz", action="store_true",
+        help="export trajectory/map/loops PLYs + overview.png (the PNG only "
+        "where matplotlib is installed)",
+    )
     r.add_argument(
         "--profile", action="store_true",
         help="report per-stage host timing (ingest/dispatch/drain) to stderr",
@@ -335,7 +358,10 @@ def main(argv=None):
     o = sub.add_parser(
         "optimize", help="distributed full-batch relaxation of a checkpoint"
     )
-    o.add_argument("--checkpoint", required=True, help="checkpoint.pkl of this package")
+    o.add_argument(
+        "--checkpoint", required=True,
+        help="checkpoint.pkl of a resident pipeline: this package's or the JAX package's",
+    )
     o.add_argument("--config", help="reference-format YAML config")
     o.add_argument("--out", help="output checkpoint (default: in-place)")
     o.add_argument(

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.segment_sum import segment_sum
 from .pointcloud import PAD_COORD, PointCloud
 
 
@@ -76,22 +77,31 @@ def voxel_downsample(
     # out-of-range index where JAX drops it, so the dump slot is load-bearing.
     # Out-of-place scatters, so the filter also runs under torch.func.vmap.
     tgt = torch.where(mask_s & (seg_id < out_capacity), seg_id, out_capacity)
-    sums = torch.zeros((out_capacity + 1, 3), dtype=torch.float32, device=dev)
-    sums = sums.index_add(0, tgt, xyz_s)
-    isum = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
-    isum = isum.index_add(0, tgt, inten_s)
-    cnt = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
-    cnt = cnt.index_add(0, tgt, torch.ones_like(inten_s))
+    if xyz_s.is_cuda:
+        # On the card, one fixed-order segment sum (the atomic index_add
+        # would not repeat): tgt is sorted — valid points first, seg_id
+        # non-decreasing, everything past the capacity in the dump slot,
+        # which the kernel skips.
+        rows = torch.cat([xyz_s, inten_s[:, None], torch.ones_like(inten_s)[:, None]], dim=1)
+        acc = segment_sum(rows[None], None, tgt[None], out_capacity)[0]
+        sums, isum, cnt_v = acc[:, :3], acc[:, 3], acc[:, 4]
+    else:
+        sums = torch.zeros((out_capacity + 1, 3), dtype=torch.float32, device=dev)
+        sums = sums.index_add(0, tgt, xyz_s)
+        isum = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
+        isum = isum.index_add(0, tgt, inten_s)
+        cnt = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
+        cnt = cnt.index_add(0, tgt, torch.ones_like(inten_s))
+        sums, isum, cnt_v = sums[:-1], isum[:-1], cnt[:-1]
     # representative = smallest original index in the voxel
     rep = torch.full((out_capacity + 1,), n, dtype=torch.int64, device=dev)
     rep = rep.scatter_reduce(0, tgt, order, reduce="amin", include_self=True)
 
-    cnt_v = cnt[:-1]
     valid = cnt_v > 0
     denom = torch.where(valid, cnt_v, 1.0)
-    centroids = sums[:-1] / denom[:, None]
+    centroids = sums / denom[:, None]
     centroids = torch.where(valid[:, None], centroids, PAD_COORD)
-    intensity = isum[:-1] / denom
+    intensity = isum / denom
     out = PointCloud(xyz=centroids, intensity=intensity, mask=valid)
     return VoxelResult(cloud=out, rep_idx=torch.where(valid, rep[:-1], n))
 

@@ -51,9 +51,6 @@ def launch(
     ``backend="gloo"``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(_REPO), env.get("PYTHONPATH")]))
-    if device != "cpu":
-        # deterministic cuBLAS (dist/resident_sharded.py)
-        env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     flags = [*(["--backend", backend] if backend else []),
              *(["--device", device] if device else [])]
     with tempfile.TemporaryDirectory(prefix="liorf_dist_") as tmp:

@@ -20,17 +20,14 @@ for large graphs and run on their own.
 
 Every rank must take the same branches (keyframe, loop gate, full solve):
 the host reads them from replicated values, and a rank that decided
-otherwise would wait in a collective the others never enter. On CUDA the
-replicated parts use scatter-adds whose atomics differ from run to run, so
-the pipeline runs each frame under ``torch.use_deterministic_algorithms``
-(cuBLAS then needs ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the environment,
-which ``dist/launch.py`` sets for its workers).
+otherwise would wait in a collective the others never enter. The
+replicated parts repeat bit for bit on every rank: their scatter-adds are
+fixed-order segment sums on the card (``ops/segment_sum.py``), not atomics.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..pipeline.config import SlamConfig
 from ..pipeline.resident import ResidentPipeline, resident_step_packed
@@ -45,17 +42,6 @@ class ShardedResidentPipeline(ResidentPipeline):
     def __init__(self, cfg: SlamConfig, mesh: GraphMesh):
         super().__init__(cfg, device=mesh.device)
         self.mesh = mesh
-
-    def process_scan(self, scan):
-        if self.device.type != "cuda":
-            return super().process_scan(scan)
-        was = (torch.are_deterministic_algorithms_enabled(),
-               torch.is_deterministic_algorithms_warn_only_enabled())
-        torch.use_deterministic_algorithms(True)
-        try:
-            return super().process_scan(scan)
-        finally:
-            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
     def _dispatch_step(self, buf: np.ndarray, S: int, W: int):
         self.state, self._host, gn_iters = resident_step_packed(

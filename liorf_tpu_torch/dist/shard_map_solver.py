@@ -24,6 +24,7 @@ import torch
 from ..core import se3
 from ..graph import pose_graph as pg
 from ..graph.pose_graph import SolveParams
+from ..ops.segment_sum import SegmentPlan
 from .sharded import GraphMesh, shard_graph
 
 
@@ -99,27 +100,23 @@ def _local_matvec(graph: pg.PoseGraph, Ji, Jj, Jg, Kl: int, offset: int):
     wj = ((lj >= 0) & (lj < Kl)).to(Jj.dtype)
     wg = ((lg >= 0) & (lg < Kl)).to(Jg.dtype)
     li, lj, lg = (torch.clamp(x, 0, Kl - 1) for x in (li, lj, lg))
+    # the scatter-adds of every inner matvec, in a fixed order on the card
+    plan = SegmentPlan([li, lj, lg], Kl)
 
     def jt(J, r, w):  # J^T r per factor, clipped
-        return torch.einsum("eri,er->ei", J, r) * w[:, None]
+        return pg._jt(J, r) * w[:, None]
 
     def matvec(x_l):  # x_l: [Kl, 6] local
         yi = torch.einsum("eri,ei->er", Ji, x_l[li]) * wi[:, None]
         yj = torch.einsum("eri,ei->er", Jj, x_l[lj]) * wj[:, None]
         y_e = yi + yj
         y_g = torch.einsum("gri,gi->gr", Jg, x_l[lg]) * wg[:, None]
-        out = torch.zeros_like(x_l)
-        out = out.index_add(0, li, jt(Ji, y_e, wi))
-        out = out.index_add(0, lj, jt(Jj, y_e, wj))
-        return out.index_add(0, lg, jt(Jg, y_g, wg))
+        return plan.sum([jt(Ji, y_e, wi), jt(Jj, y_e, wj), jt(Jg, y_g, wg)])
 
     def jtj(J, w):
         return torch.einsum("eri,erj->eij", J, J) * w[:, None, None]
 
-    diag_own = torch.zeros((Kl, 6, 6), dtype=Ji.dtype, device=Ji.device)
-    diag_own = diag_own.index_add(0, li, jtj(Ji, wi))
-    diag_own = diag_own.index_add(0, lj, jtj(Jj, wj))
-    diag_own = diag_own.index_add(0, lg, jtj(Jg, wg))
+    diag_own = plan.sum([jtj(Ji, wi), jtj(Jj, wj), jtj(Jg, wg)])
     return matvec, diag_own
 
 

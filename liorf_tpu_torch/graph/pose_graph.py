@@ -32,6 +32,7 @@ from torch.func import jacfwd, vmap
 
 from ..core import se3
 from ..core.device import resolve_device
+from ..ops.segment_sum import SegmentPlan, fixed_dot
 
 
 class PoseGraph(NamedTuple):
@@ -116,6 +117,14 @@ def _prior_residual(xi_i, Ri, ti, R0, t0):
     return torch.cat([se3.so3_log(R0.T @ Ri2), ti2 - t0])
 
 
+# On the card the batched products inside the between factors' vmap of
+# jacfwd give an edge other bits at batch sizes below 256 (another kernel is
+# picked; 256 to 1152 rows agree on an H100), so a graph with few edge slots
+# is linearized padded to this many (identity edges, sliced off): every ring
+# capacity, grown or not, then linearizes with the kernels of a large ring.
+_EDGE_BATCH_FLOOR = 512
+
+
 def _between_rJ(Ri, ti, Rj, tj, Rm, tm):
     def one(Ri, ti, Rj, tj, Rm, tm):
         z = torch.zeros(6, dtype=Ri.dtype, device=Ri.device)
@@ -127,7 +136,15 @@ def _between_rJ(Ri, ti, Rj, tj, Rm, tm):
         (Ji, Jj), r = jacfwd(f, argnums=(0, 1), has_aux=True)(z, z)
         return r, Ji, Jj
 
-    return vmap(one)(Ri, ti, Rj, tj, Rm, tm)
+    E = Ri.shape[0]
+    pad = _EDGE_BATCH_FLOOR - E if Ri.is_cuda else 0
+    if pad <= 0:
+        return vmap(one)(Ri, ti, Rj, tj, Rm, tm)
+    eye = torch.eye(3, dtype=Ri.dtype, device=Ri.device).expand(pad, 3, 3)
+    zero = torch.zeros((pad, 3), dtype=ti.dtype, device=ti.device)
+    r, Ji, Jj = vmap(one)(*(torch.cat([x, eye if x.dim() == 3 else zero])
+                            for x in (Ri, ti, Rj, tj, Rm, tm)))
+    return r[:E], Ji[:E], Jj[:E]
 
 
 def _gps_rJ(Ri, ti, tgt):
@@ -190,6 +207,28 @@ def _linearize(graph: PoseGraph):
     return (r_e, Ji, Jj), (r_g, Jg), (r_p, Jp)
 
 
+# The per-factor and per-node products of the solve, as an elementwise
+# product and a sum over the last axis. cuBLAS picks the kernel of a batched
+# product, and with it a row's rounding, by the batch size, so with einsums
+# the card's solve moved with the ring capacity; this form gives a row the
+# same bits at any batch size (tests/test_torch_segment_sum.py).
+
+def _bmv(M, v):
+    """M [B, m, n] times v [B, n] -> [B, m]."""
+    return (M * v[..., None, :]).sum(-1)
+
+
+def _jt(J, r):
+    """J^T r per factor: J [E, R, 6], r [E, R] -> [E, 6]."""
+    return (J.transpose(-1, -2).contiguous() * r[..., None, :]).sum(-1)
+
+
+def _jtj(J):
+    """J^T J per factor: J [E, R, 6] -> [E, 6, 6]."""
+    Jt = J.transpose(-1, -2).contiguous()
+    return (Jt[..., :, None, :] * Jt[..., None, :, :]).sum(-1)
+
+
 def _build_normal_terms(graph: PoseGraph, free_mask):
     """Linearize and return (rhs [K,6], matvec fn, block-diag [K,6,6],
     (Ji, Jj, Jg)) — the last the masked factor Jacobians, which the
@@ -205,42 +244,34 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
     Jg = Jg * fm[g_i][:, None, None]
     Jp = Jp * fm[p_i][0]
 
-    def jt(J, r):  # J^T r per factor
-        return torch.einsum("eri,er->ei", J, r)
-
-    # rhs = -J^T r scattered per node (index_add_ in place of .at[].add,
+    # rhs = -J^T r scattered per node (index_add in place of .at[].add,
     # pose_graph.py:192-214 of the JAX package; accumulation order differs)
     # (out of place, so the solve also runs under torch.func.vmap: one graph
-    # per lane of pipeline/multistream.py)
-    rhs = torch.zeros((K, 6), dtype=r_e.dtype, device=r_e.device)
-    rhs = rhs.index_add(0, e_i, -jt(Ji, r_e))
-    rhs = rhs.index_add(0, e_j, -jt(Jj, r_e))
-    rhs = rhs.index_add(0, g_i, -jt(Jg, r_g))
-    rhs = rhs.index_add(0, p_i, -(Jp.T @ r_p)[None])
+    # per lane of pipeline/multistream.py). The endpoints are fixed for the
+    # solve: on the card one plan serves rhs, diag and every matvec in a
+    # fixed order (ops/segment_sum.py), on the CPU these are the index_adds.
+    plan = SegmentPlan([e_i, e_j, g_i, p_i], K)
+    rhs = plan.sum([-_jt(Ji, r_e), -_jt(Jj, r_e), -_jt(Jg, r_g), -(Jp.T @ r_p)[None]])
 
     # block-diagonal of H for the Jacobi preconditioner
-    diag = torch.zeros((K, 6, 6), dtype=r_e.dtype, device=r_e.device)
-    diag = diag.index_add(0, e_i, torch.einsum("eri,erj->eij", Ji, Ji))
-    diag = diag.index_add(0, e_j, torch.einsum("eri,erj->eij", Jj, Jj))
-    diag = diag.index_add(0, g_i, torch.einsum("gri,grj->gij", Jg, Jg))
-    diag = diag.index_add(0, p_i, (Jp.T @ Jp)[None])
+    diag = plan.sum([_jtj(Ji), _jtj(Jj), _jtj(Jg), (Jp.T @ Jp)[None]])
 
     def matvec(x):  # x: [K, 6]
-        yi = torch.einsum("eri,ei->er", Ji, x[e_i])
-        yj = torch.einsum("eri,ei->er", Jj, x[e_j])
+        yi = _bmv(Ji, x[e_i])
+        yj = _bmv(Jj, x[e_j])
         y_e = yi + yj
-        y_g = torch.einsum("gri,gi->gr", Jg, x[g_i])
+        y_g = _bmv(Jg, x[g_i])
         y_p = Jp @ x[p_i][0]
-        out = torch.zeros_like(x)
-        out = out.index_add(0, e_i, jt(Ji, y_e))
-        out = out.index_add(0, e_j, jt(Jj, y_e))
-        out = out.index_add(0, g_i, jt(Jg, y_g))
-        return out.index_add(0, p_i, (Jp.T @ y_p)[None])
+        return plan.sum([_jt(Ji, y_e), _jt(Jj, y_e), _jt(Jg, y_g), (Jp.T @ y_p)[None]])
 
     return rhs, matvec, diag, (Ji, Jj, Jg)
 
 
 def _local_dot(a, b):
+    """sum(a * b); on the card in a fixed order that a ring's unused (zero)
+    slots do not change (ops/segment_sum.py::fixed_dot)."""
+    if a.is_cuda:
+        return fixed_dot(a.reshape(1, -1), b.reshape(1, -1))[0]
     return torch.sum(a * b)
 
 
@@ -257,7 +288,7 @@ def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float, dot=_local_dot
     Minv, _ = torch.linalg.inv_ex(blocks)  # [K, 6, 6]; no host sync
 
     def apply_M(r):
-        return torch.einsum("kij,kj->ki", Minv, r)
+        return _bmv(Minv, r)
 
     def A(x):
         return matvec(x) + damping * x

@@ -6,16 +6,20 @@ trajectory.pcd, transformations.pcd, SurfMap.pcd and GlobalMap.pcd
 (optionally voxel-downsampled to a requested resolution).
 
 ``save_checkpoint``/``load_checkpoint`` add what the reference lacks: a full
-mid-run snapshot of a ``ResidentPipeline`` — every field of its
-``ResidentState`` as numpy, the nested filter and grid as dicts of arrays,
-plus the host-side stream state — so a session can resume. Unpickling one
-needs no class of either package, and ``load_checkpoint`` refuses any
-pickle that names one (the JAX package's checkpoints pickle its own
-NamedTuples, so they cannot be read here).
+mid-run snapshot so a session can resume. A ``ResidentPipeline`` is written
+in this package's format — every field of its ``ResidentState`` as numpy,
+the nested filter and grid as dicts of arrays, plus the host-side stream
+state — which names no class. A ``LiorfPipeline`` is written in the JAX
+package's classic layout. ``load_checkpoint`` also resumes the JAX
+package's resident checkpoints (resident-v1 / resident-v2), which pickle a
+few of its classes by name: those are read as the port's classes of the
+same fields (``JAX_CLASS_MAP``), and a pickle naming any other class is
+refused before anything is imported.
 """
 
 from __future__ import annotations
 
+import importlib
 import io
 import os
 import pickle
@@ -107,13 +111,46 @@ def _to_arrays(x):
 
 
 def save_checkpoint(pipeline, path: str):
-    """Snapshot a ``ResidentPipeline`` for resume (one pull of the whole
-    state). The classic pipeline's host-structured format is not ported."""
-    if getattr(pipeline, "state", None) is None:
-        raise NotImplementedError(
-            "save_checkpoint: only a ResidentPipeline (make_pipeline(cfg)) that "
-            "has processed a scan can be checkpointed by this package"
-        )
+    """Snapshot a pipeline for resume. A ``ResidentPipeline`` is written in
+    this package's format (one pull of the whole state); a ``LiorfPipeline``
+    in the JAX package's classic layout (host arrays and builtins, no
+    class), which either package can read back."""
+    if getattr(pipeline, "state", None) is not None:
+        _save_resident(pipeline, path)
+        return
+    if hasattr(pipeline, "seed_ring_bounds"):
+        raise ValueError("save_checkpoint: a ResidentPipeline must process a scan first")
+    store = pipeline.store
+    n = store.count
+    filt = pipeline.filter
+    payload = dict(
+        count=n,
+        poses=store.poses[:n],
+        times=store.times[:n],
+        clouds=store.clouds[:n],
+        cloud_masks=store.cloud_masks[:n],
+        sc_descs=store.sc_descs[:n],
+        sc_keys=store.sc_keys[:n],
+        edges=pipeline.edges,
+        gps_factors=pipeline.gps_factors,
+        pose_cov=np.asarray(pipeline.pose_cov),
+        last_gps_xyz=pipeline.last_gps_xyz,
+        loop_index=pipeline.loop_detector.loop_index_container,
+        last_pose=pipeline.last_pose,
+        last_scan_stamp=pipeline.last_scan_stamp,
+        frame_idx=pipeline.frame_idx,
+        trajectory=[(f.stamp, f.pose) for f in pipeline.trajectory],
+        filter=None if filt is None else dict(
+            mean=[x.cpu().numpy() for x in filt.mean],
+            sqrt_info=filt.sqrt_info.cpu().numpy(),
+        ),
+        time_base=pipeline._time_base_val,
+    )
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def _save_resident(pipeline, path: str):
     payload = dict(
         format=FORMAT,
         state=_to_arrays(pipeline.state),
@@ -134,36 +171,113 @@ def save_checkpoint(pipeline, path: str):
         pickle.dump(payload, f)
 
 
+# The classes a checkpoint of the JAX package pickles by name, each mapped to
+# the port's class of the same fields (strings only: the JAX package is never
+# imported). resident-v2 names the first four; resident-v1 also pickled the
+# ResidentState tuple itself.
+JAX_CLASS_MAP = {
+    "liorf_tpu.imu.fusion.FusionFilter": "liorf_tpu_torch.imu.fusion.FusionFilter",
+    "liorf_tpu.imu.fusion.FusionState": "liorf_tpu_torch.imu.fusion.FusionState",
+    "liorf_tpu.ops.knn.SpatialHashGrid": "liorf_tpu_torch.ops.knn.SpatialHashGrid",
+    "liorf_tpu.sensors.types.ImuSample": "liorf_tpu_torch.sensors.types.ImuSample",
+    "liorf_tpu.pipeline.resident.ResidentState": "liorf_tpu_torch.pipeline.resident.ResidentState",
+}
+
+# Defaults for ResidentState fields that a JAX resident-v2 file may lack
+# (liorf_tpu/mapping/export.py:30-34): each takes the pipeline's config.
+_RESIDENT_FIELD_DEFAULTS = {
+    "imu_traj": lambda cfg: np.zeros((cfg.imu_rate_capacity, 8), np.float32),
+    "imu_count": lambda cfg: np.asarray(0, np.int32),
+    "pending_loop": lambda cfg: np.asarray(False),
+}
+
+
 class _ArraysOnly(pickle.Unpickler):
-    """Unpickles builtins and numpy arrays only: a checkpoint of this
-    package names no other class, and unpickling anything else could import
-    (and run) code."""
+    """Unpickles builtins, numpy arrays and the JAX package's classes of
+    ``JAX_CLASS_MAP`` (as the port's classes) only: unpickling anything else
+    could import (and run) code."""
 
     def find_class(self, module, name):
         if module == "builtins" or module == "numpy" or module.startswith("numpy."):
             return super().find_class(module, name)
+        target = JAX_CLASS_MAP.get(f"{module}.{name}")
+        if target is not None:
+            mod, _, cls = target.rpartition(".")
+            return getattr(importlib.import_module(mod), cls)
         raise pickle.UnpicklingError(f"{module}.{name} is not allowed in a checkpoint")
 
 
-def load_checkpoint(pipeline, path: str):
-    """Restore a ``save_checkpoint`` snapshot into a freshly constructed
-    ``ResidentPipeline``; the state goes to the pipeline's device."""
-    from ..convert import resident_state_from_arrays
+def _jax_resident_state(saved, cfg, path: str) -> dict:
+    """The fields of a JAX resident-v1 / v2 state as numpy, completed as the
+    JAX loader completes them (liorf_tpu/mapping/export.py:190-225): missing
+    fields from ``_RESIDENT_FIELD_DEFAULTS``, a pre-r3 10-column ``traj``
+    padded with its re-anchoring columns."""
+    from ..pipeline.resident import ResidentState
 
-    if not hasattr(pipeline, "seed_ring_bounds"):
-        raise ValueError("load_checkpoint needs a ResidentPipeline (make_pipeline(cfg))")
+    fields = dict(saved._asdict()) if hasattr(saved, "_asdict") else dict(saved)
+    missing = set(ResidentState._fields) - set(fields)
+    unfillable = missing - set(_RESIDENT_FIELD_DEFAULTS)
+    if unfillable:
+        raise ValueError(
+            f"checkpoint {path!r} lacks ResidentState fields {sorted(unfillable)} "
+            "with no known default: it was written by an incompatible version"
+        )
+    fields = {k: fields[k] for k in ResidentState._fields if k in fields}
+    for name in missing:
+        fields[name] = _RESIDENT_FIELD_DEFAULTS[name](cfg)
+    traj = np.asarray(fields["traj"])
+    if traj.shape[1] == 10:
+        # pre-r3 ring without the (slot, kf-pose-then) columns: anchor every
+        # frame on keyframe 0, whose prior keeps it fixed
+        anchor = np.asarray(fields["kf_poses"])[0].astype(np.float32)
+        pad = np.concatenate(
+            [np.zeros((traj.shape[0], 1), np.float32), np.tile(anchor, (traj.shape[0], 1))],
+            axis=1,
+        )
+        fields["traj"] = np.concatenate([traj.astype(np.float32), pad], axis=1)
+    return fields
+
+
+def load_checkpoint(pipeline, path: str):
+    """Restore a snapshot into a freshly constructed pipeline, its state on
+    the pipeline's device. A ``ResidentPipeline`` takes this package's
+    format and the JAX package's resident-v1 / resident-v2; a
+    ``LiorfPipeline`` takes the classic layout (written by either package)."""
     with open(path, "rb") as f:
         raw = f.read()
     try:
         payload = _ArraysOnly(io.BytesIO(raw)).load()
     except pickle.UnpicklingError as e:
+        raise ValueError(f"{path!r} is not a liorf_tpu_torch checkpoint ({e})") from e
+    except TypeError as e:
+        # resident-v1 pickled the ResidentState tuple itself: a layout that
+        # changed since fails in its constructor
         raise ValueError(
-            f"{path!r} is not a liorf_tpu_torch checkpoint ({e}); checkpoints of "
-            "the JAX package cannot be resumed by the port"
+            f"checkpoint {path!r} pickles a ResidentState of another layout "
+            "(resident-v1): re-create it with the version that resumes it"
         ) from e
-    if not isinstance(payload, dict) or payload.get("format") != FORMAT:
+    if not isinstance(payload, dict):
+        raise ValueError(f"{path!r} is not a liorf_tpu_torch checkpoint")
+    fmt = payload.get("format")
+    resident = hasattr(pipeline, "seed_ring_bounds")
+    if fmt is None and "count" in payload:
+        if resident:
+            raise ValueError(f"{path!r} is a classic checkpoint: it needs a LiorfPipeline")
+        return _load_classic(pipeline, payload)
+    if fmt not in (FORMAT, "resident-v1", "resident-v2"):
         raise ValueError(f"{path!r} is not a {FORMAT} checkpoint")
-    state = resident_state_from_arrays(payload["state"], device=pipeline.device)
+    if not resident:
+        raise ValueError(f"a {fmt} checkpoint needs a ResidentPipeline (make_pipeline(cfg))")
+    return _load_resident(pipeline, payload, path)
+
+
+def _load_resident(pipeline, payload: dict, path: str):
+    from ..convert import resident_state_from_arrays
+
+    saved = payload["state"]
+    if payload["format"] != FORMAT:
+        saved = _jax_resident_state(saved, pipeline.cfg, path)
+    state = resident_state_from_arrays(saved, device=pipeline.device)
     pipeline.state = state
     # seed the host-side ring-count bounds and host view from the snapshot
     # (invariant owned by ResidentPipeline)
@@ -172,9 +286,59 @@ def load_checkpoint(pipeline, path: str):
     pipeline._time_base_val = payload["time_base"]
     pipeline.frame_idx = payload["frame_idx"]
     pipeline.last_scan_stamp = payload["last_scan_stamp"]
-    pipeline.imu_queue = [ImuSample(*s) for s in payload["imu_queue"]]
+    # this package's tuples, or the JAX package's ImuSample read as the port's
+    pipeline.imu_queue = [
+        s if isinstance(s, ImuSample) else ImuSample(*s) for s in payload["imu_queue"]
+    ]
     pipeline.gps_queue = list(payload["gps_queue"])
     if payload["gps_datum"] is not None:
         pipeline.gps_conv._datum = payload["gps_datum"]
     pipeline._synced = False
+    return pipeline
+
+
+def _load_classic(pipeline, state: dict):
+    """The classic layout into a ``LiorfPipeline``
+    (liorf_tpu/mapping/export.py:239-272): the keyframe store grown to fit,
+    the host lists, the filter rebuilt on the pipeline's device, the local
+    map rebuilt around the last pose."""
+    from ..imu.fusion import FusionFilter, FusionState
+    from ..pipeline.slam import FrameResult
+
+    store = pipeline.store
+    n = state["count"]
+    while store.kf_cap < n:
+        store._grow()
+    store.count = n
+    store.poses[:n] = state["poses"]
+    store.times[:n] = state["times"]
+    store.clouds[:n] = state["clouds"]
+    store.cloud_masks[:n] = state["cloud_masks"]
+    store.sc_descs[:n] = state["sc_descs"]
+    store.sc_keys[:n] = state["sc_keys"]
+    store.invalidate_device()
+    pipeline.edges = state["edges"]
+    pipeline.gps_factors = state["gps_factors"]
+    if "pose_cov" in state:
+        pipeline.pose_cov = np.asarray(state["pose_cov"], np.float64)
+        pipeline.last_gps_xyz = state["last_gps_xyz"]
+    pipeline.loop_detector.loop_index_container = state["loop_index"]
+    pipeline.last_pose = state["last_pose"]
+    pipeline.last_scan_stamp = state["last_scan_stamp"]
+    pipeline.frame_idx = state["frame_idx"]
+    pipeline.trajectory = [
+        FrameResult(stamp=t, pose=p, degenerate=False, is_keyframe=False, num_matched=0)
+        for t, p in state["trajectory"]
+    ]
+    if state["filter"] is not None:
+        dev = pipeline.device
+        mean = FusionState(*[torch.as_tensor(x, dtype=torch.float32, device=dev)
+                             for x in state["filter"]["mean"]])
+        pipeline.filter = FusionFilter(
+            mean=mean,
+            sqrt_info=torch.as_tensor(state["filter"]["sqrt_info"], dtype=torch.float32, device=dev),
+        )
+    pipeline._time_base_val = state["time_base"]
+    if n and pipeline.last_scan_stamp is not None:
+        pipeline._rebuild_grid(pipeline.last_pose, pipeline.last_scan_stamp)
     return pipeline

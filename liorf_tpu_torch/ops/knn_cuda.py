@@ -42,41 +42,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
-from ..core.build import build_dir
+from ..core.build import build_cuda_library
 
 MAX_K = 8
 _BIG = 1e30  # "no neighbour" coordinate / distance threshold of the callers
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "knn_kernels.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
-
-
-def _find_nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
-        "k-NN kernels cannot be built"
-    )
 
 
 def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
@@ -84,24 +62,7 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra_flags).encode()).hexdigest()[:12]
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"libknn_kernels_{tag}.so"
-    if not so.exists():
-        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(_SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        if extra_flags and (proc.stdout or proc.stderr):
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+    so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.liorf_knn_max_k.argtypes = []
@@ -226,9 +187,17 @@ def topk_candidates_plain(
         pad = torch.full((n, k - c), torch.inf, dtype=d2.dtype, device=d2.device)
         d2 = torch.cat([d2, pad], dim=1)
         cand_idx = torch.cat([cand_idx, torch.zeros_like(pad, dtype=cand_idx.dtype)], dim=1)
-    # stable sort: equal distances keep candidate order (lower position first)
-    vals, pos = torch.sort(d2, dim=1, stable=True)
-    vals, pos = vals[:, :k], pos[:, :k]
+    # k rounds of argmin, each taking the first (lowest) position among equal
+    # distances and retiring it: the first k of a stable sort, without
+    # sorting all C candidates (missing neighbours come out as (+inf, 0)
+    # either way)
+    vals, pos = [], []
+    for _ in range(k):
+        p = torch.argmin(d2, dim=1, keepdim=True)
+        vals.append(torch.gather(d2, 1, p))
+        pos.append(p)
+        d2 = d2.scatter(1, p, torch.inf)
+    vals, pos = torch.cat(vals, dim=1), torch.cat(pos, dim=1)
     idx = torch.gather(cand_idx, 1, pos)
     idx = torch.where(torch.isfinite(vals), idx, 0)
     return vals.contiguous(), idx.to(torch.int32).contiguous()

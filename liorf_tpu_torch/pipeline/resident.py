@@ -1608,20 +1608,24 @@ class ResidentPipeline(LiorfPipeline):
         if self._synced or self.state is None:
             return
         st = self.state
+        # only the rows written so far (one a processed frame): the readout's
+        # batch then does not depend on the ring's capacity, nor its rounding
+        T = min(st.traj.shape[0], self.frame_idx)
         packed = torch.cat(
             [
-                _corrected_traj(st.traj, st.kf_poses).reshape(-1),
+                _corrected_traj(st.traj[:T], st.kf_poses).reshape(-1),
                 st.traj_count.to(_F32)[None],
                 st.kf_count.to(_F32)[None],
                 st.kf_poses.reshape(-1),
                 st.kf_times.reshape(-1),
             ]
         ).cpu().numpy()
-        T = st.traj.shape[0]
         K = st.kf_poses.shape[0]
         traj = packed[: T * 10].reshape(T, 10)
         o = T * 10
         n_traj = int(packed[o])
+        if n_traj > T:
+            raise RuntimeError(f"sync: {n_traj} trajectory rows on the device, {T} frames processed")
         o += 1
         n_kf = int(packed[o])
         o += 1

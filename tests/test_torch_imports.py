@@ -192,6 +192,46 @@ def test_slice_four_modules_are_in_the_port():
         cli.main(["run", "--dataset", "nope", "--out", "x"])
 
 
+def test_slice_six_modules_are_in_the_port():
+    """The modules slice 6 adds exist in the port and are in the AST walk
+    above, which holds them to torch and numpy."""
+    for name in ("liorf_tpu_torch/mapping/viz.py", "liorf_tpu_torch/ops/segment_sum.py",
+                 "liorf_tpu_torch/csrc/segment_sum.cu"):
+        assert (ROOT / name).exists(), name
+    walked = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"liorf_tpu_torch/mapping/viz.py", "liorf_tpu_torch/ops/segment_sum.py"} <= walked
+
+
+def test_checkpoint_name_map_holds_only_strings():
+    """The map that reads the JAX package's checkpoints names classes as
+    strings: resolving every entry imports the port's class of the same
+    module path and name, and never the JAX package (checked in a fresh
+    interpreter, where nothing else has imported it)."""
+    import subprocess
+    import sys
+
+    from liorf_tpu_torch.mapping import export
+
+    assert export.JAX_CLASS_MAP
+    for jax_name, port_name in export.JAX_CLASS_MAP.items():
+        assert isinstance(jax_name, str) and isinstance(port_name, str)
+        assert jax_name.startswith("liorf_tpu.") and port_name.startswith("liorf_tpu_torch.")
+        assert jax_name[len("liorf_tpu."):] == port_name[len("liorf_tpu_torch."):]
+    code = (
+        "import io, sys\n"
+        "from liorf_tpu_torch.mapping import export\n"
+        "for name, port in export.JAX_CLASS_MAP.items():\n"
+        "    cls = export._ArraysOnly(io.BytesIO(b'')).find_class(*name.rsplit('.', 1))\n"
+        "    assert f'{cls.__module__}.{cls.__qualname__}' == port, (name, cls)\n"
+        "bad = [m for m in sys.modules if m == 'liorf_tpu' or m.startswith('liorf_tpu.')\n"
+        "       or m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 def test_make_cloud_keeps_a_tensors_device():
     from liorf_tpu_torch.core.pointcloud import make_cloud
 
