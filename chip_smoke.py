@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``liorf_tpu_torch/csrc`` (one nvcc a source,
 started together), holds each against its plain PyTorch version on the card
 at the shapes the pipeline gives it (the k-NN kernels bit for bit; the
-fixed-order segment sum against a float64 reduction and the CPU's index_add),
+fixed-order segment sum against a float64 reduction and the CPU's index_add;
+the pose graph's PCG kernel bit for bit against its plain version on the CPU),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
 process_scan / trajectory_arrays) at the repo's bench size and on the
 loop-closure course, the device-resident pipeline (``make_pipeline``,
@@ -23,8 +24,9 @@ registration, the sharded loop search and ``ShardedResidentPipeline``, over
 NCCL on every visible card and over 4 gloo ranks sharing card 0, against the
 single-device port), and checks the outputs. K1 (``knn_grid_topk``) is timed
 at the main path's shapes on the main path's own final grid, and the segment
-sum and the fixed-order dot on the arguments the main path gave them, right
-after that path, and on the 8-lane launches of multistream_path; both
+sum and the PCG kernel on the arguments the main path gave them, right
+after that path (the PCG also on the resident full solve's), and on the
+8-lane launches of multistream_path; both
 k-NN kernels with a lane axis at N = 8 in the kernels phase. Everything runs
 in the default mode (``torch.use_deterministic_algorithms`` off).
 
@@ -35,9 +37,11 @@ no CPU fallback: without a CUDA device the script exits with code 5.
 Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
-             [,profile][,edge_floor][,repair_cost]
+             [,profile][,pcg_profile][,edge_floor][,repair_cost]
                       not run by default: "profile" traces 8 warm frames with
                       torch.profiler (device-busy share, kernel time by name);
+                      "pcg_profile" times the PCG kernel's phases by clock
+                      cycles (a profiling build of csrc/pcg.cu);
                       "edge_floor" times main_path with and without the pose
                       graph's edge-batch floor; "repair_cost" times
                       resident_path here and in the --parent checkout, in turns
@@ -71,7 +75,9 @@ if not torch.cuda.is_available():
 
 from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
 from liorf_tpu_torch.core import build  # noqa: E402
+from liorf_tpu_torch.graph import pose_graph as pg  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
+from liorf_tpu_torch.ops import pcg  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
 from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig, make_pipeline  # noqa: E402
 from liorf_tpu_torch.pipeline import resident as tres  # noqa: E402
@@ -90,6 +96,7 @@ FP32_FLOP_PER_S = 67e12
 
 KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
 SEGSUM_SOURCE = "liorf_tpu_torch/csrc/segment_sum.cu"
+PCG_SOURCE = "liorf_tpu_torch/csrc/pcg.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -124,13 +131,17 @@ MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count to 0 (just before a path runs)."""
+    """Every kernel's launch count, and the pose graph's count of GN steps,
+    to 0 (just before a path runs)."""
     knn_cuda.reset_launch_counts()
     segsum.reset_launch_counts()
+    pcg.reset_launch_counts()
+    pg.solve.gn_steps = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {**knn_cuda.launch_counts(), **segsum.launch_counts()}
+    return {**knn_cuda.launch_counts(), **segsum.launch_counts(), **pcg.launch_counts(),
+            "pose_graph_gn_steps": pg.solve.gn_steps}
 
 
 _EMIT = threading.Lock()
@@ -220,23 +231,24 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and both kernel libraries built at once (one
-    nvcc a source, started together)."""
+    """The card, the toolchain, and the three kernel libraries built at once
+    (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
         [build.find_nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-2:]
     flags = ("-Xptxas", "-v") if ptxas else ()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum)]:
+    with ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum, pcg)]:
             f.result()
     emit(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=" | ".join(nvcc), python=sys.version.split()[0],
         kernel_build_seconds=dict(knn_kernels=knn_cuda.build_seconds,
                                   segment_sum=segsum.build_seconds,
-                                  both_wall=time.perf_counter() - t0),
+                                  pcg=pcg.build_seconds,
+                                  all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
         deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
@@ -783,6 +795,19 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
         rstages, resident_notes = resident_stages(*resident)
         stages.update(rstages)
     out = {name: cuda_ms(fn, reps=5, warm=1) for name, fn in stages.items()}
+    solves = {name: fn for name, fn in stages.items() if "solve" in name}
+    parts = {name: solve_parts(fn) for name, fn in solves.items()}
+    # the host waits of one window solve (empty_graph built its prior's
+    # information from a host list until PR 7: one blocking upload a solve)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipe._solve_graph(full=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    solve_syncs = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                          for w in caught if "synchroniz" in str(w.message).lower())
     # what one knn_grid call puts on the device, by kernel name
     from torch.profiler import ProfilerActivity, profile
 
@@ -802,11 +827,53 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
         if launched:
             break
     emit("split", keyframes=pipe.store.count, ms=out, knn_grid_device_kernels=launched,
-         profiler_attempts=attempt + 1, **resident_notes)
+         profiler_attempts=attempt + 1, solve_parts_ms=parts,
+         main_window_solve_host_sync_sites=[[k, n] for k, n in solve_syncs.most_common()],
+         **resident_notes)
+    check(not any("graph/pose_graph.py" in k for k in solve_syncs),
+          f"the pose graph solve waits for the card: {dict(solve_syncs)}")
     check(
         len(launched) == 1 and launched[0]["calls"] == 1 and "knn_grid_kernel" in launched[0]["name"],
         f"one knn_grid call must be one K1 launch, got {launched}",
     )
+
+
+def solve_parts(fn, reps: int = 3) -> dict:
+    """One pose-graph solve (``fn``) split, by CUDA events around each call,
+    into its linearizations (``pose_graph._build_normal_terms``) and its
+    PCG (``pose_graph._pcg_fused``: the preconditioner's inverse and the
+    kernel), each summed over the solve's GN steps; the median of ``reps``
+    solves, the total by events around the whole call."""
+    real_build, real_pcg = pg._build_normal_terms, pg._pcg_fused
+    spans = {"linearize": [], "pcg": []}
+
+    def timed(key, f):
+        def call(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = f(*a, **kw)
+            e.record()
+            spans[key].append((s, e))
+            return out
+        return call
+
+    runs = []
+    fn()  # warm
+    pg._build_normal_terms, pg._pcg_fused = timed("linearize", real_build), timed("pcg", real_pcg)
+    try:
+        for _ in range(reps):
+            for v in spans.values():
+                v.clear()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            runs.append(dict(total=s.elapsed_time(e), gn_steps=len(spans["pcg"]),
+                             **{k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}))
+    finally:
+        pg._build_normal_terms, pg._pcg_fused = real_build, real_pcg
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
 def phase_profile(warm: int = 12, traced: int = 8) -> None:
@@ -1305,7 +1372,8 @@ def phase_multistream_path() -> dict:
         """n lanes through MultiStreamPipeline: tick ms, K1 launches per tick
         and each tick's per-lane GN iterations (kept on the device, read
         once at the end). With ``captured`` (a dict), the arguments of the
-        run's last n-lane segment sums and dot of each kind go into it."""
+        run's last n-lane segment sums and PCG launches of each kind go
+        into it."""
         mp = MultiStreamPipeline(cfg, n_streams=n)
         check(mp.device.type == "cuda", "MultiStreamPipeline must default to the GPU")
         iis = [0] * n
@@ -1427,6 +1495,7 @@ def phase_multistream_path() -> dict:
          runs=[per_n[n] for n in MULTI_LANES], k1_per_tick_ratio_8_to_1=k1_8 / k1_1)
     out["loop_n4"] = multistream_loop_course(MULTI_PARITY_LANES)
     # the lane-folded launches of the widest run, held as the main path's are
+    pcg_lanes = phase_pcg(pcg_cases(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     seg_lanes = phase_segment_sum(lane_cases, max(MULTI_LANES))
     del lane_cases
     # the checks after the lines, so a failing run still shows its numbers
@@ -1450,7 +1519,7 @@ def phase_multistream_path() -> dict:
               f"N={n}: K1 launches of {row['k1_ticks_off_slowest_lane']} ticks differ from the "
               "slowest lane's GN iterations of that tick")
         check(max(row["ate_rmse_m"]) < 0.3, f"N={n}: ATE {max(row['ate_rmse_m'])} m >= 0.3 m")
-    return out, seg_lanes
+    return out, seg_lanes, pcg_lanes
 
 
 def multistream_loop_course(n: int) -> dict:
@@ -1584,32 +1653,37 @@ def ply_vertices(path: str) -> int:
 @contextlib.contextmanager
 def capture_segment_sums(cases: dict, lanes: int = 1):
     """Keep, by reference (no device work), the arguments of the block's
-    last segment-sum and fixed-order dot launch of each kind over ``lanes``
-    lanes (vmapped calls fold their lanes into the launch's leading axis):
-    the voxel filter (no perm, five columns; by output size), the pose
-    graph's rhs / matvec (6 columns) and block diagonal (36), the PCG's
-    dot."""
-    real, real_dot = segsum._launch, segsum._launch_dot
+    last segment-sum launch of each kind over ``lanes`` lanes (vmapped calls
+    fold their lanes into the launch's leading axis): the voxel filter (no
+    perm, five columns; by output size), the pose graph's rhs (6 columns)
+    and block diagonal (36); and of its last PCG launch for each iteration
+    count (``pcg_iters<n>``: the window and the full solves)."""
+    real, real_pcg = segsum._launch, pcg._launch
 
     def spy(src, perm, keys, num_segments):
         if src.shape[0] != lanes:
             return real(src, perm, keys, num_segments)
         c = src.shape[-1]
         kind = (f"voxel_filter_out{num_segments}" if perm is None
-                else {6: "pose_graph_matvec", 36: "pose_graph_diag"}.get(c, f"columns{c}"))
+                else {6: "pose_graph_rhs", 36: "pose_graph_diag"}.get(c, f"columns{c}"))
         cases[kind] = (src, perm, keys, num_segments)
         return real(src, perm, keys, num_segments)
 
-    def spy_dot(a, c):
-        if a.shape[0] == lanes:
-            cases["pcg_dot"] = (a, c)
-        return real_dot(a, c)
+    def spy_pcg(*args, **kw):
+        if args[0].shape[0] == lanes:
+            cases[f"pcg_iters{args[12]}"] = (args[:12], args[12], args[13])
+        return real_pcg(*args, **kw)
 
-    segsum._launch, segsum._launch_dot = spy, spy_dot
+    segsum._launch, pcg._launch = spy, spy_pcg
     try:
         yield cases
     finally:
-        segsum._launch, segsum._launch_dot = real, real_dot
+        segsum._launch, pcg._launch = real, real_pcg
+
+
+def pcg_cases(cases: dict) -> dict:
+    """The captured PCG launches, taken out of ``cases``."""
+    return {k: cases.pop(k) for k in [k for k in cases if k.startswith("pcg_iters")]}
 
 
 def bench_segsum(src, perm, keys, S: int) -> dict:
@@ -1674,54 +1748,186 @@ def bench_segsum(src, perm, keys, S: int) -> dict:
     return res
 
 
-def bench_fixed_dot(a, c) -> dict:
-    """The fixed-order dot product against its plain version (the same
-    order of additions: bit for bit, on the card and on the CPU), against
-    itself, against a float64 dot (within n 2^-24 sum|a c|: n roundings), and with
-    the operands zero-padded to 4x their length (bit for bit: the property
-    it exists for); timed beside the plain version and torch.linalg.vecdot."""
-    B, n = a.shape
-    out, again = segsum.fixed_dot(a, c), segsum.fixed_dot(a, c)
-    plain = segsum.fixed_dot_plain(a, c)
-    cpu = segsum.fixed_dot_plain(a.cpu(), c.cpu())
-    pad = [torch.cat([x, torch.zeros((B, 3 * n), device=DEV)], 1) for x in (a, c)]
-    padded = segsum.fixed_dot(*pad)
-    prod = a.double() * c.double()
-    err = (out.double() - prod.sum(-1)).abs()
-    tol = n * 2.0**-24 * prod.abs().sum(-1)
-    bytes_moved = 2 * B * n * 4 + B * 4
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, 2 * B * n / FP32_FLOP_PER_S
+def pcg_flops(args, iters: int) -> int:
+    """f32 operations of one pcg_solve on these arguments, as its data needs
+    them (factors with an all-zero Jacobian add nothing and are skipped):
+    per iteration 294 a between factor (J p at both ends, J^T y at both),
+    72 a GPS factor, 144 the prior, 6 a nonzero row's node sums, and 144 a
+    node (damping, two dots, x / r / p updates, Minv r); 84 a node to
+    start."""
+    Ji, Jj, Jg, Jp = args[:4]
+    K = args[11].shape[1]
+
+    def nonzero(J):
+        return J.reshape(*J.shape[:2], -1).ne(0).any(-1)
+
+    ni, nj, ng = nonzero(Ji), nonzero(Jj), nonzero(Jg)
+    npr = Jp.reshape(Jp.shape[0], -1).ne(0).any(-1)
+    rows = ni.sum() + nj.sum() + ng.sum() + npr.sum()
+    per_iter = (294 * (ni | nj).sum() + 72 * ng.sum() + 144 * npr.sum() + 6 * rows
+                + 144 * K * Jp.shape[0])
+    return int(iters * per_iter + 84 * K * Jp.shape[0])
+
+
+def op_by_op_pcg(args, iters: int, damping: float):
+    """The op-by-op ``pose_graph._pcg`` (its dot ``torch.sum``, each lane
+    under vmap) on pcg_solve's arguments: what the solve ran before the
+    kernel, one launch an operation. It takes the block diagonal, so the
+    preconditioner's blocks are recovered from Minv (outside the timing)."""
+    eye = torch.eye(6, device=DEV)
+    diag = torch.linalg.inv(args[10]) - eye * (damping + 1e-6)
+
+    def one(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, d, rhs):
+        plan = segsum.SegmentPlan([e_i, e_j, g_i, p_i], rhs.shape[0])
+        t = pg.NormalTerms(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, plan)
+        return pg._pcg(pg._matvec(t), rhs, d, iters, damping)
+
+    lanes = torch.func.vmap(one)
+    xs = (*args[:8], diag, args[11])
+    return lambda: lanes(*xs)
+
+
+def bench_pcg(args, iters: int, damping: float) -> dict:
+    """The PCG kernel on the arguments a path gave it: against its plain
+    version on CPU copies (bit for bit), against itself, at cluster sizes 1
+    and 8 (bit for bit), and one launch of B lanes against each lane alone
+    (bit for bit); timed beside the plain version on the card and the
+    op-by-op ``_pcg`` (no single PyTorch call runs a PCG: library_ms null)."""
+    B, K, _ = args[11].shape
+    E, G = args[0].shape[1], args[2].shape[1]
+
+    def kernel():
+        return pcg.pcg_solve(*args, iters, damping)
+
+    out, again = kernel(), kernel()
+    cpu = pcg.pcg_solve_plain(*(a.cpu() for a in args), iters, damping)
+    c1 = pcg._launch(*args, iters, damping, cluster=1)
+    alone = torch.cat([pcg.pcg_solve(*(a[b:b + 1] for a in args), iters, damping)
+                       for b in range(B)])
+    old = op_by_op_pcg(args, iters, damping)
+    x_old = old()
+    bytes_moved = sum(a.numel() * a.element_size() for a in args) + out.numel() * 4
+    flops = pcg_flops(args, iters)
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     res = dict(
-        shape=[B, n], lanes=B, max_abs_err=float((out - plain).abs().max()),
-        equal_to_plain=bool(torch.equal(out, plain)), equal_to_cpu_plain=bool(torch.equal(out.cpu(), cpu)),
-        repeats=bool(torch.equal(out, again)), zero_padding_changes_nothing=bool(torch.equal(out, padded)),
-        max_abs_err_vs_float64=float(err.max()), max_err_over_bound=float((err / tol.clamp(min=1e-30)).max()),
-        **kernel_ms(lambda: segsum.fixed_dot(a, c)),
-        plain_ms=cuda_ms(lambda: segsum.fixed_dot_plain(a, c), reps=10, batch=20),
-        library_ms=cuda_ms(lambda: torch.linalg.vecdot(a, c), reps=10, batch=20),
-        library_call="torch.linalg.vecdot(a, c)",
+        shape=dict(lanes=B, nodes=K, edges=E, gps=G, iters=iters), lanes=B,
+        max_abs_err=float((out.cpu() - cpu).abs().max()),
+        equal_to_cpu_plain=bool(torch.equal(out.cpu(), cpu)),
+        repeats=bool(torch.equal(out, again)),
+        cluster_1_equal_8=bool(torch.equal(out, c1)),
+        lanes_equal_one_lane_launches=bool(torch.equal(out, alone)),
+        op_by_op_max_abs_diff=float((out - x_old).abs().max()),
+        max_abs_x=float(out.abs().max()),
+        **kernel_ms(kernel),
+        cluster_1_ms=cuda_ms(lambda: pcg._launch(*args, iters, damping, cluster=1), reps=10, batch=5),
+        plain_ms=cuda_ms(lambda: pcg.pcg_solve_plain(*args, iters, damping), reps=3, warm=1),
+        op_by_op_ms=cuda_ms(old, reps=3, warm=1),
+        op_by_op_call="pose_graph._pcg op by op (torch.sum dots), vmapped over the lanes",
+        library_ms=None,
         bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=bytes_moved,
+        bytes=bytes_moved, flops=flops,
     )
-    check(res["equal_to_plain"] and res["equal_to_cpu_plain"], f"fixed_dot {res['shape']}: differs from its plain version")
-    check(res["repeats"] and res["zero_padding_changes_nothing"], f"fixed_dot {res['shape']}: not repeatable or moves with padding")
-    check(bool((err <= tol).all()), f"fixed_dot {res['shape']}: off the float64 dot by {res['max_abs_err_vs_float64']}")
+    what = f"pcg_solve {res['shape']}"
+    check(res["equal_to_cpu_plain"], f"{what}: differs from its plain version on the CPU "
+          f"by {res['max_abs_err']}")
+    check(res["repeats"] and res["cluster_1_equal_8"], f"{what}: not repeatable across launches "
+          "or cluster sizes")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(bool(torch.isfinite(out).all()), f"{what}: not finite")
     return res
 
 
+def phase_pcg(cases: dict, label: str) -> dict:
+    """The PCG kernel held on every launch shape a path gave it
+    (capture_segment_sums): one line a path."""
+    check(cases, f"no pcg_solve launch captured on {label}")
+    out = {k: bench_pcg(*v) for k, v in sorted(cases.items())}
+    emit("kernels_pcg", path=label, **out,
+         tolerance="bit for bit: the plain version on the CPU, cluster sizes, lanes")
+    return out
+
+
+PCG_PHASES = ("tree_rz", "p_own", "edges", "gps_prior", "sync1", "node_sums", "sync2",
+              "tree_pap", "x_r", "precond", "sync3")
+
+
+def random_graph(K: int, n: int, E: int, G: int, seed: int):
+    """A noisy chain of n keyframes in K node slots, three loop edges and
+    G - 1 GPS fixes in E / G factor slots, the rest unused (as
+    tests/test_torch_pcg.py draws them), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    truth = torch.cumsum(torch.randn((K, 3), generator=g), 0)
+    e_i, e_j = torch.zeros(E, dtype=torch.int64), torch.zeros(E, dtype=torch.int64)
+    e_i[: n - 1], e_j[: n - 1] = torch.arange(n - 1), torch.arange(1, n)
+    e_i[n - 1: n + 2], e_j[n - 1: n + 2] = torch.tensor([0, 1, 2]), torch.tensor([n - 1, n - 2, n - 3])
+    gi = torch.randint(0, n, (G,), generator=g)
+    from liorf_tpu_torch.core import se3
+
+    graph = pg.empty_graph(K, E, G, device="cpu")._replace(
+        ts=truth + 0.3 * torch.randn((K, 3), generator=g),
+        Rs=se3.so3_exp(0.1 * torch.randn((K, 3), generator=g)),
+        node_mask=torch.arange(K) < n, e_i=e_i, e_j=e_j,
+        e_tm=truth[e_j] - truth[e_i] + 0.01 * torch.randn((E, 3), generator=g),
+        e_mask=torch.arange(E) < n + 2, e_cauchy=(torch.arange(E) == n - 1).float(),
+        g_i=gi, g_t=truth[gi], g_mask=torch.arange(G) < G - 1)
+    return graph._replace(**{k: v.to(DEV) for k, v in graph._asdict().items()})
+
+
+def phase_pcg_profile() -> None:
+    """Not in the default run. The PCG kernel rebuilt with
+    -DLIORF_PCG_PROFILE: clock cycles block 0's first thread spends in each
+    phase of an iteration (summed, divided by the iterations), on random
+    graphs at the resident default's slots (full and window solves) and at
+    the multistream operating point's, at clusters of 1 and 8, with the
+    vectors in shared memory and in device memory."""
+    import ctypes
+
+    pcg._lib = None
+    lib = pcg.load_library(("-DLIORF_PCG_PROFILE",))
+    lib.liorf_pcg_profile.argtypes = [ctypes.c_void_p]
+    out = []
+    for K, n, E, G, iters, free_from in ((1024, 900, 1152, 256, 64, 0), (1024, 900, 1152, 256, 16, 880),
+                                         (128, 100, 144, 16, 16, 0)):
+        graph = random_graph(K, n, E, G, seed=3)
+        free = graph.node_mask & (torch.arange(K, device=DEV) >= free_from)
+        rhs, diag, t = pg._build_normal_terms(graph, free)
+        keys, perm = t.plan.sorted_rows()
+        args = [a[None] for a in (t.Ji, t.Jj, t.Jg, t.Jp, t.e_i, t.e_j, t.g_i, t.p_i, keys, perm,
+                                  pg._block_jacobi(diag, 1e-4), rhs)]
+        for cluster in (1, 8):
+            for shared in (True, False):
+                def call():
+                    return pcg._launch(*args, iters, 1e-4, cluster=cluster, shared=shared)
+
+                row = dict(nodes=K, edges=E, gps=G, iters=iters, free_from=free_from,
+                           cluster=cluster, shared=shared and bool(
+                               lib.liorf_pcg_fits_shared(K, E, G, cluster)),
+                           ms=cuda_ms(call, reps=10, batch=5))
+                call()
+                torch.cuda.synchronize()
+                buf = (ctypes.c_longlong * 16)()
+                check(lib.liorf_pcg_profile(ctypes.addressof(buf)) == 0, "reading the profile failed")
+                row["cycles_per_iteration"] = {name: buf[j] / iters for j, name in enumerate(PCG_PHASES)}
+                row["prologue_cycles"] = buf[11]
+                out.append(row)
+    pcg._lib = None  # the next user builds the library without the profile
+    emit("pcg_profile", rows=out, note="shared False: the device-memory layout of lanes "
+         "too large for shared memory; cycles of block 0's thread 0 in the row's last launch "
+         "(the profiling build; its times are the plain build's only roughly)")
+
+
 def phase_segment_sum(cases: dict, lanes: int = 1) -> dict:
-    """Both fixed-order reductions held on the arguments a path gave them
+    """The segment sum held on the arguments a path gave it
     (capture_segment_sums): every kind a solve and the voxel filter launch
     must be there, over ``lanes`` lanes."""
     kinds = sorted(cases)
-    check("pcg_dot" in kinds and "pose_graph_matvec" in kinds and "pose_graph_diag" in kinds
+    check("pose_graph_rhs" in kinds and "pose_graph_diag" in kinds
           and any(k.startswith("voxel_filter_out") for k in kinds),
           f"{lanes}-lane segment sums captured: {kinds} only")
-    out = {kind: bench_segsum(*cases[kind]) for kind in kinds if kind != "pcg_dot"}
-    out["pcg_dot"] = bench_fixed_dot(*cases["pcg_dot"])
+    out = {kind: bench_segsum(*cases[kind]) for kind in kinds}
     check(all(r["lanes"] == lanes for r in out.values()), f"not every capture has {lanes} lanes")
     emit("kernels_segment_sum" if lanes == 1 else f"kernels_segment_sum_lanes{lanes}", lanes=lanes,
-         tolerance="against float64: segment sums (n - 1) 2^-24 sum|x|, dots n 2^-24 sum|a c|", **out)
+         tolerance="against float64: (n - 1) 2^-24 sum|x|", **out)
     return out
 
 
@@ -2438,23 +2644,37 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
-    seg_lanes = None
+    seg_lanes = pcg_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         seg_cases = {}
         with capture_segment_sums(seg_cases):
             pipe, main_counts = phase_main_path()
+        pcg_main = pcg_cases(seg_cases)
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
             kern["segment_sum"] = phase_segment_sum(seg_cases)
+            kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
         resident = None
         if "resident_path" in phases:
             resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
+            if kern is not None:
+                # the resident full solve's arguments (the main course lands
+                # no loop or GPS factor, so the path itself runs none)
+                rp = resident[0]
+                res_cases = {}
+                with capture_segment_sums(res_cases):
+                    tres._solve_graph_resident(rp.state, rp.params, True)
+                kern["pcg_solve_resident_full"] = phase_pcg(pcg_cases(res_cases),
+                                                            "resident_path full solve")
+                del rp, res_cases
         if "split" in phases:
             phase_split(pipe, resident)
         del pipe, resident
     if "profile" in phases:
         phase_profile()
+    if "pcg_profile" in phases:
+        phase_pcg_profile()
     if "edge_floor" in phases:
         phase_edge_floor()
     if "repair_cost" in phases:
@@ -2474,7 +2694,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "faults" in phases:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts, seg_lanes = phase_multistream_path()
+        multi_counts, seg_lanes, pcg_lanes = phase_multistream_path()
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -2514,14 +2734,15 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     # loop path's run (the only classic path that reaches it); each counted
     # from 0 just before its path. launches_by_path adds the other paths'
     # counts (the dist ranks count K1 and K2 only).
+    single_device = {
+        "main_path": main_counts, "loop_path": loop_counts, "resident_path": res_counts,
+        "resident_loop_path": res_loop_counts, **new_counts,
+        **{f"multistream_path_{n}": c for n, c in multi_counts.items()},
+    }
+
     def by_path(name):
-        return {
-            "main_path": main_counts[name], "loop_path": loop_counts[name],
-            "resident_path": res_counts[name], "resident_loop_path": res_loop_counts[name],
-            **{path: c[name] for path, c in new_counts.items()},
-            **{f"multistream_path_{n}": c[name] for n, c in multi_counts.items()},
-            **{path: c[name] for path, c in dist_counts.items() if name in c},
-        }
+        return {**{path: c[name] for path, c in single_device.items()},
+                **{path: c[name] for path, c in dist_counts.items() if name in c}}
 
     def lanes8(name):
         r = kern[name]
@@ -2541,8 +2762,6 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     lane_fields = ("shape", "lanes", "ms", "ms_single_call", "plain_ms", "bound_ms", "bound_by",
                    "max_abs_err", "max_err_over_bound", "repeats")
     seg = kern["segment_sum"]
-    dot = seg.pop("pcg_dot")
-    dot_lanes = seg_lanes.pop("pcg_dot")
     scan_voxel = seg[f"voxel_filter_out{BENCH_CAPS['scan_capacity']}"]
     kernels.append(row(
         "segment_sum",
@@ -2554,12 +2773,21 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                                         "max_abs_err", "index_put_repeats")}
                  for k, v in seg.items()},
         lanes8={k: {f: v[f] for f in lane_fields} for k, v in seg_lanes.items()}))
+    # the PCG row: the main path's last launch shape (its window solves)
+    pcg_main = max(kern["pcg_solve"].values(), key=lambda r: r["shape"]["iters"])
+    pcg_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "cluster_1_ms", "plain_ms",
+                  "op_by_op_ms", "bound_ms", "bound_by", "flops", "max_abs_err")
     kernels.append(row(
-        "fixed_dot",
-        "none (not a TPU kernel): torch.sum(a * b) of the PCG in liorf_tpu_torch/graph/pose_graph.py",
-        main_counts["fixed_dot"], r=dot, source=SEGSUM_SOURCE, shape=dot["shape"],
-        launches_by_path=by_path("fixed_dot"),
-        lanes8={f: dot_lanes[f] for f in lane_fields}))
+        "pcg_solve",
+        "none (not a TPU kernel): the op-by-op PCG of liorf_tpu_torch/graph/pose_graph.py "
+        "(pose_graph._pcg; the JAX package's lax.scan at liorf_tpu/graph/pose_graph.py:220-253), "
+        "with the fixed-order dot (fixed_dot) and the matvec's segment sum folded in",
+        main_counts["pcg_solve"], r=pcg_main, source=PCG_SOURCE, shape=pcg_main["shape"],
+        op_by_op_ms=pcg_main["op_by_op_ms"], cluster_1_ms=pcg_main["cluster_1_ms"],
+        launches_by_path=by_path("pcg_solve"), gn_steps_by_path=by_path("pose_graph_gn_steps"),
+        resident_full={k: {f: v[f] for f in pcg_fields}
+                       for k, v in kern["pcg_solve_resident_full"].items()},
+        lanes8={k: {f: v[f] for f in pcg_fields} for k, v in pcg_lanes.items()}))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
     check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
@@ -2568,12 +2796,13 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
           "K1 never launched on the multistream path")
     check(all(c["knn_grid_topk"] > 0 and c["knn_bruteforce"] > 0 for c in dist_counts.values()),
           "K1 or K2 never launched on the dist path")
-    check(all(c["knn_grid_topk"] > 0 and c["segment_sum"] > 0 and c["fixed_dot"] > 0
+    check(all(c["knn_grid_topk"] > 0 and c["segment_sum"] > 0 and c["pcg_solve"] > 0
               for c in new_counts.values()),
-          "K1, the segment sum or the fixed-order dot never launched on a path of this slice")
+          "K1, the segment sum or the PCG kernel never launched on a path of this slice")
     check(new_counts["growth_path"]["knn_bruteforce"] > 0, "K2 never launched on growth_path")
-    check(all(c["segment_sum"] > 0 and c["fixed_dot"] > 0 for c in (res_counts, *multi_counts.values())),
-          "the segment sum or the fixed-order dot never launched on the resident or multistream path")
+    for path, c in single_device.items():
+        check(c["pcg_solve"] > 0 and c["pcg_solve"] == c["pose_graph_gn_steps"],
+              f"{path}: {c['pcg_solve']} PCG launches for {c['pose_graph_gn_steps']} GN steps")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

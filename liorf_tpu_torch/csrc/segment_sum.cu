@@ -1,5 +1,4 @@
-// Fixed-order segment sum and dot product for NVIDIA Hopper (sm_90a), plain
-// C interface.
+// Fixed-order segment sum for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Built by ops/segment_sum.py with the flags of core/build.py and loaded
 // with ctypes; launches on the stream it is given, allocates nothing, never
@@ -66,83 +65,9 @@ __global__ void segment_sum_kernel(const float* __restrict__ src,
   out[b * s * c + t] = acc;
 }
 
-// Fixed-order dot product, one block a lane: the products a[i] * c[i] are
-// summed in chunks of 32 elements (sequentially, from 0.0f), and the chunk
-// sums by a tree of ADJACENT pairs over the chunks padded with zeros to a
-// power of two, `pow2`. Neither the chunks nor the tree depend on n beyond
-// the last element: zeros after it (the unused slots of a ring) change no
-// bit of the result, so a solve over a grown ring gives the bits of the large
-// ring's. (torch.sum picks its reduction's shape by n.)
-//
-// The chunk sums are held in dynamic shared memory, `width` = min(pow2,
-// kMaxWidth) floats at a time: the tree's lower levels over each aligned
-// run of `width` chunks are that run's own tree, so the runs are reduced one
-// after another and their sums (`pow2 / width` of them, in `scratch`, global
-// memory, when there is more than one) by the upper levels of the same tree.
-// Any n gives the plain version's order of additions.
-constexpr int kMaxWidth = 8192;
-
-__device__ __forceinline__ void pair_tree(float* v, int64_t len) {
-  for (int64_t w = 1; w < len; w <<= 1) {
-    for (int64_t k = (int64_t)threadIdx.x * 2 * w; k < len; k += (int64_t)blockDim.x * 2 * w)
-      v[k] = __fadd_rn(v[k], v[k + w]);
-    __syncthreads();
-  }
-}
-
-__global__ void fixed_dot_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                                 float* __restrict__ out, float* __restrict__ scratch,
-                                 int64_t n, int64_t pow2) {
-  extern __shared__ float part[];
-  const int64_t b = blockIdx.x;
-  const float* ab = a + b * n;
-  const float* cb = c + b * n;
-  const int64_t chunks = (n + 31) / 32;
-  const int64_t width = pow2 < kMaxWidth ? pow2 : kMaxWidth;
-  const int64_t runs = pow2 / width;
-  float* sums = scratch == nullptr ? nullptr : scratch + b * runs;
-  for (int64_t run = 0; run < runs; ++run) {
-    for (int64_t k = threadIdx.x; k < width; k += blockDim.x) {
-      const int64_t chunk = run * width + k;
-      float acc = 0.0f;
-      if (chunk < chunks) {
-        const int64_t lo = chunk * 32;
-        const int64_t hi = lo + 32 < n ? lo + 32 : n;
-        for (int64_t i = lo; i < hi; ++i) acc = __fadd_rn(acc, __fmul_rn(ab[i], cb[i]));
-      }
-      part[k] = acc;
-    }
-    __syncthreads();
-    pair_tree(part, width);
-    if (threadIdx.x == 0) {
-      if (runs == 1) out[b] = part[0]; else sums[run] = part[0];
-    }
-    __syncthreads();  // part is refilled by the next run
-  }
-  if (runs == 1) return;
-  pair_tree(sums, runs);  // __syncthreads makes the block's global writes visible to it
-  if (threadIdx.x == 0) out[b] = sums[0];
-}
-
 }  // namespace
 
 extern "C" {
-
-// Chunk sums fixed_dot holds in shared memory at a time.
-int liorf_fixed_dot_max_width() { return kMaxWidth; }
-
-// a, c [lanes, n] f32 -> out [lanes] f32: the fixed-order dot product of each
-// lane; pow2 = the smallest power of two >= ceil(n / 32); scratch [lanes,
-// pow2 / max_width] f32 when pow2 > max_width, else null.
-int liorf_fixed_dot(const void* a, const void* c, void* out, void* scratch, int lanes,
-                    long long n, long long pow2, void* stream) {
-  if (lanes == 0) return 0;
-  const long long width = pow2 < kMaxWidth ? pow2 : kMaxWidth;
-  fixed_dot_kernel<<<lanes, 256, width * sizeof(float), (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)c, (float*)out, (float*)scratch, (int64_t)n,
-      (int64_t)pow2);
-  return (int)cudaGetLastError();
-}
 
 // src [lanes, m, c] f32, perm [lanes, m] i64 or null, keys [lanes, m] i64
 // sorted per lane -> out [lanes, s, c] f32. All contiguous device pointers;

@@ -77,8 +77,8 @@ def _local_factor_terms(graph: pg.PoseGraph, Rs_g, ts_g, free_w):
     reduce-scattered), the local matvec over gathered [K, 6] vectors, and
     the masked Jacobians (Ji, Jj, Jg)."""
     g = graph._replace(Rs=Rs_g, ts=ts_g)
-    rhs, matvec, diag, jacs = pg._build_normal_terms(g, free_w > 0)
-    return rhs, diag, matvec, jacs
+    rhs, diag, t = pg._build_normal_terms(g, free_w > 0)
+    return rhs, diag, pg._matvec(t), (t.Ji, t.Jj, t.Jg)
 
 
 def _local_matvec(graph: pg.PoseGraph, Ji, Jj, Jg, Kl: int, offset: int):

@@ -32,7 +32,8 @@ from torch.func import jacfwd, vmap
 
 from ..core import se3
 from ..core.device import resolve_device
-from ..ops.segment_sum import SegmentPlan, fixed_dot
+from ..ops.pcg import pcg_solve
+from ..ops.segment_sum import SegmentPlan
 
 
 class PoseGraph(NamedTuple):
@@ -58,6 +59,13 @@ class PoseGraph(NamedTuple):
     prior_R: torch.Tensor  # [3, 3]
     prior_t: torch.Tensor  # [3]
     prior_sqrt_info: torch.Tensor  # [6]
+
+
+def _prior_sqrt_info(f32: dict) -> torch.Tensor:
+    v = torch.full((6,), 1e-4, **f32)
+    v[:2].fill_(10.0)
+    v[2:3].fill_(1.0 / math.pi)
+    return v
 
 
 def empty_graph(num_nodes: int, num_edges: int, num_gps: int, device=None) -> PoseGraph:
@@ -87,10 +95,9 @@ def empty_graph(num_nodes: int, num_edges: int, num_gps: int, device=None) -> Po
         prior_R=eye.clone(),
         prior_t=torch.zeros((3,), **f32),
         # reference prior variances (1e-2, 1e-2, pi^2) rot, 1e8 trans
-        # (mapOptmization.cpp:1390) -> sqrt information = 1/sigma
-        prior_sqrt_info=torch.tensor(
-            [10.0, 10.0, 1.0 / math.pi, 1e-4, 1e-4, 1e-4], **f32
-        ),
+        # (mapOptmization.cpp:1390) -> sqrt information = 1/sigma; filled in
+        # place (a tensor built from a list would be a host upload)
+        prior_sqrt_info=_prior_sqrt_info(f32),
     )
 
 
@@ -229,10 +236,22 @@ def _jtj(J):
     return (Jt[..., :, None, :] * Jt[..., None, :, :]).sum(-1)
 
 
+class NormalTerms(NamedTuple):
+    """The linearized factors of one GN step, masked and whitened: what the
+    matvec ``H x`` is made of."""
+    Ji: torch.Tensor  # [E, 6, 6]
+    Jj: torch.Tensor  # [E, 6, 6]
+    Jg: torch.Tensor  # [G, 3, 6]
+    Jp: torch.Tensor  # [6, 6]
+    e_i: torch.Tensor  # [E]
+    e_j: torch.Tensor  # [E]
+    g_i: torch.Tensor  # [G]
+    p_i: torch.Tensor  # [1]
+    plan: SegmentPlan  # over [e_i, e_j, g_i, p_i]
+
+
 def _build_normal_terms(graph: PoseGraph, free_mask):
-    """Linearize and return (rhs [K,6], matvec fn, block-diag [K,6,6],
-    (Ji, Jj, Jg)) — the last the masked factor Jacobians, which the
-    distributed solver's shard-local operator reuses."""
+    """Linearize and return (rhs [K,6], block-diag [K,6,6], NormalTerms)."""
     K = graph.Rs.shape[0]
     (r_e, Ji, Jj), (r_g, Jg), (r_p, Jp) = _linearize(graph)
     fm = free_mask.to(r_e.dtype)
@@ -248,44 +267,53 @@ def _build_normal_terms(graph: PoseGraph, free_mask):
     # pose_graph.py:192-214 of the JAX package; accumulation order differs)
     # (out of place, so the solve also runs under torch.func.vmap: one graph
     # per lane of pipeline/multistream.py). The endpoints are fixed for the
-    # solve: on the card one plan serves rhs, diag and every matvec in a
-    # fixed order (ops/segment_sum.py), on the CPU these are the index_adds.
+    # solve: on the card one plan serves rhs and diag in a fixed order
+    # (ops/segment_sum.py) and its sorted rows feed the PCG kernel, on the
+    # CPU these are the index_adds.
     plan = SegmentPlan([e_i, e_j, g_i, p_i], K)
     rhs = plan.sum([-_jt(Ji, r_e), -_jt(Jj, r_e), -_jt(Jg, r_g), -(Jp.T @ r_p)[None]])
 
     # block-diagonal of H for the Jacobi preconditioner
     diag = plan.sum([_jtj(Ji), _jtj(Jj), _jtj(Jg), (Jp.T @ Jp)[None]])
+    return rhs, diag, NormalTerms(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, plan)
 
-    def matvec(x):  # x: [K, 6]
-        yi = _bmv(Ji, x[e_i])
-        yj = _bmv(Jj, x[e_j])
+
+def _matvec(t: NormalTerms):
+    """``H x`` op by op (x [K, 6]): the distributed solver's operator."""
+
+    def matvec(x):
+        yi = _bmv(t.Ji, x[t.e_i])
+        yj = _bmv(t.Jj, x[t.e_j])
         y_e = yi + yj
-        y_g = _bmv(Jg, x[g_i])
-        y_p = Jp @ x[p_i][0]
-        return plan.sum([_jt(Ji, y_e), _jt(Jj, y_e), _jt(Jg, y_g), (Jp.T @ y_p)[None]])
+        y_g = _bmv(t.Jg, x[t.g_i])
+        y_p = t.Jp @ x[t.p_i][0]
+        return t.plan.sum([_jt(t.Ji, y_e), _jt(t.Jj, y_e), _jt(t.Jg, y_g), (t.Jp.T @ y_p)[None]])
 
-    return rhs, matvec, diag, (Ji, Jj, Jg)
+    return matvec
 
 
-def _local_dot(a, b):
-    """sum(a * b); on the card in a fixed order that a ring's unused (zero)
-    slots do not change (ops/segment_sum.py::fixed_dot)."""
-    if a.is_cuda:
-        return fixed_dot(a.reshape(1, -1), b.reshape(1, -1))[0]
+def _block_jacobi(precond_blocks, damping: float):
+    """The preconditioner's inverted blocks, (diag + (damping + 1e-6) I)^-1."""
+    eye = torch.eye(6, dtype=precond_blocks.dtype, device=precond_blocks.device)
+    blocks = precond_blocks + eye[None] * (damping + 1e-6)
+    return torch.linalg.inv_ex(blocks)[0]  # [K, 6, 6]; no host sync
+
+
+def _sum_dot(a, b):
     return torch.sum(a * b)
 
 
-def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float, dot=_local_dot):
-    """Block-Jacobi preconditioned CG for (H + damping I) x = rhs.
+def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float, dot=_sum_dot):
+    """Block-Jacobi preconditioned CG for (H + damping I) x = rhs, op by op.
 
     A fixed number of iterations in a Python loop (a ``lax.scan`` in
     pose_graph.py:252 of the JAX package); nothing inside reads the device.
     ``dot`` is the inner product: the distributed solver passes one that
-    sums over the ranks' blocks (``dist/shard_map_solver.py``).
+    sums over the ranks' blocks (``dist/shard_map_solver.py``). The
+    single-device solve runs the same iteration as one kernel
+    (:func:`_pcg_fused`).
     """
-    eye = torch.eye(6, dtype=rhs.dtype, device=rhs.device)
-    blocks = precond_blocks + eye[None] * (damping + 1e-6)
-    Minv, _ = torch.linalg.inv_ex(blocks)  # [K, 6, 6]; no host sync
+    Minv = _block_jacobi(precond_blocks, damping)
 
     def apply_M(r):
         return _bmv(Minv, r)
@@ -313,6 +341,16 @@ def _pcg(matvec, rhs, precond_blocks, iters: int, damping: float, dot=_local_dot
     return x
 
 
+def _pcg_fused(rhs, diag, t: NormalTerms, iters: int, damping: float):
+    """:func:`_pcg` on ``H`` of ``t`` as one ``ops.pcg.pcg_solve`` call: one
+    launch on the card (every lane under vmap), the plain version on the
+    CPU, each in a fixed order of operations."""
+    keys, perm = t.plan.sorted_rows()
+    one = (t.Ji, t.Jj, t.Jg, t.Jp, t.e_i, t.e_j, t.g_i, t.p_i, keys, perm,
+           _block_jacobi(diag, damping), rhs)
+    return pcg_solve(*(a[None] for a in one), iters, damping)[0]
+
+
 class SolveParams(NamedTuple):
     gn_iters: int = 6
     pcg_iters: int = 64
@@ -338,12 +376,16 @@ def solve(
 
     # fixed-length Python loop in place of lax.scan (pose_graph.py:289)
     for _ in range(params.gn_iters):
-        rhs, matvec, diag, _ = _build_normal_terms(graph, free_mask)
-        dx = _pcg(matvec, rhs, diag, params.pcg_iters, params.damping)
+        rhs, diag, terms = _build_normal_terms(graph, free_mask)
+        dx = _pcg_fused(rhs, diag, terms, params.pcg_iters, params.damping)
+        solve.gn_steps += 1
         dx = dx * free_mask[:, None].to(dx.dtype)
         Rs, ts = se3.se3_retract(graph.Rs, graph.ts, dx)
         graph = graph._replace(Rs=Rs, ts=ts)
     return graph
+
+
+solve.gn_steps = 0  # GN steps run (a vmapped solve's lanes count once)
 
 
 def graph_error(graph: PoseGraph) -> torch.Tensor:

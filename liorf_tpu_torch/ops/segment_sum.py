@@ -1,5 +1,5 @@
 """Fixed-order reductions on the card: the scatter-adds of the voxel filter
-and the pose graph, and the pose graph's dot products.
+and the pose graph, and the order of the pose graph's dot products.
 
 On a CUDA tensor ``index_add`` adds with atomics in whatever order the
 threads arrive, so two runs of one stream gave two trajectories. Not a TPU
@@ -14,15 +14,15 @@ rows; the CPU keeps ``index_add`` itself.
   (the rows are already in key order, as in the voxel filter).
 * :class:`SegmentPlan` — several scatter-adds into one output whose row
   indices stay fixed over a solve (the pose graph's edge, GPS and prior
-  endpoints): one stable sort at construction, then each :meth:`sum` is one
-  launch.
-* :func:`fixed_dot` — the dot product of the PCG, in an order that does not
-  depend on the length beyond the last nonzero product: chunks of 32
-  products summed in order, the chunk sums by a tree of adjacent pairs. A
-  ring's unused (zero) slots change no bit of it, so a session whose rings
-  grew gives the bits of one that started with large rings; ``torch.sum``
-  shapes its reduction by the length, and the solve's result moved with the
-  ring capacity.
+  endpoints): one stable sort, then each :meth:`sum` is one launch; the
+  sorted rows also feed the PCG kernel (``ops/pcg.py``).
+* :func:`fixed_dot_plain` — the order of the PCG's dot products, which the
+  PCG kernel keeps: chunks of 32 products summed in order, the chunk sums
+  by a tree of adjacent pairs. It does not depend on the length beyond the
+  last nonzero product, so a ring's unused (zero) slots change no bit of
+  it and a session whose rings grew gives the bits of one that started
+  with large rings; ``torch.sum`` shapes its reduction by the length, and
+  the solve's result moved with the ring capacity.
 
 Dispatch by the tensor's device and nothing else: a CPU tensor takes the
 plain version (``index_add``), a CUDA tensor launches the kernel or raises.
@@ -44,7 +44,6 @@ from ..core.build import build_cuda_library
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segment_sum.cu"
 
 FIXED_DOT_CHUNK = 32
-FIXED_DOT_WIDTH = 8192  # chunk sums the kernel holds in shared memory at a time
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
@@ -60,12 +59,6 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.liorf_segment_sum.argtypes = [vp, vp, vp, vp, ci, cll, ci, cll, vp]
     lib.liorf_segment_sum.restype = ci
-    lib.liorf_fixed_dot.argtypes = [vp, vp, vp, vp, ci, cll, cll, vp]
-    lib.liorf_fixed_dot.restype = ci
-    lib.liorf_fixed_dot_max_width.argtypes = []
-    lib.liorf_fixed_dot_max_width.restype = ci
-    if lib.liorf_fixed_dot_max_width() != FIXED_DOT_WIDTH:
-        raise RuntimeError("kernel library and wrapper disagree on FIXED_DOT_WIDTH")
     _lib = lib
     return lib
 
@@ -178,8 +171,16 @@ class SegmentPlan:
         self.index = index
         self.num_segments = num_segments
         self.on_card = index[0].device.type == "cuda"
+        self._sorted = None
         if self.on_card:
-            self.keys, self.perm = torch.sort(torch.cat(index), stable=True)
+            self.keys, self.perm = self.sorted_rows()
+
+    def sorted_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(keys, perm): the stable sort of the concatenated indices, the
+        order in which a row's values are added (on any device)."""
+        if self._sorted is None:
+            self._sorted = tuple(torch.sort(torch.cat(self.index), stable=True))
+        return self._sorted
 
     def sum(self, values: list[torch.Tensor]) -> torch.Tensor:
         tail = values[0].shape[1:]
@@ -195,14 +196,15 @@ class SegmentPlan:
 
 
 def _dot_chunks(n: int) -> int:
-    """The power of two of chunk sums fixed_dot's tree runs over."""
+    """The power of two of chunk sums the dot's tree runs over."""
     return 1 << max(0, (-(-n // FIXED_DOT_CHUNK) - 1).bit_length())
 
 
 def fixed_dot_plain(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fixed_dot` (same contract and the
-    kernel's order of additions, so equal to it bit for bit): [B, n] x
-    [B, n] -> [B]."""
+    """The fixed-order dot product of each lane, [B, n] x [B, n] -> [B]:
+    the products in chunks of 32 summed in order from 0.0, the chunk sums
+    by a tree of adjacent pairs over a power of two of them (zeros past the
+    last). The PCG kernel (``csrc/pcg.cu``) adds in this order."""
     B, n = a.shape
     P = _dot_chunks(n)
     prod = torch.zeros((B, P * FIXED_DOT_CHUNK), dtype=a.dtype, device=a.device)
@@ -216,65 +218,9 @@ def fixed_dot_plain(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return part[:, 0]
 
 
-def _launch_dot(a, c) -> torch.Tensor:
-    dev = a.device
-    if a.dtype != torch.float32 or c.dtype != torch.float32:
-        raise TypeError(f"fixed_dot: {a.dtype} x {c.dtype}, expected float32")
-    if a.dim() != 2 or a.shape != c.shape or c.device != dev:
-        raise ValueError(f"fixed_dot: {tuple(a.shape)} x {tuple(c.shape)}, expected [B, n] twice")
-    a, c = a.contiguous(), c.contiguous()
-    B, n = a.shape
-    P = _dot_chunks(n)
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
-    # the sums of each run of FIXED_DOT_WIDTH chunks, when there are several
-    scratch = (torch.empty((B, P // FIXED_DOT_WIDTH), dtype=torch.float32, device=dev)
-               if P > FIXED_DOT_WIDTH else None)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.liorf_fixed_dot(a.data_ptr(), c.data_ptr(), out.data_ptr(),
-                                  None if scratch is None else scratch.data_ptr(), B, n, P,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fixed_dot: CUDA launch failed with error {err}")
-    fixed_dot.launches += 1
-    return out
-
-
-@torch.library.custom_op("liorf_tpu_torch::fixed_dot", mutates_args=())
-def _fixed_dot_op(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    return fixed_dot_plain(a, c)
-
-
-@_fixed_dot_op.register_kernel("cuda")
-def _fixed_dot_cuda(a, c):
-    return _launch_dot(a, c)
-
-
-@_fixed_dot_op.register_vmap
-def _fixed_dot_vmap(info, in_dims, a, c):
-    """Lanes of a vmap fold into the op's own [B] axis: one launch."""
-    n = info.batch_size
-    out = _fixed_dot_op(_fold_lanes(a, in_dims[0], n), _fold_lanes(c, in_dims[1], n))
-    return out.reshape(n, -1), 0
-
-
-def fixed_dot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Fixed-order dot product of each lane: a, c [B, n] f32 -> [B]. One
-    launch on the card for every lane."""
-    if a.device.type == "cpu":
-        return fixed_dot_plain(a, c)
-    if a.device.type != "cuda":
-        raise ValueError(f"fixed_dot: unsupported device {a.device}")
-    return _fixed_dot_op(a, c)
-
-
-fixed_dot.launches = 0
-
-
 def launch_counts() -> dict[str, int]:
-    return {"segment_sum": segment_sum.launches, "fixed_dot": fixed_dot.launches}
+    return {"segment_sum": segment_sum.launches}
 
 
 def reset_launch_counts() -> None:
     segment_sum.launches = 0
-    fixed_dot.launches = 0

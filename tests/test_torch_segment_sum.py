@@ -2,10 +2,11 @@
 card's atomic scatter-adds and its length-shaped dot products: the segment
 sum's plain version against JAX's ``.at[].add`` and an explicit loop, its
 vmap rule, ``SegmentPlan`` on CPU tensors (the index_adds it stands for),
-the fixed-order dot's bound and padding invariance, and on the card (marker
-``gpu``) the kernels against float64, their plain versions and themselves,
-and the pose-graph solve's per-row operations and its result unmoved by
-the ring capacity around them. Without JAX on the card:
+the fixed-order dot's bound and padding invariance (the order the PCG kernel
+of ``ops/pcg.py`` keeps), and on the card (marker ``gpu``) the kernel
+against float64, its plain version and itself, and the pose-graph solve's
+per-row operations and its result unmoved by the ring capacity around
+them. Without JAX on the card:
 
     python -m pytest tests/test_torch_segment_sum.py -m gpu -q --noconftest
 """
@@ -87,14 +88,15 @@ def test_segment_plan_on_cpu_is_the_index_adds():
 
 
 def test_fixed_dot_plain_order_and_padding():
-    """The fixed-order dot's plain version: within n 2^-24 sum|a c| of
-    a float64 dot at every length, and zero padding (a ring's unused slots)
-    changes no bit of it, where torch.sum moves (the pose graph's PCG
-    reads it, so a grown ring solves as a large one)."""
+    """The fixed-order dot: within n 2^-24 sum|a c| of a float64 dot at
+    every length, and zero padding (a ring's unused slots) changes no bit of
+    it, where torch.sum moves (the pose graph's PCG kernel sums in this
+    order, so a grown ring solves as a large one; its vmap rule is held in
+    tests/test_torch_pcg.py)."""
     rng = np.random.default_rng(5)
     for n in (0, 1, 31, 32, 33, 1200, 6144):
         a, c = (torch.tensor(rng.normal(size=(2, n)).astype(np.float32)) for _ in range(2))
-        got = ss.fixed_dot(a, c).double()
+        got = ss.fixed_dot_plain(a, c).double()
         prod = a.double() * c.double()
         bound = n * 2.0**-24 * prod.abs().sum(-1)  # n roundings: the products and the sums
         assert bool(((got - prod.sum(-1)).abs() <= bound).all()), n
@@ -103,12 +105,8 @@ def test_fixed_dot_plain_order_and_padding():
     for n in (1200, 1536, 6144, 49152):
         pa, pc = torch.zeros((1, n)), torch.zeros((1, n))
         pa[:, :1200], pc[:, :1200] = a, c
-        vals.add(float(ss.fixed_dot(pa, pc)))
+        vals.add(float(ss.fixed_dot_plain(pa, pc)))
     assert len(vals) == 1
-    # the op's vmap rule: lanes fold into one call
-    X, Y = torch.randn(4, 50, 6), torch.randn(4, 50, 6)
-    got = torch.func.vmap(lambda x, y: ss._fixed_dot_op(x.reshape(1, -1), y.reshape(1, -1))[0])(X, Y)
-    assert torch.equal(got, ss.fixed_dot_plain(X.reshape(4, -1), Y.reshape(4, -1)))
 
 
 @pytest.fixture
@@ -149,37 +147,6 @@ def test_vmap_on_the_card_is_one_launch(dev):
     got = torch.func.vmap(lambda x, p, k: ss.segment_sum(x[None], p[None], k[None], s)[0])(src, perm, keys)
     assert ss.segment_sum.launches == before + 1
     assert torch.equal(got, ss.segment_sum(src, perm, keys, s))
-
-
-@pytest.mark.gpu
-def test_fixed_dot_kernel_is_its_plain_version(dev):
-    g = torch.Generator(device=dev).manual_seed(6)
-    for n in (1, 33, 1536, 49152):
-        a = torch.randn((3, n), generator=g, device=dev)
-        c = torch.randn((3, n), generator=g, device=dev)
-        before = ss.fixed_dot.launches
-        got = ss.fixed_dot(a, c)
-        assert ss.fixed_dot.launches == before + 1
-        assert torch.equal(got, ss.fixed_dot_plain(a, c))
-        assert torch.equal(got.cpu(), ss.fixed_dot_plain(a.cpu(), c.cpu()))
-        pad = [torch.cat([x, torch.zeros((3, 2 * n), device=dev)], 1) for x in (a, c)]
-        assert torch.equal(got, ss.fixed_dot(*pad))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [262145, 3_000_000], ids=["two_runs", "sixteen_runs"])
-def test_fixed_dot_past_one_shared_memory_run(dev, n):
-    """Past FIXED_DOT_WIDTH chunks (a ring of more than 43690 keyframes) the
-    kernel reduces its chunk sums run by run: still the plain version's
-    order of additions, and zero padding still changes no bit."""
-    g = torch.Generator(device=dev).manual_seed(7)
-    a = torch.randn((2, n), generator=g, device=dev)
-    c = torch.randn((2, n), generator=g, device=dev)
-    got = ss.fixed_dot(a, c)
-    assert torch.equal(got, ss.fixed_dot_plain(a, c))
-    assert torch.equal(got.cpu(), ss.fixed_dot_plain(a.cpu(), c.cpu()))
-    pad = [torch.cat([x, torch.zeros((2, n), device=dev)], 1) for x in (a, c)]
-    assert torch.equal(got, ss.fixed_dot(*pad))
 
 
 # The solve's per-row operations on the card: a row's bits must not depend
@@ -231,21 +198,6 @@ def test_solve_rows_ignore_the_batch_around_them(dev, op):
         alone = f(rows)
         for n in (n for n in sizes if n <= largest):
             assert torch.equal(f(n)[:rows], alone), (op, rows, n)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("rows", [8, 200])
-def test_pcg_dot_ignores_zero_slots(dev, rows):
-    from liorf_tpu_torch.graph import pose_graph as pg
-
-    g = torch.Generator(device=dev).manual_seed(1)
-    a, b = (torch.randn((rows, 6), generator=g, device=dev) for _ in range(2))
-    vals = set()
-    for K in (rows, 256, 1024, 2048):
-        x, y = torch.zeros((K, 6), device=dev), torch.zeros((K, 6), device=dev)
-        x[:rows], y[:rows] = a, b
-        vals.add(float(pg._local_dot(x, y)))
-    assert len(vals) == 1
 
 
 @pytest.mark.gpu
