@@ -7,7 +7,9 @@ Builds the CUDA kernels from ``liorf_tpu_torch/csrc`` (one nvcc a source,
 started together), holds each against its plain PyTorch version on the card
 at the shapes the pipeline gives it (the k-NN kernels bit for bit; the
 fixed-order segment sum against a float64 reduction and the CPU's index_add;
-the pose graph's PCG kernel bit for bit against its plain version on the CPU),
+the pose graph's PCG kernel bit for bit against its plain version on the CPU;
+its linearization kernel bit for bit against its plain version and within a
+stated bound of the jacfwd linearization),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
 process_scan / trajectory_arrays) at the repo's bench size and on the
 loop-closure course, the device-resident pipeline (``make_pipeline``,
@@ -24,9 +26,9 @@ registration, the sharded loop search and ``ShardedResidentPipeline``, over
 NCCL on every visible card and over 4 gloo ranks sharing card 0, against the
 single-device port), and checks the outputs. K1 (``knn_grid_topk``) is timed
 at the main path's shapes on the main path's own final grid, and the segment
-sum and the PCG kernel on the arguments the main path gave them, right
-after that path (the PCG also on the resident full solve's), and on the
-8-lane launches of multistream_path; both
+sum, the PCG kernel and the linearization on the arguments the main path
+gave them, right after that path (the PCG and the linearization also on the
+resident full solve's), and on the 8-lane launches of multistream_path; both
 k-NN kernels with a lane axis at N = 8 in the kernels phase. Everything runs
 in the default mode (``torch.use_deterministic_algorithms`` off).
 
@@ -42,8 +44,8 @@ Options (for shorter runs while developing):
                       torch.profiler (device-busy share, kernel time by name);
                       "pcg_profile" times the PCG kernel's phases by clock
                       cycles (a profiling build of csrc/pcg.cu);
-                      "edge_floor" times main_path with and without the pose
-                      graph's edge-batch floor; "repair_cost" times
+                      "edge_floor" holds a factor's linearization bits over
+                      256 to 4096 edge slots; "repair_cost" times
                       resident_path here and in the --parent checkout, in turns
     --parent DIR      the checkout repair_cost compares with
     --ptxas           print ptxas' register / shared-memory report
@@ -77,6 +79,7 @@ from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
 from liorf_tpu_torch.core import build  # noqa: E402
 from liorf_tpu_torch.graph import pose_graph as pg  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
+from liorf_tpu_torch.ops import linearize as lin  # noqa: E402
 from liorf_tpu_torch.ops import pcg  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
 from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig, make_pipeline  # noqa: E402
@@ -97,6 +100,7 @@ FP32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
 SEGSUM_SOURCE = "liorf_tpu_torch/csrc/segment_sum.cu"
 PCG_SOURCE = "liorf_tpu_torch/csrc/pcg.cu"
+LINEARIZE_SOURCE = "liorf_tpu_torch/csrc/linearize.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -136,12 +140,13 @@ def reset_counts() -> None:
     knn_cuda.reset_launch_counts()
     segsum.reset_launch_counts()
     pcg.reset_launch_counts()
+    lin.reset_launch_counts()
     pg.solve.gn_steps = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {**knn_cuda.launch_counts(), **segsum.launch_counts(), **pcg.launch_counts(),
-            "pose_graph_gn_steps": pg.solve.gn_steps}
+            **lin.launch_counts(), "pose_graph_gn_steps": pg.solve.gn_steps}
 
 
 _EMIT = threading.Lock()
@@ -231,7 +236,7 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and the three kernel libraries built at once
+    """The card, the toolchain, and the four kernel libraries built at once
     (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
@@ -239,15 +244,15 @@ def phase_device(ptxas: bool) -> str:
     ).stdout.strip().splitlines()[-2:]
     flags = ("-Xptxas", "-v") if ptxas else ()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum, pcg)]:
+    with ThreadPoolExecutor(4) as ex:
+        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum, pcg, lin)]:
             f.result()
     emit(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=" | ".join(nvcc), python=sys.version.split()[0],
         kernel_build_seconds=dict(knn_kernels=knn_cuda.build_seconds,
                                   segment_sum=segsum.build_seconds,
-                                  pcg=pcg.build_seconds,
+                                  pcg=pcg.build_seconds, linearize=lin.build_seconds,
                                   all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -975,68 +980,40 @@ def phase_repair_cost(parent: str, turns=("parent", "this", "this", "parent")) -
     emit("repair_cost", nvidia_smi=nvidia_smi_line(), frames=REPAIR_FRAMES, turns=runs, **summary)
 
 
-EDGE_BATCH_SIZES = (8, 16, 32, 64, 96, 128, 192, 256, 320, 384, 448, 512, 768, 1024, 1152, 1536,
-                    2048, 4096)
+EDGE_SLOTS = (256, 320, 384, 448, 512, 768, 1024, 1152, 1536, 2048, 4096)
 
 
-def phase_edge_floor(turns=("floor", "none", "none", "floor")) -> None:
-    """What the between factors' edge-batch floor (graph/pose_graph.py,
-    _EDGE_BATCH_FLOOR) costs: main_path's frame time with it and with none
-    (0), a fresh LiorfPipeline on the main course each turn, in turns; and
-    one linearization of 256 edges (the classic solve's smallest capacity)
-    padded and not. Then the classes of unpadded edge-batch sizes whose
-    first 8 rows (residuals and both Jacobians) have the same bits, for two
-    seeded inputs. Not in the default run: ``--phases device,edge_floor``."""
-    from liorf_tpu_torch.core import se3
-    from liorf_tpu_torch.graph import pose_graph as pg
-
-    floor = pg._EDGE_BATCH_FLOOR
-    runs = []
-
-    def edges(seed: int, n: int):
-        gen = torch.Generator(device=DEV).manual_seed(seed)
-        return [se3.so3_exp(0.5 * torch.randn((n, 3), generator=gen, device=DEV))
-                if i % 2 == 0 else torch.randn((n, 3), generator=gen, device=DEV)
-                for i in range(6)]
-
-    try:
-        for turn in turns:
-            pg._EDGE_BATCH_FLOOR = floor if turn == "floor" else 0
-            pipe = LiorfPipeline(main_config())
-            _, frame_ms = run_pipeline(pipe, main_dataset(MAIN_FRAMES), MAIN_FRAMES)
-            runs.append(dict(floor=pg._EDGE_BATCH_FLOOR, ms_per_frame_p50=percentile(frame_ms[1:], 50),
-                             ms_per_frame_mean=float(np.mean(frame_ms[1:])),
-                             edges=len(pipe.edges), traj=pipe.trajectory_arrays()[1]))
-            del pipe
-        e256 = edges(SEED + 7, 256)
-        linearize_ms = {}
-        for f in (floor, 0, 0, floor):
-            pg._EDGE_BATCH_FLOOR = f
-            linearize_ms.setdefault(f"floor {f}", []).append(cuda_ms(lambda: pg._between_rJ(*e256)))
-        pg._EDGE_BATCH_FLOOR = 0
-        classes = {}
-        for seed in (SEED + 7, 0):
-            args = edges(seed, max(EDGE_BATCH_SIZES))
-            groups = []  # [(rows, [sizes])]
-            for n in EDGE_BATCH_SIZES:
-                rows = torch.cat([x[:8].reshape(8, -1) for x in pg._between_rJ(*(x[:n] for x in args))], 1)
-                for ref, sizes in groups:
-                    if torch.equal(rows, ref):
-                        sizes.append(n)
-                        break
-                else:
-                    groups.append((rows, [n]))
-            classes[f"seed {seed}"] = [sizes for _, sizes in groups]
-    finally:
-        pg._EDGE_BATCH_FLOOR = floor
-    ref_traj = runs[0].pop("traj")
-    for r in runs[1:]:
-        r["max_abs_diff_to_first"] = float(np.abs(r.pop("traj") - ref_traj).max())
-    p50 = {t: statistics.median(r["ms_per_frame_p50"] for r, u in zip(runs, turns) if u == t)
-           for t in dict.fromkeys(turns)}
-    emit("edge_floor", nvidia_smi=nvidia_smi_line(), frames=MAIN_FRAMES, floor=floor, turns=runs,
-         median_p50=p50, between_256_edges_ms=linearize_ms,
-         unpadded_size_classes_equal_first_rows=classes)
+def phase_edge_floor(keep: int = 200) -> None:
+    """A factor's linearization bits against the batch around it (the
+    batched products under jacfwd, which the kernel replaced, took other
+    bits at 1536 and 2048 edge slots): one seeded graph of 4096 nodes
+    linearized in EDGE_SLOTS edge slots, its first ``keep`` nodes' factors
+    live and the rest masked; the classes of slot counts whose live
+    Jacobians and node sums have the same bits (one class: capacity-free),
+    and the call's time at each. Not in the default run:
+    ``--phases device,edge_floor``."""
+    graph = random_graph(4096, 3500, max(EDGE_SLOTS), 256, seed=11)
+    free = graph.node_mask
+    groups, ms = [], {}
+    for E in EDGE_SLOTS:
+        g = graph._replace(**{k: getattr(graph, k)[:E] for k in (
+            "e_i", "e_j", "e_Rm", "e_tm", "e_sqrt_info", "e_cauchy", "e_mask")})
+        g = g._replace(e_mask=g.e_mask & (torch.arange(E, device=DEV) < keep - 1))
+        plan = pg._plan(g)
+        rhs, diag, t = pg._build_normal_terms(g, free, plan)
+        live = [rhs[:keep], diag[:keep], t.Ji[:keep - 1], t.Jj[:keep - 1]]
+        for ref, sizes in groups:
+            if all(torch.equal(a, b) for a, b in zip(live, ref)):
+                sizes.append(E)
+                break
+        else:
+            groups.append((live, [E]))
+        ms[E] = cuda_ms(lambda: pg._build_normal_terms(g, free, plan), reps=10, batch=5)
+    classes = [sizes for _, sizes in groups]
+    emit("edge_floor", nvidia_smi=nvidia_smi_line(), nodes=4096, live_nodes=keep,
+         edge_slots=list(EDGE_SLOTS), classes_equal_live_rows=classes,
+         linearize_ms_by_edge_slots=ms)
+    check(len(classes) == 1, f"a factor's bits moved with the edge slots: {classes}")
 
 
 def phase_loop_path(n_frames: int = LOOP_PATH_FRAMES):
@@ -1496,6 +1473,7 @@ def phase_multistream_path() -> dict:
     out["loop_n4"] = multistream_loop_course(MULTI_PARITY_LANES)
     # the lane-folded launches of the widest run, held as the main path's are
     pcg_lanes = phase_pcg(pcg_cases(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
+    lin_lanes = phase_linearize(linearize_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     seg_lanes = phase_segment_sum(lane_cases, max(MULTI_LANES))
     del lane_cases
     # the checks after the lines, so a failing run still shows its numbers
@@ -1519,7 +1497,7 @@ def phase_multistream_path() -> dict:
               f"N={n}: K1 launches of {row['k1_ticks_off_slowest_lane']} ticks differ from the "
               "slowest lane's GN iterations of that tick")
         check(max(row["ate_rmse_m"]) < 0.3, f"N={n}: ATE {max(row['ate_rmse_m'])} m >= 0.3 m")
-    return out, seg_lanes, pcg_lanes
+    return out, seg_lanes, pcg_lanes, lin_lanes
 
 
 def multistream_loop_course(n: int) -> dict:
@@ -1655,10 +1633,11 @@ def capture_segment_sums(cases: dict, lanes: int = 1):
     """Keep, by reference (no device work), the arguments of the block's
     last segment-sum launch of each kind over ``lanes`` lanes (vmapped calls
     fold their lanes into the launch's leading axis): the voxel filter (no
-    perm, five columns; by output size), the pose graph's rhs (6 columns)
-    and block diagonal (36); and of its last PCG launch for each iteration
-    count (``pcg_iters<n>``: the window and the full solves)."""
-    real, real_pcg = segsum._launch, pcg._launch
+    perm, five columns; by output size) and any sum with a perm (the
+    distributed solver's, by column count); of its last PCG launch for each
+    iteration count (``pcg_iters<n>``: the window and the full solves); and
+    of its last linearization (``linearize``)."""
+    real, real_pcg, real_lin = segsum._launch, pcg._launch, lin._launch
 
     def spy(src, perm, keys, num_segments):
         if src.shape[0] != lanes:
@@ -1674,16 +1653,27 @@ def capture_segment_sums(cases: dict, lanes: int = 1):
             cases[f"pcg_iters{args[12]}"] = (args[:12], args[12], args[13])
         return real_pcg(*args, **kw)
 
-    segsum._launch, pcg._launch = spy, spy_pcg
+    def spy_lin(*args, **kw):
+        if args[0].shape[0] == lanes:
+            cases["linearize"] = args
+        return real_lin(*args, **kw)
+
+    segsum._launch, pcg._launch, lin._launch = spy, spy_pcg, spy_lin
     try:
         yield cases
     finally:
-        segsum._launch, pcg._launch = real, real_pcg
+        segsum._launch, pcg._launch, lin._launch = real, real_pcg, real_lin
 
 
 def pcg_cases(cases: dict) -> dict:
     """The captured PCG launches, taken out of ``cases``."""
     return {k: cases.pop(k) for k in [k for k in cases if k.startswith("pcg_iters")]}
+
+
+def linearize_case(cases: dict):
+    """The captured linearization, taken out of ``cases``."""
+    check("linearize" in cases, f"no linearize_normal launch captured: {sorted(cases)}")
+    return cases.pop("linearize")
 
 
 def bench_segsum(src, perm, keys, S: int) -> dict:
@@ -1847,6 +1837,156 @@ def phase_pcg(cases: dict, label: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the pose graph's linearization kernel (not a TPU kernel), at the paths' shapes
+# ---------------------------------------------------------------------------
+
+# Kernel against the jacfwd linearization: the closed form and jacfwd's
+# batched products differ in the order of their sums; within 1e-2 of pi both
+# carry rounding amplified by 1 / sin(theta) (tests/test_torch_linearize.py's
+# bounds): the block diagonal and the J blocks within 1e-4 of their largest
+# entry. The right-hand side -J^T r nearly cancels once a solve converges, so
+# its own largest entry is no scale (the main path's last window step was
+# off by 0.23 of it): a difference d in the whitened residual moves it by
+# about J^T J d, so each entry is held within 1e-5 of its column's stiffness,
+# the diagonal of J^T J at that node and tangent (1e-8 to 1e-7 on the CPU
+# through a converging solve).
+LINEARIZE_JACFWD_TOL = 1e-4
+LINEARIZE_RHS_TOL = 1e-5
+LINEARIZE_OUT = ("rhs", "diag", "Ji", "Jj", "Jg", "Jp")
+
+
+def linearize_graph(args):
+    """The lanes' PoseGraph [B, ...] and free mask of linearize_normal's
+    arguments (node_mask is not read by a linearization)."""
+    a = dict(zip(lin.ARGS, args))
+    graph = pg.PoseGraph(
+        Rs=a["Rs"], ts=a["ts"], node_mask=a["free_mask"], e_i=a["e_i"], e_j=a["e_j"],
+        e_Rm=a["e_Rm"], e_tm=a["e_tm"], e_sqrt_info=a["e_sqrt_info"], e_cauchy=a["e_cauchy"],
+        e_mask=a["e_mask"], g_i=a["g_i"], g_t=a["g_t"], g_sqrt_info=a["g_sqrt_info"],
+        g_mask=a["g_mask"], prior_i=a["p_i"][:, 0], prior_R=a["prior_R"], prior_t=a["prior_t"],
+        prior_sqrt_info=a["prior_sqrt_info"])
+    return graph, a["free_mask"]
+
+
+def device_only_ms(fn, reps: int = 20) -> float:
+    """Median device time of one fn() in ms, apart from the host's time to
+    reach its launches: the card spins ~1 ms (torch.cuda._sleep) just before
+    each timed call, so the call is enqueued before the first event is
+    reached. (A second torch.profiler trace in one process came back empty
+    on the card, so this takes CUDA events, not the tracer.)"""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bench_linearize(args) -> dict:
+    """The linearization kernel on the arguments a path gave it: against its
+    plain version (phase A on the card, bit for bit including the rows; the
+    node sums in the plan's order on the CPU, since index_add on the card
+    adds in no fixed order), its node sums against the CPU's index_add of
+    its own rows (bit for bit), against itself, each lane against its own
+    launch, and against the jacfwd linearization (``pose_graph._normal_terms_
+    jacfwd``, vmapped over the lanes) within LINEARIZE_JACFWD_TOL; timed
+    beside the plain version on the card and the jacfwd linearization it
+    replaced (no single PyTorch call linearizes a pose graph: library_ms
+    null)."""
+    B, K = args[0].shape[:2]
+    E, G = args[2].shape[1], args[9].shape[1]
+
+    def kernel():
+        return lin.linearize_normal(*args)
+
+    *out, rows = lin._launch(*args, keep_rows=True)
+    again = kernel()
+    Ji, Jj, Jg, Jp, rows_p = lin.factor_rows_plain(*args[:18])
+    sums = segsum.segment_sum_plain(rows_p.cpu(), args[19].cpu(), args[18].cpu(), K)
+    plain = (sums[..., :6], sums[..., 6:].reshape(B, K, 6, 6), Ji.cpu(), Jj.cpu(), Jg.cpu(),
+             Jp.cpu())
+    own = segsum.segment_sum_plain(rows.cpu(), args[19].cpu(), args[18].cpu(), K)
+    alone = [lin.linearize_normal(*(a[b:b + 1] for a in args)) for b in range(B)]
+    graph, free = linearize_graph(args)
+
+    def jacfwd():
+        return torch.func.vmap(pg._normal_terms_jacfwd)(graph, free)
+
+    oracle = jacfwd()
+    # f32 operations as the data needs them (a factor whose rows are all zero,
+    # unused or masked, needs none; atan2 counted as one): ~1650 a between
+    # factor (P, Q, six directions of so3_log's derivative, the weights, both
+    # J blocks, two rows of 42 sums of 6 products), ~270 a GPS factor, ~720
+    # the prior, and 42 adds a nonzero row in its node's sums
+    nz = rows.ne(0).any(-1)  # [B, M]
+    n_between = int((nz[:, :E] | nz[:, E:2 * E]).sum())
+    n_gps, n_prior = int(nz[:, 2 * E:2 * E + G].sum()), int(nz[:, -1].sum())
+    flops = 1650 * n_between + 270 * n_gps + 720 * n_prior + 42 * int(nz.sum())
+    bytes_moved = (sum(a.numel() * a.element_size() for a in args)
+                   + sum(o.numel() * 4 for o in out))
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    rel = {n: float((o - j).abs().max() / j.abs().max().clamp(min=1e-30))
+           for n, o, j in zip(LINEARIZE_OUT, out, oracle)}
+    stiffness = torch.diagonal(oracle[1], dim1=-2, dim2=-1)  # [B, K, 6]
+    rhs_over_stiffness = float(((out[0] - oracle[0]).abs() / stiffness.clamp(min=1e-30)).max())
+    res = dict(
+        shape=dict(lanes=B, nodes=K, edges=E, gps=G), lanes=B,
+        active=dict(between=n_between, gps=n_gps, prior=n_prior, rows=int(nz.sum())),
+        max_abs_err=max(float((o.cpu() - p).abs().max()) for o, p in zip(out, plain)),
+        equal_to_plain=all(torch.equal(o.cpu(), p) for o, p in zip(out, plain)),
+        rows_equal_to_plain=bool(torch.equal(rows, rows_p)),
+        sums_equal_to_cpu_index_add=bool(torch.equal(out[0].cpu(), own[..., :6])
+                                         and torch.equal(out[1].cpu(), own[..., 6:].reshape(B, K, 6, 6))),
+        repeats=all(torch.equal(o, a) for o, a in zip(out, again)),
+        lanes_equal_one_lane_launches=all(
+            torch.equal(o, torch.cat([x[k] for x in alone])) for k, o in enumerate(out)),
+        jacfwd_max_rel_diff=rel, jacfwd_rhs_diff_over_stiffness=rhs_over_stiffness,
+        **kernel_ms(kernel),
+        # the two kernels' own time on the card, apart from the wrapper's host time
+        device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: lin.linearize_normal_plain(*args), reps=5, warm=1),
+        op_by_op_ms=cuda_ms(jacfwd, reps=5, warm=1),
+        op_by_op_call="pose_graph._normal_terms_jacfwd (jacfwd under vmap, masks, SegmentPlan "
+                      "sums), vmapped over the lanes",
+        library_ms=None,
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved, flops=flops,
+    )
+    res["finite"] = all(bool(torch.isfinite(o).all()) for o in out)
+    return res
+
+
+def phase_linearize(args, label: str) -> dict:
+    """The linearization kernel held on the last launch a path gave it
+    (capture_segment_sums): one line a path, then its checks."""
+    res = bench_linearize(args)
+    emit("kernels_linearize", path=label, **res,
+         tolerance=f"bit for bit against the plain version (phase A on the card, node sums on "
+                   f"the CPU); jacfwd: diag and J blocks within {LINEARIZE_JACFWD_TOL} of their "
+                   f"largest entry, rhs within {LINEARIZE_RHS_TOL} of its column's stiffness")
+    what = f"linearize_normal on {label} {res['shape']}"
+    check(res["rows_equal_to_plain"], f"{what}: phase A's rows differ from the plain version's")
+    check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
+    check(res["sums_equal_to_cpu_index_add"], f"{what}: node sums differ from the CPU's index_add")
+    check(res["repeats"], f"{what}: two launches differ")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(res["finite"], f"{what}: not finite")
+    rel = {k: v for k, v in res["jacfwd_max_rel_diff"].items() if k != "rhs"}
+    check(max(rel.values()) <= LINEARIZE_JACFWD_TOL, f"{what}: off the jacfwd linearization: {rel}")
+    check(res["jacfwd_rhs_diff_over_stiffness"] <= LINEARIZE_RHS_TOL,
+          f"{what}: rhs off the jacfwd linearization's by "
+          f"{res['jacfwd_rhs_diff_over_stiffness']} of its column's stiffness")
+    return res
+
+
 PCG_PHASES = ("tree_rz", "p_own", "edges", "gps_prior", "sync1", "node_sums", "sync2",
               "tree_pap", "x_r", "precond", "sync3")
 
@@ -1918,12 +2058,13 @@ def phase_pcg_profile() -> None:
 
 def phase_segment_sum(cases: dict, lanes: int = 1) -> dict:
     """The segment sum held on the arguments a path gave it
-    (capture_segment_sums): every kind a solve and the voxel filter launch
-    must be there, over ``lanes`` lanes."""
+    (capture_segment_sums): the voxel filter's sums must be there, over
+    ``lanes`` lanes, and no pose-graph sum (its linearization kernel sums
+    its nodes itself)."""
     kinds = sorted(cases)
-    check("pose_graph_rhs" in kinds and "pose_graph_diag" in kinds
-          and any(k.startswith("voxel_filter_out") for k in kinds),
-          f"{lanes}-lane segment sums captured: {kinds} only")
+    check(any(k.startswith("voxel_filter_out") for k in kinds)
+          and not any(k.startswith("pose_graph") for k in kinds),
+          f"{lanes}-lane segment sums captured: {kinds}")
     out = {kind: bench_segsum(*cases[kind]) for kind in kinds}
     check(all(r["lanes"] == lanes for r in out.values()), f"not every capture has {lanes} lanes")
     emit("kernels_segment_sum" if lanes == 1 else f"kernels_segment_sum_lanes{lanes}", lanes=lanes,
@@ -2644,17 +2785,20 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
-    seg_lanes = pcg_lanes = None
+    seg_lanes = pcg_lanes = lin_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         seg_cases = {}
         with capture_segment_sums(seg_cases):
             pipe, main_counts = phase_main_path()
         pcg_main = pcg_cases(seg_cases)
+        lin_main = linearize_case(seg_cases)
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
             kern["segment_sum"] = phase_segment_sum(seg_cases)
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
+            kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
+        del lin_main
         resident = None
         if "resident_path" in phases:
             resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
@@ -2667,6 +2811,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                     tres._solve_graph_resident(rp.state, rp.params, True)
                 kern["pcg_solve_resident_full"] = phase_pcg(pcg_cases(res_cases),
                                                             "resident_path full solve")
+                kern["linearize_normal_resident_full"] = phase_linearize(
+                    linearize_case(res_cases), "resident_path full solve")
                 del rp, res_cases
         if "split" in phases:
             phase_split(pipe, resident)
@@ -2694,7 +2840,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "faults" in phases:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts, seg_lanes, pcg_lanes = phase_multistream_path()
+        multi_counts, seg_lanes, pcg_lanes, lin_lanes = phase_multistream_path()
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -2765,8 +2911,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     scan_voxel = seg[f"voxel_filter_out{BENCH_CAPS['scan_capacity']}"]
     kernels.append(row(
         "segment_sum",
-        "none (not a TPU kernel): the card's atomic index_add in liorf_tpu_torch/core/voxel.py, "
-        "graph/pose_graph.py and dist/shard_map_solver.py",
+        "none (not a TPU kernel): the card's atomic index_add in liorf_tpu_torch/core/voxel.py "
+        "and dist/shard_map_solver.py",
         main_counts["segment_sum"], r=scan_voxel, source=SEGSUM_SOURCE,
         shape=scan_voxel["shape"], launches_by_path=by_path("segment_sum"),
         by_site={k: {f: v[f] for f in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -2788,6 +2934,24 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         resident_full={k: {f: v[f] for f in pcg_fields}
                        for k, v in kern["pcg_solve_resident_full"].items()},
         lanes8={k: {f: v[f] for f in pcg_fields} for k, v in pcg_lanes.items()}))
+    # the linearization row: the main path's last launch (a window solve's)
+    lin_fields = ("shape", "active", "ms", "ms_cold_l2", "ms_single_call", "device_ms",
+                  "plain_ms", "op_by_op_ms", "bound_ms", "bound_by", "flops", "max_abs_err",
+                  "jacfwd_max_rel_diff", "jacfwd_rhs_diff_over_stiffness")
+    lin_main = kern["linearize_normal"]
+    kernels.append(row(
+        "linearize_normal",
+        "none (not a TPU kernel): the jacfwd linearization and its SegmentPlan sums of "
+        "liorf_tpu_torch/graph/pose_graph.py (the JAX package's jitted _build_normal_terms at "
+        "liorf_tpu/graph/pose_graph.py:99-117,141-202)",
+        main_counts["linearize_normal"], r=lin_main, source=LINEARIZE_SOURCE,
+        shape=lin_main["shape"], op_by_op_ms=lin_main["op_by_op_ms"],
+        device_ms=lin_main["device_ms"],
+        jacfwd_max_rel_diff=lin_main["jacfwd_max_rel_diff"],
+        jacfwd_rhs_diff_over_stiffness=lin_main["jacfwd_rhs_diff_over_stiffness"],
+        launches_by_path=by_path("linearize_normal"),
+        resident_full={f: kern["linearize_normal_resident_full"][f] for f in lin_fields},
+        lanes8={f: lin_lanes[f] for f in lin_fields}))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
     check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
@@ -2803,6 +2967,9 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     for path, c in single_device.items():
         check(c["pcg_solve"] > 0 and c["pcg_solve"] == c["pose_graph_gn_steps"],
               f"{path}: {c['pcg_solve']} PCG launches for {c['pose_graph_gn_steps']} GN steps")
+        check(c["linearize_normal"] == c["pose_graph_gn_steps"],
+              f"{path}: {c['linearize_normal']} linearize launches for "
+              f"{c['pose_graph_gn_steps']} GN steps")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -10,13 +10,14 @@ keyframe poses with three factor families, mirroring the reference:
 * GPS unary position factors (``addGPSFactor``, :1470-1474).
 
 Instead of incremental Bayes-tree updates, the solver runs batched
-Gauss-Newton: residuals/Jacobians for every factor are built with batched
-forward-mode autodiff (``torch.func``), the normal equations are solved by
-preconditioned conjugate gradients with a block-Jacobi preconditioner, and
-all gather/scatter is over fixed-capacity masked arrays. A trailing-window
-mode (freeze all but the last W nodes) provides the cheap per-keyframe
-incremental step; full solves run when loops/GPS land, like the reference's
-5x ``isam->update()`` burst (:1521-1531).
+Gauss-Newton: every factor's residual and closed-form Jacobians and the
+normal equations' per-node sums in one call (``ops/linearize.py``; the
+forward-mode autodiff of ``torch.func`` stays as their oracle), solved by
+preconditioned conjugate gradients with a block-Jacobi preconditioner
+(``ops/pcg.py``); all gather/scatter is over fixed-capacity masked arrays.
+A trailing-window mode (freeze all but the last W nodes) provides the
+cheap per-keyframe incremental step; full solves run when loops/GPS land,
+like the reference's 5x ``isam->update()`` burst (:1521-1531).
 
 Tangent convention: [omega, v] with right-multiplicative retraction
 (R <- R exp(w), t <- t + R v) from ``core.se3``.
@@ -32,6 +33,7 @@ from torch.func import jacfwd, vmap
 
 from ..core import se3
 from ..core.device import resolve_device
+from ..ops.linearize import linearize_normal
 from ..ops.pcg import pcg_solve
 from ..ops.segment_sum import SegmentPlan
 
@@ -124,14 +126,6 @@ def _prior_residual(xi_i, Ri, ti, R0, t0):
     return torch.cat([se3.so3_log(R0.T @ Ri2), ti2 - t0])
 
 
-# On the card the batched products inside the between factors' vmap of
-# jacfwd give an edge other bits at batch sizes below 256 (another kernel is
-# picked; 256 to 1152 rows agree on an H100), so a graph with few edge slots
-# is linearized padded to this many (identity edges, sliced off): every ring
-# capacity, grown or not, then linearizes with the kernels of a large ring.
-_EDGE_BATCH_FLOOR = 512
-
-
 def _between_rJ(Ri, ti, Rj, tj, Rm, tm):
     def one(Ri, ti, Rj, tj, Rm, tm):
         z = torch.zeros(6, dtype=Ri.dtype, device=Ri.device)
@@ -143,15 +137,7 @@ def _between_rJ(Ri, ti, Rj, tj, Rm, tm):
         (Ji, Jj), r = jacfwd(f, argnums=(0, 1), has_aux=True)(z, z)
         return r, Ji, Jj
 
-    E = Ri.shape[0]
-    pad = _EDGE_BATCH_FLOOR - E if Ri.is_cuda else 0
-    if pad <= 0:
-        return vmap(one)(Ri, ti, Rj, tj, Rm, tm)
-    eye = torch.eye(3, dtype=Ri.dtype, device=Ri.device).expand(pad, 3, 3)
-    zero = torch.zeros((pad, 3), dtype=ti.dtype, device=ti.device)
-    r, Ji, Jj = vmap(one)(*(torch.cat([x, eye if x.dim() == 3 else zero])
-                            for x in (Ri, ti, Rj, tj, Rm, tm)))
-    return r[:E], Ji[:E], Jj[:E]
+    return vmap(one)(Ri, ti, Rj, tj, Rm, tm)
 
 
 def _gps_rJ(Ri, ti, tgt):
@@ -169,7 +155,9 @@ def _gps_rJ(Ri, ti, tgt):
 
 
 def _linearize(graph: PoseGraph):
-    """Build whitened residuals + Jacobian blocks for every factor."""
+    """Whitened residuals + Jacobian blocks for every factor by ``jacfwd``:
+    ``graph_error``'s residuals, and the oracle of the closed-form Jacobians
+    of ``ops/linearize.py`` (tests, chip_smoke.py)."""
     # between
     Ri = graph.Rs[graph.e_i]
     ti = graph.ts[graph.e_i]
@@ -250,32 +238,47 @@ class NormalTerms(NamedTuple):
     plan: SegmentPlan  # over [e_i, e_j, g_i, p_i]
 
 
-def _build_normal_terms(graph: PoseGraph, free_mask):
-    """Linearize and return (rhs [K,6], block-diag [K,6,6], NormalTerms)."""
-    K = graph.Rs.shape[0]
+def _plan(graph: PoseGraph) -> SegmentPlan:
+    """The node sums' plan over [e_i, e_j, g_i, p_i]: the endpoints are
+    fixed over a solve, so one plan serves its every GN step."""
+    idx = [graph.e_i, graph.e_j, graph.g_i, graph.prior_i.reshape(1)]
+    return SegmentPlan(idx, graph.Rs.shape[0])
+
+
+def _build_normal_terms(graph: PoseGraph, free_mask, plan: SegmentPlan | None = None):
+    """Linearize and return (rhs [K,6], block-diag [K,6,6], NormalTerms):
+    ``ops.linearize.linearize_normal``, one launch on the card (every lane
+    under vmap), its plain version on the CPU. The node sums add in the
+    plan's sorted order (the chained index_adds of pose_graph.py:192-214 of
+    the JAX package, in its order of blocks); out of place, so the solve
+    also runs under torch.func.vmap (one graph per lane of
+    pipeline/multistream.py)."""
+    plan = _plan(graph) if plan is None else plan
+    keys, perm = plan.sorted_rows()
+    e_i, e_j, g_i, p_i = plan.index
+    args = (graph.Rs, graph.ts, e_i, e_j, graph.e_Rm, graph.e_tm, graph.e_sqrt_info,
+            graph.e_cauchy, graph.e_mask, g_i, graph.g_t, graph.g_sqrt_info, graph.g_mask, p_i,
+            graph.prior_R, graph.prior_t, graph.prior_sqrt_info, free_mask, keys, perm)
+    rhs, diag, Ji, Jj, Jg, Jp = (x[0] for x in linearize_normal(*(a[None] for a in args)))
+    return rhs, diag, NormalTerms(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, plan)
+
+
+def _normal_terms_jacfwd(graph: PoseGraph, free_mask):
+    """(rhs, diag, Ji, Jj, Jg, Jp) op by op from the ``jacfwd``
+    linearization, masked and summed as the JAX package's
+    ``_build_normal_terms``: the oracle of ``linearize_normal`` (tests,
+    chip_smoke.py)."""
     (r_e, Ji, Jj), (r_g, Jg), (r_p, Jp) = _linearize(graph)
     fm = free_mask.to(r_e.dtype)
-    e_i, e_j, g_i, p_i = graph.e_i, graph.e_j, graph.g_i, graph.prior_i.reshape(1)
-
-    # mask Jacobian columns of frozen nodes (treat them as constants)
+    plan = _plan(graph)
+    e_i, e_j, g_i, p_i = plan.index
     Ji = Ji * fm[e_i][:, None, None]
     Jj = Jj * fm[e_j][:, None, None]
     Jg = Jg * fm[g_i][:, None, None]
     Jp = Jp * fm[p_i][0]
-
-    # rhs = -J^T r scattered per node (index_add in place of .at[].add,
-    # pose_graph.py:192-214 of the JAX package; accumulation order differs)
-    # (out of place, so the solve also runs under torch.func.vmap: one graph
-    # per lane of pipeline/multistream.py). The endpoints are fixed for the
-    # solve: on the card one plan serves rhs and diag in a fixed order
-    # (ops/segment_sum.py) and its sorted rows feed the PCG kernel, on the
-    # CPU these are the index_adds.
-    plan = SegmentPlan([e_i, e_j, g_i, p_i], K)
     rhs = plan.sum([-_jt(Ji, r_e), -_jt(Jj, r_e), -_jt(Jg, r_g), -(Jp.T @ r_p)[None]])
-
-    # block-diagonal of H for the Jacobi preconditioner
     diag = plan.sum([_jtj(Ji), _jtj(Jj), _jtj(Jg), (Jp.T @ Jp)[None]])
-    return rhs, diag, NormalTerms(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, plan)
+    return rhs, diag, Ji, Jj, Jg, Jp
 
 
 def _matvec(t: NormalTerms):
@@ -374,9 +377,10 @@ def solve(
     idx = torch.arange(K, device=graph.Rs.device)
     free_mask = graph.node_mask & (idx >= free_from)
 
+    plan = _plan(graph)
     # fixed-length Python loop in place of lax.scan (pose_graph.py:289)
     for _ in range(params.gn_iters):
-        rhs, diag, terms = _build_normal_terms(graph, free_mask)
+        rhs, diag, terms = _build_normal_terms(graph, free_mask, plan)
         dx = _pcg_fused(rhs, diag, terms, params.pcg_iters, params.damping)
         solve.gn_steps += 1
         dx = dx * free_mask[:, None].to(dx.dtype)

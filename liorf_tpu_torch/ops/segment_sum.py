@@ -1,5 +1,7 @@
 """Fixed-order reductions on the card: the scatter-adds of the voxel filter
-and the pose graph, and the order of the pose graph's dot products.
+and the distributed pose-graph solver, the order of the single-device solve's
+node sums (kept by ``ops/linearize.py`` and ``ops/pcg.py``), and of its dot
+products.
 
 On a CUDA tensor ``index_add`` adds with atomics in whatever order the
 threads arrive, so two runs of one stream gave two trajectories. Not a TPU
@@ -15,7 +17,8 @@ rows; the CPU keeps ``index_add`` itself.
 * :class:`SegmentPlan` — several scatter-adds into one output whose row
   indices stay fixed over a solve (the pose graph's edge, GPS and prior
   endpoints): one stable sort, then each :meth:`sum` is one launch; the
-  sorted rows also feed the PCG kernel (``ops/pcg.py``).
+  sorted rows also feed the linearization and PCG kernels
+  (``ops/linearize.py``, ``ops/pcg.py``), which sum in that order.
 * :func:`fixed_dot_plain` — the order of the PCG's dot products, which the
   PCG kernel keeps: chunks of 32 products summed in order, the chunk sums
   by a tree of adjacent pairs. It does not depend on the length beyond the

@@ -162,7 +162,7 @@ def _row_ops(dev):
     def rand(*shape):
         return torch.randn((4096, *shape), generator=g, device=dev)
 
-    R, R2 = se3.so3_exp(0.5 * rand(3)), se3.so3_exp(0.5 * rand(3))
+    R = se3.so3_exp(0.5 * rand(3))
     t, w, J, r, v, M = rand(3), 0.1 * rand(6), rand(6, 6), rand(6), rand(6), rand(6, 6)
     spd = M @ M.transpose(1, 2) + torch.eye(6, device=dev)
     return {
@@ -175,28 +175,21 @@ def _row_ops(dev):
         "euler_to_rot": lambda n: se3.euler_to_rot(w[:n, :3]),
         "rot_to_euler": lambda n: se3.rot_to_euler(R[:n]),
         "se3_retract": lambda n: se3.se3_retract(R[:n], t[:n], w[:n])[0],
-        "between_rJ": lambda n: torch.cat([x.reshape(n, -1) for x in pg._between_rJ(
-            R[:n], t[:n], R2[:n], w[:n, 3:], R[:n], t[:n])], 1),
-        "gps_rJ": lambda n: torch.cat([x.reshape(n, -1) for x in pg._gps_rJ(
-            R[:n], t[:n], w[:n, 3:])], 1),
     }
 
 
 @pytest.mark.gpu
+# The factors' linearization (between, GPS, prior) is one kernel since it
+# stopped going through jacfwd's batched products: its case is
+# tests/test_torch_linearize.py::test_factor_bits_ignore_the_batch_around_them.
 @pytest.mark.parametrize("op", ["jt", "bmv", "jtj", "inv_ex", "so3_exp", "so3_log", "euler_to_rot",
-                                "rot_to_euler", "se3_retract", "between_rJ", "gps_rJ"])
+                                "rot_to_euler", "se3_retract"])
 def test_solve_rows_ignore_the_batch_around_them(dev, op):
     f = _row_ops(dev)[op]
-    # The between factors are held up to 1152 rows, the resident default's
-    # edge slots (1024 keyframes + 128 loops): below the edge floor
-    # (pose_graph._EDGE_BATCH_FLOOR) they are padded to it, and unpadded
-    # batches of 1536 and 2048 rows took other bits on an H100 (PERF.md,
-    # open questions).
-    largest = 1152 if op == "between_rJ" else 2048
     for rows, sizes in ((8, (16, 24, 32, 40, 64, 80, 128, 144, 300, 1032, 1152, 2048)),
                         (300, (1000, 1032, 2048))):
         alone = f(rows)
-        for n in (n for n in sizes if n <= largest):
+        for n in sizes:
             assert torch.equal(f(n)[:rows], alone), (op, rows, n)
 
 
