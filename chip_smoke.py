@@ -6,10 +6,12 @@
 Builds the CUDA kernels from ``liorf_tpu_torch/csrc`` (one nvcc a source,
 started together), holds each against its plain PyTorch version on the card
 at the shapes the pipeline gives it (the k-NN kernels bit for bit; the
-fixed-order segment sum against a float64 reduction and the CPU's index_add;
-the pose graph's PCG kernel bit for bit against its plain version on the CPU;
-its linearization kernel bit for bit against its plain version and within a
-stated bound of the jacfwd linearization),
+voxel filter's reduction, and the whole filter, bit for bit against their
+plain versions on the CPU; the fixed-order segment sum, at the
+distributed solver's matvec, against a float64 reduction and the CPU's
+index_add; the pose graph's PCG kernel bit for bit against its plain version
+on the CPU; its linearization kernel bit for bit against its plain version
+and within a stated bound of the jacfwd linearization),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
 process_scan / trajectory_arrays) at the repo's bench size and on the
 loop-closure course, the device-resident pipeline (``make_pipeline``,
@@ -25,11 +27,14 @@ operating point, then N = 4 on the loop course), the ``cli run`` entry point
 registration, the sharded loop search and ``ShardedResidentPipeline``, over
 NCCL on every visible card and over 4 gloo ranks sharing card 0, against the
 single-device port), and checks the outputs. K1 (``knn_grid_topk``) is timed
-at the main path's shapes on the main path's own final grid, and the segment
-sum, the PCG kernel and the linearization on the arguments the main path
-gave them, right after that path (the PCG and the linearization also on the
-resident full solve's), and on the 8-lane launches of multistream_path; both
-k-NN kernels with a lane axis at N = 8 in the kernels phase. Everything runs
+at the main path's shapes on the main path's own final grid, and the voxel
+filter's reduction, the PCG kernel and the linearization on the arguments
+the main path gave them, right after that path (the PCG and the
+linearization also on the resident full solve's), and on the 8-lane
+launches of multistream_path; the segment sum on a seeded plan of the dist
+phase's graph; both k-NN kernels with a lane axis at N = 8 in the kernels
+phase. A single-device path launches no segment sum, and one voxel_reduce a
+voxel filter call. Everything runs
 in the default mode (``torch.use_deterministic_algorithms`` off).
 
 Each phase prints one JSON line. Any failed check raises, so the exit code is
@@ -82,6 +87,8 @@ from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
 from liorf_tpu_torch.ops import linearize as lin  # noqa: E402
 from liorf_tpu_torch.ops import pcg  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
+from liorf_tpu_torch.ops import voxel_reduce as vred  # noqa: E402
+from liorf_tpu_torch.core import voxel as tvoxel  # noqa: E402
 from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig, make_pipeline  # noqa: E402
 from liorf_tpu_torch.pipeline import resident as tres  # noqa: E402
 from liorf_tpu_torch.sensors.synthetic import SyntheticConfig, SyntheticDataset  # noqa: E402
@@ -101,6 +108,7 @@ KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
 SEGSUM_SOURCE = "liorf_tpu_torch/csrc/segment_sum.cu"
 PCG_SOURCE = "liorf_tpu_torch/csrc/pcg.cu"
 LINEARIZE_SOURCE = "liorf_tpu_torch/csrc/linearize.cu"
+VOXEL_SOURCE = "liorf_tpu_torch/csrc/voxel_reduce.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -135,18 +143,19 @@ MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count, and the pose graph's count of GN steps,
-    to 0 (just before a path runs)."""
-    knn_cuda.reset_launch_counts()
-    segsum.reset_launch_counts()
-    pcg.reset_launch_counts()
-    lin.reset_launch_counts()
+    """Every kernel's launch count, the pose graph's count of GN steps and
+    the voxel filter's count of calls to 0 (just before a path runs)."""
+    for m in (knn_cuda, segsum, pcg, lin, vred):
+        m.reset_launch_counts()
     pg.solve.gn_steps = 0
+    tvoxel.voxel_downsample.calls = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {**knn_cuda.launch_counts(), **segsum.launch_counts(), **pcg.launch_counts(),
-            **lin.launch_counts(), "pose_graph_gn_steps": pg.solve.gn_steps}
+            **lin.launch_counts(), **vred.launch_counts(),
+            "pose_graph_gn_steps": pg.solve.gn_steps,
+            "voxel_filter_calls": tvoxel.voxel_downsample.calls}
 
 
 _EMIT = threading.Lock()
@@ -236,7 +245,7 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and the four kernel libraries built at once
+    """The card, the toolchain, and the five kernel libraries built at once
     (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
@@ -244,8 +253,8 @@ def phase_device(ptxas: bool) -> str:
     ).stdout.strip().splitlines()[-2:]
     flags = ("-Xptxas", "-v") if ptxas else ()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
-        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum, pcg, lin)]:
+    with ThreadPoolExecutor(5) as ex:
+        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum, pcg, lin, vred)]:
             f.result()
     emit(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -253,6 +262,7 @@ def phase_device(ptxas: bool) -> str:
         kernel_build_seconds=dict(knn_kernels=knn_cuda.build_seconds,
                                   segment_sum=segsum.build_seconds,
                                   pcg=pcg.build_seconds, linearize=lin.build_seconds,
+                                  voxel_reduce=vred.build_seconds,
                                   all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -1349,8 +1359,8 @@ def phase_multistream_path() -> dict:
         """n lanes through MultiStreamPipeline: tick ms, K1 launches per tick
         and each tick's per-lane GN iterations (kept on the device, read
         once at the end). With ``captured`` (a dict), the arguments of the
-        run's last n-lane segment sums and PCG launches of each kind go
-        into it."""
+        run's last n-lane launches of each kind go into it
+        (capture_kernel_args)."""
         mp = MultiStreamPipeline(cfg, n_streams=n)
         check(mp.device.type == "cuda", "MultiStreamPipeline must default to the GPU")
         iis = [0] * n
@@ -1366,7 +1376,7 @@ def phase_multistream_path() -> dict:
             if captured is None:
                 mp.step(scans)
             else:
-                with capture_segment_sums(captured, n):
+                with capture_kernel_args(captured, n):
                     mp.step(scans)
             torch.cuda.synchronize()
             tick_ms.append((time.perf_counter() - a) * 1e3)
@@ -1474,7 +1484,7 @@ def phase_multistream_path() -> dict:
     # the lane-folded launches of the widest run, held as the main path's are
     pcg_lanes = phase_pcg(pcg_cases(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     lin_lanes = phase_linearize(linearize_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
-    seg_lanes = phase_segment_sum(lane_cases, max(MULTI_LANES))
+    vr_lanes = phase_voxel_reduce(lane_cases, max(MULTI_LANES))
     del lane_cases
     # the checks after the lines, so a failing run still shows its numbers
     for p in parity:
@@ -1497,7 +1507,7 @@ def phase_multistream_path() -> dict:
               f"N={n}: K1 launches of {row['k1_ticks_off_slowest_lane']} ticks differ from the "
               "slowest lane's GN iterations of that tick")
         check(max(row["ate_rmse_m"]) < 0.3, f"N={n}: ATE {max(row['ate_rmse_m'])} m >= 0.3 m")
-    return out, seg_lanes, pcg_lanes, lin_lanes
+    return out, vr_lanes, pcg_lanes, lin_lanes
 
 
 def multistream_loop_course(n: int) -> dict:
@@ -1625,28 +1635,23 @@ def ply_vertices(path: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the segment sum (not a TPU kernel), at the main path's shapes
+# the arguments a path gives the kernels that are not TPU kernels
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def capture_segment_sums(cases: dict, lanes: int = 1):
+def capture_kernel_args(cases: dict, lanes: int = 1):
     """Keep, by reference (no device work), the arguments of the block's
-    last segment-sum launch of each kind over ``lanes`` lanes (vmapped calls
-    fold their lanes into the launch's leading axis): the voxel filter (no
-    perm, five columns; by output size) and any sum with a perm (the
-    distributed solver's, by column count); of its last PCG launch for each
-    iteration count (``pcg_iters<n>``: the window and the full solves); and
-    of its last linearization (``linearize``)."""
-    real, real_pcg, real_lin = segsum._launch, pcg._launch, lin._launch
+    last launch over ``lanes`` lanes (vmapped calls fold their lanes into
+    the launch's leading axis) of: the voxel filter's reduction, by output
+    size (``voxel_reduce_out<S>``); the PCG for each iteration count
+    (``pcg_iters<n>``: the window and the full solves); the linearization
+    (``linearize``); and of any segment sum (``segment_sum``: a
+    single-device path launches none)."""
+    real, real_pcg, real_lin, real_vred = segsum._launch, pcg._launch, lin._launch, vred._launch
 
-    def spy(src, perm, keys, num_segments):
-        if src.shape[0] != lanes:
-            return real(src, perm, keys, num_segments)
-        c = src.shape[-1]
-        kind = (f"voxel_filter_out{num_segments}" if perm is None
-                else {6: "pose_graph_rhs", 36: "pose_graph_diag"}.get(c, f"columns{c}"))
-        cases[kind] = (src, perm, keys, num_segments)
-        return real(src, perm, keys, num_segments)
+    def spy(*args, **kw):
+        cases["segment_sum"] = args
+        return real(*args, **kw)
 
     def spy_pcg(*args, **kw):
         if args[0].shape[0] == lanes:
@@ -1658,11 +1663,16 @@ def capture_segment_sums(cases: dict, lanes: int = 1):
             cases["linearize"] = args
         return real_lin(*args, **kw)
 
-    segsum._launch, pcg._launch, lin._launch = spy, spy_pcg, spy_lin
+    def spy_vred(*args):
+        if args[0].shape[0] == lanes:
+            cases[f"voxel_reduce_out{args[5]}"] = args
+        return real_vred(*args)
+
+    segsum._launch, pcg._launch, lin._launch, vred._launch = spy, spy_pcg, spy_lin, spy_vred
     try:
         yield cases
     finally:
-        segsum._launch, pcg._launch, lin._launch = real, real_pcg, real_lin
+        segsum._launch, pcg._launch, lin._launch, vred._launch = real, real_pcg, real_lin, real_vred
 
 
 def pcg_cases(cases: dict) -> dict:
@@ -1676,19 +1686,19 @@ def linearize_case(cases: dict):
     return cases.pop("linearize")
 
 
-def bench_segsum(src, perm, keys, S: int) -> dict:
-    """The kernel against a float64 reduction of the same rows (within
-    Higham's bound for a sequential float32 sum, (n - 1) 2^-24 sum|x| per
-    output, n the segment's rows), against the CPU's sequential index_add
-    (bit for bit) and against itself; timed beside the plain version
-    (index_add, atomic on the card) and the other candidate, torch's
-    sort-based index_put(accumulate=True) over the rows' own indices. The
-    lanes ([B] axis) are one launch; index_put takes them as one flat
-    scatter, lane b's rows at b (S + 1) + key."""
+def bench_segsum(src, perm, keys, S: int, offsets) -> dict:
+    """The kernel, walking the given offsets, against a float64 reduction of
+    the same rows (within Higham's bound for a sequential float32 sum,
+    (n - 1) 2^-24 sum|x| per output, n the segment's rows), against the
+    CPU's sequential index_add (bit for bit) and against itself; timed
+    beside the plain version (index_add, atomic on the card) and the other
+    candidate, torch's sort-based index_put(accumulate=True) over the rows'
+    own indices. The lanes ([B] axis) are one launch; index_put takes them
+    as one flat scatter, lane b's rows at b (S + 1) + key."""
     B, M, C = src.shape
 
     def kernel():
-        return segsum.segment_sum(src, perm, keys, S)
+        return segsum._segment_sum_op(src, perm, keys, S, offsets)  # SegmentPlan.sum's launch
 
     out, again = kernel(), kernel()
     src64 = src.double()
@@ -1709,9 +1719,9 @@ def bench_segsum(src, perm, keys, S: int) -> dict:
         return out.reshape(B, S + 1, C)[:, :S]
 
     a1, a2 = index_put(), index_put()
-    # what the function must move: the rows once, the keys (and perm) once,
+    # what the function must move: the rows, the perm and the offsets once,
     # the sums once; M * C additions
-    bytes_moved = B * (M * C * 4 + M * 8 * (1 if perm is None else 2) + S * C * 4)
+    bytes_moved = B * (M * C * 4 + M * 8 * (perm is not None) + (S + 1) * 8 + S * C * 4)
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, B * M * C / FP32_FLOP_PER_S
     res = dict(
         shape=[M, C, S], lanes=B, perm=perm is not None,
@@ -1829,7 +1839,7 @@ def bench_pcg(args, iters: int, damping: float) -> dict:
 
 def phase_pcg(cases: dict, label: str) -> dict:
     """The PCG kernel held on every launch shape a path gave it
-    (capture_segment_sums): one line a path."""
+    (capture_kernel_args): one line a path."""
     check(cases, f"no pcg_solve launch captured on {label}")
     out = {k: bench_pcg(*v) for k, v in sorted(cases.items())}
     emit("kernels_pcg", path=label, **out,
@@ -1966,7 +1976,7 @@ def bench_linearize(args) -> dict:
 
 def phase_linearize(args, label: str) -> dict:
     """The linearization kernel held on the last launch a path gave it
-    (capture_segment_sums): one line a path, then its checks."""
+    (capture_kernel_args): one line a path, then its checks."""
     res = bench_linearize(args)
     emit("kernels_linearize", path=label, **res,
          tolerance=f"bit for bit against the plain version (phase A on the card, node sums on "
@@ -2056,19 +2066,124 @@ def phase_pcg_profile() -> None:
          "(the profiling build; its times are the plain build's only roughly)")
 
 
-def phase_segment_sum(cases: dict, lanes: int = 1) -> dict:
-    """The segment sum held on the arguments a path gave it
-    (capture_segment_sums): the voxel filter's sums must be there, over
-    ``lanes`` lanes, and no pose-graph sum (its linearization kernel sums
-    its nodes itself)."""
-    kinds = sorted(cases)
-    check(any(k.startswith("voxel_filter_out") for k in kinds)
-          and not any(k.startswith("pose_graph") for k in kinds),
-          f"{lanes}-lane segment sums captured: {kinds}")
-    out = {kind: bench_segsum(*cases[kind]) for kind in kinds}
-    check(all(r["lanes"] == lanes for r in out.values()), f"not every capture has {lanes} lanes")
-    emit("kernels_segment_sum" if lanes == 1 else f"kernels_segment_sum_lanes{lanes}", lanes=lanes,
-         tolerance="against float64: (n - 1) 2^-24 sum|x|", **out)
+def phase_segment_sum() -> dict:
+    """The segment sum at its one remaining site, the distributed solver's
+    matvec (dist/shard_map_solver.py): the SegmentPlan a rank builds over
+    the seeded graph of the dist phase (2048 nodes, 4096 edge and 64 GPS
+    slots: dist_graph), its offsets found once, summing seeded rows of 6
+    (J^T r) and 36 (J^T J) columns."""
+    graph = dist_graph(1)[0]
+    K = graph.Rs.shape[0]
+    keys, perm = segsum.SegmentPlan([graph.e_i, graph.e_j, graph.g_i], K).sorted_rows()
+    offsets = segsum.segment_offsets(keys[None], K)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    out = {}
+    for kind, cols in (("dist_matvec", 6), ("dist_diag_own", 36)):
+        rows = torch.randn((1, keys.shape[0], cols), generator=gen, device=DEV)
+        out[kind] = bench_segsum(rows, perm[None], keys[None], K, offsets)
+    emit("kernels_segment_sum", tolerance="against float64: (n - 1) 2^-24 sum|x|", **out)
+    return out
+
+
+def voxel_targets(xyz, intensity, mask, cell, order, S: int):
+    """What one index_put adds for the voxel filter: each point's slot in
+    sorted order (lane b's at b (S + 1), dropped points in the lane's dump
+    slot b (S + 1) + S) and its row [x, y, z, intensity, 1] in that order."""
+    B, M = mask.shape
+    cell_s = torch.gather(cell, 1, order[..., None].expand(B, M, 3))
+    mask_s = torch.gather(mask, 1, order)
+    same = (cell_s[:, 1:] == cell_s[:, :-1]).all(-1) & mask_s[:, 1:] & mask_s[:, :-1]
+    seg = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=DEV),
+                     (~same).to(torch.int64)], 1).cumsum(1)
+    tgt = torch.where(mask_s & (seg < S), seg, S) + torch.arange(B, device=DEV)[:, None] * (S + 1)
+    rows = torch.cat([xyz, intensity[..., None], torch.ones_like(intensity)[..., None]], -1)
+    return tgt.reshape(-1), torch.gather(rows, 1, order[..., None].expand(B, M, 5)).reshape(-1, 5)
+
+
+def bench_voxel_reduce(args, leaves=()) -> dict:
+    """The voxel filter's reduction on the arguments a path gave it: its
+    outputs against the plain version on a CPU copy (np.array_equal:
+    centroids, intensity, mask, rep) and against itself; timed three ways
+    and by device time alone, beside the plain version on the card (its
+    index_add is atomic there) and one index_put(accumulate=True) of the
+    same rows at their slots. With ``leaves`` (one lane: the leaf sizes the
+    path filters with), the whole voxel_downsample call from the cloud, with
+    the leaf whose cells are the captured ones: against the same call on a
+    CPU copy of the cloud (its sort and the plain version), and timed with
+    its parts."""
+    xyz, intensity, mask, cell, order, S = args
+    B, M = mask.shape
+
+    def kernel():
+        return vred.voxel_reduce(xyz, intensity, mask, cell, order, S)
+
+    out, again = kernel(), kernel()
+    cpu = vred.voxel_reduce_plain(*(t.cpu() for t in args[:5]), S)
+    tgt, rows = voxel_targets(xyz, intensity, mask, cell, order, S)
+
+    def index_put():
+        acc = torch.zeros((B * (S + 1), 5), device=DEV).index_put_((tgt,), rows, accumulate=True)
+        return acc.reshape(B, S + 1, 5)[:, :S]
+
+    valid_points = int(mask.sum())
+    voxels = int(out[2].sum())
+    # what the function must move: 37 B a point read (xyz, intensity, mask,
+    # cell, order), 25 B a slot written (centroid, intensity, valid, rep);
+    # 5 adds a valid point and 4 divisions a voxel
+    bytes_moved = B * (37 * M + 25 * S)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = (5 * valid_points + 4 * voxels) / FP32_FLOP_PER_S
+    res = dict(
+        shape=[M, S], lanes=B, valid_points=valid_points, voxels=voxels,
+        max_abs_err=max(float((g.cpu().double() - w.double()).abs().max()) for g, w in
+                        zip(out[:2], cpu[:2])),
+        equal_to_cpu_plain=all(np.array_equal(g.cpu().numpy(), w.numpy()) for g, w in zip(out, cpu)),
+        repeats=all(torch.equal(g, a) for g, a in zip(out, again)),
+        **kernel_ms(kernel), device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: vred.voxel_reduce_plain(xyz, intensity, mask, cell, order, S),
+                         reps=10, batch=20),
+        library_ms=cuda_ms(index_put, reps=10, batch=20), library_ms_single_call=cuda_ms(index_put),
+        library_call="torch.zeros(B (S + 1), 5).index_put_((slot,), rows, accumulate=True)",
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved,
+    )
+    if leaves:
+        cloud = tvoxel.PointCloud(xyz=xyz[0], intensity=intensity[0], mask=mask[0])
+        leaf = next((f for f in leaves if torch.equal(tvoxel._cells(cloud, f), cell[0])), None)
+        check(leaf is not None, f"voxel_reduce {res['shape']}: no leaf of {leaves} gives its cells")
+        new = tvoxel.voxel_downsample(cloud, leaf, S)
+        ref = tvoxel.voxel_downsample(tvoxel.PointCloud(*(t.cpu() for t in cloud)), leaf, S)
+        res.update(
+            leaf=leaf,
+            call_equal_to_cpu=all(np.array_equal(a.cpu().numpy(), b.numpy()) for a, b in zip(
+                (*new.cloud, new.rep_idx), (*ref.cloud, ref.rep_idx))),
+            call_ms=cuda_ms(lambda: tvoxel.voxel_downsample(cloud, leaf, S)),
+            # the call's parts: the cells, the sort (lexsort's four stable
+            # argsorts), and voxel_reduce is ms_single_call
+            cells_ms=cuda_ms(lambda: tvoxel._cells(cloud, leaf)),
+            sort_ms=cuda_ms(lambda: tvoxel.lexsort(
+                (cell[0, :, 0], cell[0, :, 1], cell[0, :, 2], (~mask[0]).to(torch.uint8)))))
+    return res
+
+
+def phase_voxel_reduce(cases: dict, lanes: int = 1, leaves=()) -> dict:
+    """The voxel filter's reduction held on the arguments a path gave it
+    (capture_kernel_args), over ``lanes`` lanes, one line a path; and no
+    segment sum launched on the path."""
+    kinds = sorted(k for k in cases if k.startswith("voxel_reduce_out"))
+    check(kinds, f"no {lanes}-lane voxel_reduce launch captured: {sorted(cases)}")
+    check("segment_sum" not in cases, f"a segment sum was launched on a single-device path "
+          f"({lanes} lanes)")
+    out = {kind: bench_voxel_reduce(cases[kind], leaves) for kind in kinds}
+    emit("kernels_voxel_reduce" if lanes == 1 else f"kernels_voxel_reduce_lanes{lanes}",
+         lanes=lanes, tolerance="bit for bit (np.array_equal)", **out)
+    for kind, r in out.items():
+        what = f"voxel_reduce {kind} x {lanes} lanes"
+        check(r["lanes"] == lanes, f"{what}: captured with {r['lanes']} lanes")
+        check(r["equal_to_cpu_plain"], f"{what}: differs from its plain version on the CPU")
+        check(r["repeats"], f"{what}: two launches differ")
+        check(r.get("call_equal_to_cpu", True),
+              f"{what}: voxel_downsample differs from the same call on the CPU")
     return out
 
 
@@ -2210,7 +2325,7 @@ def phase_gps_path() -> dict:
         ate_rmse_m=ate, ate_rmse_without_gps_m=ate_rmse(plain_poses[:, 3:6].astype(np.float64), gt),
         max_dist_to_without_gps_m=float(np.linalg.norm(poses[:, 3:6] - plain_poses[:, 3:6], axis=1).max()),
         gn_iters_total=gn, k1_launches=counts["knn_grid_topk"],
-        segment_sum_launches=counts["segment_sum"],
+        voxel_reduce_launches=counts["voxel_reduce"],
         ms_per_frame_p50=percentile(ms[1:], 50), ms_per_frame_p99=percentile(ms[1:], 99),
         host_reads=rp.host_reads(),
     )
@@ -2645,6 +2760,8 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
                    init_err_m=init_err, collectives_per_solve=coll,
                    collectives_per_pcg_iteration=per_pcg),
         inner_outer=dict(inner_iters=4, ms_per_gn_step=m0["inner"]["ms_per_gn_step"],
+                         segment_sum_launches_per_solve=m0["inner"][
+                             "segment_sum_launches_per_solve"],
                          max_abs_vs_single_m=inner_err, err_vs_gt_m=gt_err["inner"],
                          collectives_per_solve=m0["inner"]["collectives_per_solve"]),
         scan=dict(points=int(ref["scan"]["inputs"]["scan_mask"].shape[0]),
@@ -2671,6 +2788,8 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
             gn_iters_per_rank=[p["gn_iters"] for p in pipe],
             k1_launches_per_rank=[p["k1_launches"] for p in pipe],
             k2_launches_per_rank=[p["k2_launches"] for p in pipe],
+            voxel_reduce_launches_per_rank=[p["voxel_reduce_launches"] for p in pipe],
+            segment_sum_launches_per_rank=[p["segment_sum_launches"] for p in pipe],
             single_gn_iters=ref["pipeline"]["gn_iters"], keyframes=pipe[0]["keyframes"],
             loop_factors=pipe[0]["loop_factors"], host_reads=pipe[0]["host_reads"]),
         loop_course=dict(
@@ -2715,8 +2834,13 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
         check(len({(p["k1_launches"], p["k2_launches"]) for p in runs}) == 1,
               f"{label}: ranks launched the kernels unequally")
     check(loop[0]["loop_factors"] >= 1, f"{label}: no loop closed on the loop course")
-    return {k: pipe[0][f"{n}_launches"] + loop[0][f"{n}_launches"]
-            for k, n in (("knn_grid_topk", "k1"), ("knn_bruteforce", "k2"))}
+    return {**{k: pipe[0][f"{n}_launches"] + loop[0][f"{n}_launches"]
+               for k, n in (("knn_grid_topk", "k1"), ("knn_bruteforce", "k2"),
+                            ("voxel_reduce", "voxel_reduce"))},
+            # the segment sum (the local matvec): one sharded solve and one
+            # inner-outer solve on rank 0
+            "segment_sum": m0["solve"]["segment_sum_launches_per_solve"]
+            + m0["inner"]["segment_sum_launches_per_solve"]}
 
 
 def phase_dist(pool: ThreadPoolExecutor, meanwhile=None) -> dict:
@@ -2785,20 +2909,22 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
-    seg_lanes = pcg_lanes = lin_lanes = None
+    vr_lanes = pcg_lanes = lin_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
-        seg_cases = {}
-        with capture_segment_sums(seg_cases):
+        cases = {}
+        with capture_kernel_args(cases):
             pipe, main_counts = phase_main_path()
-        pcg_main = pcg_cases(seg_cases)
-        lin_main = linearize_case(seg_cases)
+        pcg_main = pcg_cases(cases)
+        lin_main = linearize_case(cases)
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
-            kern["segment_sum"] = phase_segment_sum(seg_cases)
+            kern["voxel_reduce"] = phase_voxel_reduce(
+                cases, leaves=(pipe.frame_params.leaf, pipe.cfg.surroundingKeyframeMapLeafSize))
+            kern["segment_sum"] = phase_segment_sum()
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
             kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
-        del lin_main
+        del lin_main, cases
         resident = None
         if "resident_path" in phases:
             resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
@@ -2807,7 +2933,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                 # no loop or GPS factor, so the path itself runs none)
                 rp = resident[0]
                 res_cases = {}
-                with capture_segment_sums(res_cases):
+                with capture_kernel_args(res_cases):
                     tres._solve_graph_resident(rp.state, rp.params, True)
                 kern["pcg_solve_resident_full"] = phase_pcg(pcg_cases(res_cases),
                                                             "resident_path full solve")
@@ -2840,7 +2966,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "faults" in phases:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts, seg_lanes, pcg_lanes, lin_lanes = phase_multistream_path()
+        multi_counts, vr_lanes, pcg_lanes, lin_lanes = phase_multistream_path()
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -2876,10 +3002,12 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             **extra,
         }
 
-    # launches: K1 and the segment sum from the main path's run, K2 from the
-    # loop path's run (the only classic path that reaches it); each counted
-    # from 0 just before its path. launches_by_path adds the other paths'
-    # counts (the dist ranks count K1 and K2 only).
+    # launches: K1, the voxel filter's reduction, the PCG and the
+    # linearization from the main path's run, K2 from the loop path's run
+    # (the only classic path that reaches it), the segment sum from the dist
+    # ranks' (its one remaining site); each counted from 0 just before its
+    # path. launches_by_path adds the other paths' counts (the dist ranks
+    # count K1, K2, the segment sum and the voxel filter's reduction).
     single_device = {
         "main_path": main_counts, "loop_path": loop_counts, "resident_path": res_counts,
         "resident_loop_path": res_loop_counts, **new_counts,
@@ -2905,20 +3033,34 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         row("knn_bruteforce", "liorf_tpu/ops/knn_pallas.py:187", loop_counts["knn_bruteforce"],
             launches_by_path=by_path("knn_bruteforce"), lanes8=lanes8("knn_bruteforce_lanes8")),
     ]
-    lane_fields = ("shape", "lanes", "ms", "ms_single_call", "plain_ms", "bound_ms", "bound_by",
-                   "max_abs_err", "max_err_over_bound", "repeats")
     seg = kern["segment_sum"]
-    scan_voxel = seg[f"voxel_filter_out{BENCH_CAPS['scan_capacity']}"]
+    matvec = seg["dist_matvec"]
     kernels.append(row(
         "segment_sum",
-        "none (not a TPU kernel): the card's atomic index_add in liorf_tpu_torch/core/voxel.py "
-        "and dist/shard_map_solver.py",
-        main_counts["segment_sum"], r=scan_voxel, source=SEGSUM_SOURCE,
-        shape=scan_voxel["shape"], launches_by_path=by_path("segment_sum"),
-        by_site={k: {f: v[f] for f in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                        "max_abs_err", "index_put_repeats")}
-                 for k, v in seg.items()},
-        lanes8={k: {f: v[f] for f in lane_fields} for k, v in seg_lanes.items()}))
+        "none (not a TPU kernel): the card's atomic index_add in "
+        "liorf_tpu_torch/dist/shard_map_solver.py (SegmentPlan.sum)",
+        dist_counts["dist_nccl"]["segment_sum"], r=matvec, source=SEGSUM_SOURCE,
+        shape=matvec["shape"], launches_by_path=by_path("segment_sum"),
+        by_site={k: {f: v[f] for f in ("shape", "ms", "ms_cold_l2", "ms_single_call", "plain_ms",
+                                        "library_ms", "bound_ms", "max_abs_err",
+                                        "index_put_repeats")}
+                 for k, v in seg.items()}))
+    vox = kern["voxel_reduce"]
+    scan_voxel = vox[f"voxel_reduce_out{BENCH_CAPS['scan_capacity']}"]
+    vox_fields = ("shape", "lanes", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err")
+    kernels.append(row(
+        "voxel_reduce",
+        "none (not a TPU kernel): the eager ops after the sort in liorf_tpu_torch/core/voxel.py "
+        "and their segment sum (the JAX package's .at[].add / .at[].min at "
+        "liorf_tpu/core/voxel.py:57-61)",
+        main_counts["voxel_reduce"], r=scan_voxel, source=VOXEL_SOURCE,
+        shape=scan_voxel["shape"], device_ms=scan_voxel["device_ms"],
+        launches_by_path=by_path("voxel_reduce"),
+        voxel_filter_calls_by_path=by_path("voxel_filter_calls"),
+        by_site={k: {f: v[f] for f in vox_fields + ("call_ms", "sort_ms", "cells_ms")}
+                 for k, v in vox.items()},
+        lanes8={k: {f: v[f] for f in vox_fields} for k, v in vr_lanes.items()}))
     # the PCG row: the main path's last launch shape (its window solves)
     pcg_main = max(kern["pcg_solve"].values(), key=lambda r: r["shape"]["iters"])
     pcg_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "cluster_1_ms", "plain_ms",
@@ -2960,9 +3102,12 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
           "K1 never launched on the multistream path")
     check(all(c["knn_grid_topk"] > 0 and c["knn_bruteforce"] > 0 for c in dist_counts.values()),
           "K1 or K2 never launched on the dist path")
-    check(all(c["knn_grid_topk"] > 0 and c["segment_sum"] > 0 and c["pcg_solve"] > 0
+    check(all(c["segment_sum"] > 0 and c["voxel_reduce"] > 0 for c in dist_counts.values()),
+          "the segment sum or the voxel filter's reduction never launched on the dist path")
+    check(all(c["knn_grid_topk"] > 0 and c["voxel_reduce"] > 0 and c["pcg_solve"] > 0
               for c in new_counts.values()),
-          "K1, the segment sum or the PCG kernel never launched on a path of this slice")
+          "K1, the voxel filter's reduction or the PCG kernel never launched on repeat, gps_path, "
+          "growth_path or faults")
     check(new_counts["growth_path"]["knn_bruteforce"] > 0, "K2 never launched on growth_path")
     for path, c in single_device.items():
         check(c["pcg_solve"] > 0 and c["pcg_solve"] == c["pose_graph_gn_steps"],
@@ -2970,6 +3115,11 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         check(c["linearize_normal"] == c["pose_graph_gn_steps"],
               f"{path}: {c['linearize_normal']} linearize launches for "
               f"{c['pose_graph_gn_steps']} GN steps")
+        check(c["voxel_reduce"] > 0 and c["voxel_reduce"] == c["voxel_filter_calls"],
+              f"{path}: {c['voxel_reduce']} voxel_reduce launches for "
+              f"{c['voxel_filter_calls']} voxel filter calls")
+        check(c["segment_sum"] == 0,
+              f"{path}: {c['segment_sum']} segment sum launches on a single-device path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

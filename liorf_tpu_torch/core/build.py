@@ -1,6 +1,6 @@
 """Where the port's native libraries are built, and how: the nvcc-built
-kernels (``ops/knn_cuda.py``, ``ops/segment_sum.py``) and the g++-built host
-runtime (``native/``)."""
+kernels (``csrc/*.cu``, each loaded by its module under ``ops/``) and the
+g++-built host runtime (``native/``)."""
 
 from __future__ import annotations
 

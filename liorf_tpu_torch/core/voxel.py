@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.segment_sum import segment_sum
+from ..ops.voxel_reduce import voxel_reduce
 from .pointcloud import PAD_COORD, PointCloud
 
 
@@ -40,6 +40,12 @@ def lexsort(keys) -> torch.Tensor:
     return order
 
 
+def _cells(cloud: PointCloud, leaf_size: float) -> torch.Tensor:
+    """Quantized cell coords; padded points land in a far-away cell."""
+    xyz = torch.where(cloud.mask[:, None], cloud.xyz, PAD_COORD)
+    return torch.floor(xyz * (1.0 / leaf_size)).to(torch.int32)
+
+
 def voxel_downsample(
     cloud: PointCloud,
     leaf_size: float,
@@ -47,63 +53,22 @@ def voxel_downsample(
 ) -> VoxelResult:
     """Centroid voxel filter. Output has `out_capacity` slots (default: input
     capacity); voxels beyond capacity are dropped deterministically in cell
-    sort order."""
-    n = cloud.capacity
-    dev = cloud.xyz.device
+    sort order. Points are lex-sorted by (z, y, x) cell with invalid points
+    last, so identical cells are contiguous, then ``ops/voxel_reduce.py``
+    sums each run of equal cells into a slot: one kernel call on the card."""
     if out_capacity is None:
-        out_capacity = n
-    inv_leaf = 1.0 / leaf_size
+        out_capacity = cloud.capacity
+    voxel_downsample.calls += 1
+    cell = _cells(cloud, leaf_size)
+    order = lexsort((cell[:, 0], cell[:, 1], cell[:, 2], (~cloud.mask).to(torch.uint8)))
+    xyz, intensity, valid, rep = voxel_reduce(
+        cloud.xyz[None], cloud.intensity[None], cloud.mask[None], cell[None], order[None],
+        out_capacity)
+    return VoxelResult(cloud=PointCloud(xyz=xyz[0], intensity=intensity[0], mask=valid[0]),
+                       rep_idx=rep[0])
 
-    # Quantized cell coords; padded points land in a far-away cell.
-    xyz = torch.where(cloud.mask[:, None], cloud.xyz, PAD_COORD)
-    cell = torch.floor(xyz * inv_leaf).to(torch.int32)
 
-    # Lex-sort points by (z, y, x, valid) so identical cells are contiguous
-    # and invalid points sort to the back.
-    order = lexsort(
-        (cell[:, 0], cell[:, 1], cell[:, 2], (~cloud.mask).to(torch.uint8))
-    )
-    cell_s = cell[order]
-    xyz_s = cloud.xyz[order]
-    inten_s = cloud.intensity[order]
-    mask_s = cloud.mask[order]
-
-    same_as_prev = torch.all(cell_s[1:] == cell_s[:-1], dim=-1) & mask_s[1:] & mask_s[:-1]
-    new_seg = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), ~same_as_prev])
-    seg_id = torch.cumsum(new_seg.to(torch.int64), dim=0) - 1  # [n]
-
-    # Scatter-accumulate into fixed-size output. Invalid points are routed to
-    # a dump slot (out_capacity) which is sliced off — torch raises on an
-    # out-of-range index where JAX drops it, so the dump slot is load-bearing.
-    # Out-of-place scatters, so the filter also runs under torch.func.vmap.
-    tgt = torch.where(mask_s & (seg_id < out_capacity), seg_id, out_capacity)
-    if xyz_s.is_cuda:
-        # On the card, one fixed-order segment sum (the atomic index_add
-        # would not repeat): tgt is sorted — valid points first, seg_id
-        # non-decreasing, everything past the capacity in the dump slot,
-        # which the kernel skips.
-        rows = torch.cat([xyz_s, inten_s[:, None], torch.ones_like(inten_s)[:, None]], dim=1)
-        acc = segment_sum(rows[None], None, tgt[None], out_capacity)[0]
-        sums, isum, cnt_v = acc[:, :3], acc[:, 3], acc[:, 4]
-    else:
-        sums = torch.zeros((out_capacity + 1, 3), dtype=torch.float32, device=dev)
-        sums = sums.index_add(0, tgt, xyz_s)
-        isum = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
-        isum = isum.index_add(0, tgt, inten_s)
-        cnt = torch.zeros((out_capacity + 1,), dtype=torch.float32, device=dev)
-        cnt = cnt.index_add(0, tgt, torch.ones_like(inten_s))
-        sums, isum, cnt_v = sums[:-1], isum[:-1], cnt[:-1]
-    # representative = smallest original index in the voxel
-    rep = torch.full((out_capacity + 1,), n, dtype=torch.int64, device=dev)
-    rep = rep.scatter_reduce(0, tgt, order, reduce="amin", include_self=True)
-
-    valid = cnt_v > 0
-    denom = torch.where(valid, cnt_v, 1.0)
-    centroids = sums / denom[:, None]
-    centroids = torch.where(valid[:, None], centroids, PAD_COORD)
-    intensity = isum / denom
-    out = PointCloud(xyz=centroids, intensity=intensity, mask=valid)
-    return VoxelResult(cloud=out, rep_idx=torch.where(valid, rep[:-1], n))
+voxel_downsample.calls = 0
 
 
 def voxel_downsample_xyz(

@@ -34,7 +34,7 @@ import torch.distributed as tdist
 
 from .. import convert
 from ..graph import pose_graph as pg
-from ..ops import knn_cuda
+from ..ops import knn_cuda, segment_sum, voxel_reduce
 from ..ops.scan_match import ScanMatchParams
 from . import multihost
 from .resident_sharded import ShardedResidentPipeline
@@ -74,9 +74,12 @@ def case_solve(mesh: GraphMesh, case: dict, arrays: dict):
     solver = solve_sharded if case.get("solver") == "sharded" else solve_shard_map
     repeats = case.get("repeats", 0)
     mesh.counts.clear()
+    segment_sum.reset_launch_counts()
     out, dt = _timed(mesh, lambda: solver(graph, mesh, case.get("free_from", 0), params),
                      repeats)
-    meta = {"collectives_per_solve": {k: v // (1 + repeats) for k, v in mesh.counts.items()}}
+    meta = {"collectives_per_solve": {k: v // (1 + repeats) for k, v in mesh.counts.items()},
+            "segment_sum_launches_per_solve":
+                segment_sum.launch_counts()["segment_sum"] // (1 + repeats)}
     if dt is not None:
         meta["ms_per_gn_step"] = dt * 1e3 / params.gn_iters
     return {"Rs": out.Rs, "ts": out.ts}, meta
@@ -124,7 +127,8 @@ def case_pipeline(mesh: GraphMesh, case: dict, arrays: dict):
     imu = syn.imu_stream()
     ii = 0
     frame_ms = []
-    knn_cuda.reset_launch_counts()
+    for counted in (knn_cuda, segment_sum, voxel_reduce):
+        counted.reset_launch_counts()
     for f in range(case["frames"]):
         scan = syn.scan(f)
         while ii < len(imu) and imu[ii].stamp <= scan.end_time + 0.02:
@@ -149,6 +153,8 @@ def case_pipeline(mesh: GraphMesh, case: dict, arrays: dict):
     meta = {
         "frame_ms": frame_ms, "gn_iters": pipe.gn_iters_total(),
         "k1_launches": launches["knn_grid_topk"], "k2_launches": launches["knn_bruteforce"],
+        "voxel_reduce_launches": voxel_reduce.launch_counts()["voxel_reduce"],
+        "segment_sum_launches": segment_sum.launch_counts()["segment_sum"],
         "growth_events": pipe.growth_events, "host_reads": pipe.host_reads(),
         "icp_runs": pipe.tally["icp_runs"],
         "keyframes": int(pipe.state.kf_count), "loop_factors": int(pipe.state.l_count),

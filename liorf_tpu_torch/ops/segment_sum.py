@@ -1,7 +1,7 @@
-"""Fixed-order reductions on the card: the scatter-adds of the voxel filter
-and the distributed pose-graph solver, the order of the single-device solve's
-node sums (kept by ``ops/linearize.py`` and ``ops/pcg.py``), and of its dot
-products.
+"""Fixed-order reductions on the card: the scatter-adds of the distributed
+pose-graph solver, the order of the single-device solve's node sums (kept by
+``ops/linearize.py`` and ``ops/pcg.py``) and of the voxel filter's sums
+(kept by ``ops/voxel_reduce.py``), and of the solve's dot products.
 
 On a CUDA tensor ``index_add`` adds with atomics in whatever order the
 threads arrive, so two runs of one stream gave two trajectories. Not a TPU
@@ -13,11 +13,13 @@ rows; the CPU keeps ``index_add`` itself.
 
 * :func:`segment_sum` — ``out[b, s] = sum of src[b, perm[b, p]]`` over the
   positions ``p`` whose sorted ``keys[b, p] == s``; ``perm`` may be None
-  (the rows are already in key order, as in the voxel filter).
+  (the rows are already in key order). The kernel walks each segment's
+  positions between its two offsets (:func:`segment_offsets`, one
+  ``searchsorted`` of the keys before the launch).
 * :class:`SegmentPlan` — several scatter-adds into one output whose row
   indices stay fixed over a solve (the pose graph's edge, GPS and prior
-  endpoints): one stable sort, then each :meth:`sum` is one launch; the
-  sorted rows also feed the linearization and PCG kernels
+  endpoints): one stable sort and its offsets, found once, then each
+  :meth:`sum` is one launch; the sorted rows also feed the linearization and PCG kernels
   (``ops/linearize.py``, ``ops/pcg.py``), which sum in that order.
 * :func:`fixed_dot_plain` — the order of the PCG's dot products, which the
   PCG kernel keeps: chunks of 32 products summed in order, the chunk sums
@@ -83,7 +85,15 @@ def segment_sum_plain(
     return out[:-1].reshape(B, S, C)
 
 
-def _launch(src, perm, keys, num_segments: int) -> torch.Tensor:
+def segment_offsets(keys: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[B, S + 1] int64: ``offsets[b, s]`` is the first position of the
+    sorted ``keys[b]`` whose key is >= s, so segment s lies between
+    ``offsets[b, s]`` and ``offsets[b, s + 1]`` (one ``searchsorted``)."""
+    bounds = torch.arange(num_segments + 1, dtype=keys.dtype, device=keys.device)
+    return torch.searchsorted(keys, bounds.repeat(keys.shape[0], 1))
+
+
+def _launch(src, perm, keys, num_segments: int, offsets) -> torch.Tensor:
     dev = src.device
     if src.dtype != torch.float32 or keys.dtype != torch.int64:
         raise TypeError(f"segment_sum: src {src.dtype} (float32), keys {keys.dtype} (int64)")
@@ -91,17 +101,20 @@ def _launch(src, perm, keys, num_segments: int) -> torch.Tensor:
         raise ValueError(f"segment_sum: src {tuple(src.shape)} [B,M,C], keys {tuple(keys.shape)} [B,M]")
     if perm is not None and (perm.dtype != torch.int64 or perm.shape != keys.shape):
         raise ValueError(f"segment_sum: perm {perm.dtype} {tuple(perm.shape)}, expected int64 [B,M]")
-    for t in (keys, perm):
+    B, M, C = src.shape
+    if offsets.dtype != torch.int64 or offsets.shape != (B, num_segments + 1):
+        raise ValueError(f"segment_sum: offsets {offsets.dtype} {tuple(offsets.shape)}, "
+                         f"expected int64 [{B},{num_segments + 1}]")
+    for t in (keys, perm, offsets):
         if t is not None and t.device != dev:
             raise ValueError(f"segment_sum: index on {t.device}, src on {dev}")
-    src, keys = src.contiguous(), keys.contiguous()
+    src, offsets = src.contiguous(), offsets.contiguous()
     perm = None if perm is None else perm.contiguous()
-    B, M, C = src.shape
     out = torch.empty((B, num_segments, C), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.liorf_segment_sum(
-            src.data_ptr(), None if perm is None else perm.data_ptr(), keys.data_ptr(),
+            src.data_ptr(), None if perm is None else perm.data_ptr(), offsets.data_ptr(),
             out.data_ptr(), B, M, C, num_segments, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -112,16 +125,18 @@ def _launch(src, perm, keys, num_segments: int) -> torch.Tensor:
 
 @torch.library.custom_op("liorf_tpu_torch::segment_sum", mutates_args=())
 def _segment_sum_op(
-    src: torch.Tensor, perm: Optional[torch.Tensor], keys: torch.Tensor, num_segments: int
+    src: torch.Tensor, perm: Optional[torch.Tensor], keys: torch.Tensor, num_segments: int,
+    offsets: torch.Tensor,
 ) -> torch.Tensor:
     # The op on any device but CUDA is the plain version (the tests reach
-    # the vmap rule through it on the CPU).
+    # the vmap rule through it on the CPU), which reads the keys; the
+    # kernel reads their offsets.
     return segment_sum_plain(src, perm, keys, num_segments)
 
 
 @_segment_sum_op.register_kernel("cuda")
-def _segment_sum_cuda(src, perm, keys, num_segments):
-    return _launch(src, perm, keys, num_segments)
+def _segment_sum_cuda(src, perm, keys, num_segments, offsets):
+    return _launch(src, perm, keys, num_segments, offsets)
 
 
 def _fold_lanes(t, d, n: int):
@@ -134,27 +149,30 @@ def _fold_lanes(t, d, n: int):
 
 
 @_segment_sum_op.register_vmap
-def _segment_sum_vmap(info, in_dims, src, perm, keys, num_segments):
+def _segment_sum_vmap(info, in_dims, src, perm, keys, num_segments, offsets):
     """Lanes of a vmap fold into the op's own [B] axis: one launch."""
     n = info.batch_size
-    src, perm, keys = (_fold_lanes(t, d, n) for t, d in zip((src, perm, keys), in_dims))
-    out = _segment_sum_op(src, perm, keys, num_segments)
+    d_src, d_perm, d_keys, _, d_off = in_dims
+    src, perm, keys, offsets = (_fold_lanes(t, d, n) for t, d in (
+        (src, d_src), (perm, d_perm), (keys, d_keys), (offsets, d_off)))
+    out = _segment_sum_op(src, perm, keys, num_segments, offsets)
     return out.reshape(n, -1, *out.shape[1:]), 0
 
 
 def segment_sum(
-    src: torch.Tensor, perm: Optional[torch.Tensor], keys: torch.Tensor, num_segments: int
+    src: torch.Tensor, perm: Optional[torch.Tensor], keys: torch.Tensor, num_segments: int,
 ) -> torch.Tensor:
     """Fixed-order segment sum. src [B,M,C] f32, keys [B,M] int64 >= 0 and
     sorted per lane, perm [B,M] int64 or None (row ``perm[b, p]`` of src is
     the p-th in key order) -> [B, num_segments, C]; empty segments are 0 and
-    rows keyed ``>= num_segments`` are dropped (never read on the card). One
-    launch on the card for every lane."""
+    rows keyed ``>= num_segments`` are dropped (never read on the card).
+    On the card the keys' offsets are found first, then one launch for every
+    lane (a :class:`SegmentPlan` finds its offsets once for every sum)."""
     if src.device.type == "cpu":
         return segment_sum_plain(src, perm, keys, num_segments)
     if src.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {src.device}")
-    return _segment_sum_op(src, perm, keys, num_segments)
+    return _segment_sum_op(src, perm, keys, num_segments, segment_offsets(keys, num_segments))
 
 
 segment_sum.launches = 0
@@ -167,8 +185,8 @@ class SegmentPlan:
 
     On CPU tensors it is exactly those index_adds. On CUDA tensors the
     indices are sorted once here (stably, so each row keeps the order of the
-    blocks and of its values within them, the CPU's order) and every sum is
-    one :func:`segment_sum` launch."""
+    blocks and of its values within them, the CPU's order), the segments'
+    offsets found once, and every sum is one launch of the kernel."""
 
     def __init__(self, index: list[torch.Tensor], num_segments: int):
         self.index = index
@@ -177,6 +195,7 @@ class SegmentPlan:
         self._sorted = None
         if self.on_card:
             self.keys, self.perm = self.sorted_rows()
+            self.offsets = segment_offsets(self.keys[None], num_segments)
 
     def sorted_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(keys, perm): the stable sort of the concatenated indices, the
@@ -194,7 +213,8 @@ class SegmentPlan:
                 out = out.index_add(0, idx, v)
             return out
         rows = torch.cat([v.reshape(v.shape[0], -1) for v in values])
-        out = segment_sum(rows[None], self.perm[None], self.keys[None], self.num_segments)
+        out = _segment_sum_op(rows[None], self.perm[None], self.keys[None], self.num_segments,
+                              self.offsets)
         return out[0].reshape(self.num_segments, *tail)
 
 

@@ -60,7 +60,7 @@ def test_vmap_rule_folds_lanes_into_one_call():
     want = ss.segment_sum_plain(src, perm, keys, s)
 
     def one(x, p, k):
-        return ss._segment_sum_op(x[None], p[None], k[None], s)[0]
+        return ss._segment_sum_op(x[None], p[None], k[None], s, ss.segment_offsets(k[None], s))[0]
 
     np.testing.assert_array_equal(torch.func.vmap(one)(src, perm, keys).numpy(), want.numpy())
     shared = torch.func.vmap(one, in_dims=(0, None, None))(src, perm[0], keys[0])
