@@ -11,7 +11,9 @@ plain versions on the CPU; the fixed-order segment sum, at the
 distributed solver's matvec, against a float64 reduction and the CPU's
 index_add; the pose graph's PCG kernel bit for bit against its plain version
 on the CPU; its linearization kernel bit for bit against its plain version
-and within a stated bound of the jacfwd linearization),
+and within a stated bound of the jacfwd linearization; the IMU fusion
+kernel bit for bit against its plain version on the card and within stated
+bounds of a float64 run and of the jacfwd fusion step),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
 process_scan / trajectory_arrays) at the repo's bench size and on the
 loop-closure course, the device-resident pipeline (``make_pipeline``,
@@ -31,10 +33,12 @@ at the main path's shapes on the main path's own final grid, and the voxel
 filter's reduction, the PCG kernel and the linearization on the arguments
 the main path gave them, right after that path (the PCG and the
 linearization also on the resident full solve's), and on the 8-lane
-launches of multistream_path; the segment sum on a seeded plan of the dist
-phase's graph; both k-NN kernels with a lane axis at N = 8 in the kernels
-phase. A single-device path launches no segment sum, and one voxel_reduce a
-voxel filter call. Everything runs
+launches of multistream_path; the fusion kernel on the last launch of the
+main path, the resident path and the 8-lane multistream path; the segment
+sum on a seeded plan of the dist phase's graph; both k-NN kernels with a
+lane axis at N = 8 in the kernels phase. A single-device path launches no
+segment sum, one voxel_reduce a voxel filter call and one fusion_step a
+fusion call. Everything runs
 in the default mode (``torch.use_deterministic_algorithms`` off).
 
 Each phase prints one JSON line. Any failed check raises, so the exit code is
@@ -83,6 +87,8 @@ if not torch.cuda.is_available():
 from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
 from liorf_tpu_torch.core import build  # noqa: E402
 from liorf_tpu_torch.graph import pose_graph as pg  # noqa: E402
+from liorf_tpu_torch.imu import fusion as tfusion  # noqa: E402
+from liorf_tpu_torch.ops import fusion_step as fstep  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
 from liorf_tpu_torch.ops import linearize as lin  # noqa: E402
 from liorf_tpu_torch.ops import pcg  # noqa: E402
@@ -103,12 +109,14 @@ LOOP_PATH_FRAMES = 32  # loop_path's depth: through its first loop closures (fra
 # stated against these, with the card's power limit printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 67e12  # with the tensor cores: the card's float64 peak
 
 KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
 SEGSUM_SOURCE = "liorf_tpu_torch/csrc/segment_sum.cu"
 PCG_SOURCE = "liorf_tpu_torch/csrc/pcg.cu"
 LINEARIZE_SOURCE = "liorf_tpu_torch/csrc/linearize.cu"
 VOXEL_SOURCE = "liorf_tpu_torch/csrc/voxel_reduce.cu"
+FUSION_SOURCE = "liorf_tpu_torch/csrc/fusion.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -143,19 +151,22 @@ MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count, the pose graph's count of GN steps and
-    the voxel filter's count of calls to 0 (just before a path runs)."""
-    for m in (knn_cuda, segsum, pcg, lin, vred):
+    """Every kernel's launch count, the pose graph's count of GN steps, the
+    voxel filter's and the fusion step's counts of calls to 0 (just before
+    a path runs)."""
+    for m in (knn_cuda, segsum, pcg, lin, vred, fstep):
         m.reset_launch_counts()
     pg.solve.gn_steps = 0
     tvoxel.voxel_downsample.calls = 0
+    tfusion.fusion_step.calls = 0
 
 
 def launch_counts() -> dict[str, int]:
     return {**knn_cuda.launch_counts(), **segsum.launch_counts(), **pcg.launch_counts(),
-            **lin.launch_counts(), **vred.launch_counts(),
+            **lin.launch_counts(), **vred.launch_counts(), **fstep.launch_counts(),
             "pose_graph_gn_steps": pg.solve.gn_steps,
-            "voxel_filter_calls": tvoxel.voxel_downsample.calls}
+            "voxel_filter_calls": tvoxel.voxel_downsample.calls,
+            "fusion_calls": tfusion.fusion_step.calls}
 
 
 _EMIT = threading.Lock()
@@ -245,7 +256,7 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and the five kernel libraries built at once
+    """The card, the toolchain, and the six kernel libraries built at once
     (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
@@ -253,8 +264,9 @@ def phase_device(ptxas: bool) -> str:
     ).stdout.strip().splitlines()[-2:]
     flags = ("-Xptxas", "-v") if ptxas else ()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as ex:
-        for f in [ex.submit(m.load_library, flags) for m in (knn_cuda, segsum, pcg, lin, vred)]:
+    with ThreadPoolExecutor(6) as ex:
+        for f in [ex.submit(m.load_library, flags)
+                  for m in (knn_cuda, segsum, pcg, lin, vred, fstep)]:
             f.result()
     emit(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -263,6 +275,7 @@ def phase_device(ptxas: bool) -> str:
                                   segment_sum=segsum.build_seconds,
                                   pcg=pcg.build_seconds, linearize=lin.build_seconds,
                                   voxel_reduce=vred.build_seconds,
+                                  fusion=fstep.build_seconds,
                                   all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -801,6 +814,8 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
         "scancontext descriptor": lambda: scancontext.make_descriptor(raw, raw_mask),
         "preintegrate": lambda: preintegration.preintegrate(acc, gyr, dts, imask, z3, z3, fp.fusion.imu),
         "fusion_step": lambda: fusion.fusion_step(filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
+        "fusion_step_jacfwd (op by op, the oracle)": lambda: fusion.fusion_step_jacfwd(
+            filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
         "pose graph solve (window)": lambda: pipe._solve_graph(full=False),
         "pose graph solve (full)": lambda: pipe._solve_graph(full=True),
         "local-map rebuild (assemble_local_map + grid)": lambda: pipe._rebuild_grid(kf_pose, stamp),
@@ -1364,13 +1379,13 @@ def phase_multistream_path() -> dict:
         mp = MultiStreamPipeline(cfg, n_streams=n)
         check(mp.device.type == "cuda", "MultiStreamPipeline must default to the GPU")
         iis = [0] * n
-        tick_ms, k1_tick, gn_tick = [], [], []
+        tick_ms, k1_tick, gn_tick, fus_tick = [], [], [], []
         reset_counts()
         for f in range(MULTI_TICKS):
             scans = [streams[b][0][f] for b in range(n)]
             for b in range(n):
                 iis[b] = feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], streams[b][1], iis[b])
-            k1 = launch_counts()["knn_grid_topk"]
+            k1, fus = launch_counts()["knn_grid_topk"], fstep.fusion_step.launches
             torch.cuda.synchronize()
             a = time.perf_counter()
             if captured is None:
@@ -1381,10 +1396,11 @@ def phase_multistream_path() -> dict:
             torch.cuda.synchronize()
             tick_ms.append((time.perf_counter() - a) * 1e3)
             k1_tick.append(launch_counts()["knn_grid_topk"] - k1)
+            fus_tick.append(fstep.fusion_step.launches - fus)
             gn_tick.append(mp.last_gn_iters)
         counts = launch_counts()
         mp.finish()
-        return mp, counts, tick_ms, k1_tick, gn_tick
+        return mp, counts, tick_ms, k1_tick, gn_tick, fus_tick
 
     def lane_report(mp, n):
         ates, kf_counts, loops = [], [], []
@@ -1417,7 +1433,7 @@ def phase_multistream_path() -> dict:
     # Timing: N = 1, 4, 8 lanes.
     out, per_n, lane_cases, mp_det = {}, {}, {}, None
     for n in MULTI_LANES:
-        mp, counts, tick_ms, k1_tick, gn_tick = multi(
+        mp, counts, tick_ms, k1_tick, gn_tick, fus_tick = multi(
             n, lane_cases if n == max(MULTI_LANES) else None)
         ticks = mp.ticks
         # per tick: the batched GN loop runs until its slowest lane stops,
@@ -1441,6 +1457,7 @@ def phase_multistream_path() -> dict:
             k1_launches=counts["knn_grid_topk"], k2_launches=counts["knn_bruteforce"],
             k1_per_tick=counts["knn_grid_topk"] / ticks, k2_per_tick=counts["knn_bruteforce"] / ticks,
             k1_bootstrap_tick=k1_tick[0], k1_ticks_off_slowest_lane=sum(x != 0 for x in k1_vs_max),
+            fusion_launches_per_tick_max=max(fus_tick),
             gn_iters_batched=gn_batched, gn_iters_per_lane=mp.gn_iters_per_lane(),
             gn_iters_slowest_lane_per_tick=float(gn.max(axis=1).mean()),
             gn_iters_lane_mean_per_tick=float(gn.mean()),
@@ -1484,6 +1501,7 @@ def phase_multistream_path() -> dict:
     # the lane-folded launches of the widest run, held as the main path's are
     pcg_lanes = phase_pcg(pcg_cases(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     lin_lanes = phase_linearize(linearize_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
+    fus_lanes = phase_fusion(fusion_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     vr_lanes = phase_voxel_reduce(lane_cases, max(MULTI_LANES))
     del lane_cases
     # the checks after the lines, so a failing run still shows its numbers
@@ -1507,7 +1525,10 @@ def phase_multistream_path() -> dict:
               f"N={n}: K1 launches of {row['k1_ticks_off_slowest_lane']} ticks differ from the "
               "slowest lane's GN iterations of that tick")
         check(max(row["ate_rmse_m"]) < 0.3, f"N={n}: ATE {max(row['ate_rmse_m'])} m >= 0.3 m")
-    return out, vr_lanes, pcg_lanes, lin_lanes
+        # the fusion step: at most one launch a tick, every lane in it
+        check(row["fusion_launches_per_tick_max"] <= 1,
+              f"N={n}: {row['fusion_launches_per_tick_max']} fusion launches in one tick")
+    return out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes
 
 
 def multistream_loop_course(n: int) -> dict:
@@ -1645,9 +1666,10 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     the launch's leading axis) of: the voxel filter's reduction, by output
     size (``voxel_reduce_out<S>``); the PCG for each iteration count
     (``pcg_iters<n>``: the window and the full solves); the linearization
-    (``linearize``); and of any segment sum (``segment_sum``: a
-    single-device path launches none)."""
+    (``linearize``); of the fusion step (``fusion_step``); and of any segment
+    sum (``segment_sum``: a single-device path launches none)."""
     real, real_pcg, real_lin, real_vred = segsum._launch, pcg._launch, lin._launch, vred._launch
+    real_fus = fstep._launch
 
     def spy(*args, **kw):
         cases["segment_sum"] = args
@@ -1668,11 +1690,18 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases[f"voxel_reduce_out{args[5]}"] = args
         return real_vred(*args)
 
+    def spy_fus(*args):
+        if args[0].shape[0] == lanes:
+            cases["fusion_step"] = args
+        return real_fus(*args)
+
     segsum._launch, pcg._launch, lin._launch, vred._launch = spy, spy_pcg, spy_lin, spy_vred
+    fstep._launch = spy_fus
     try:
         yield cases
     finally:
         segsum._launch, pcg._launch, lin._launch, vred._launch = real, real_pcg, real_lin, real_vred
+        fstep._launch = real_fus
 
 
 def pcg_cases(cases: dict) -> dict:
@@ -1684,6 +1713,12 @@ def linearize_case(cases: dict):
     """The captured linearization, taken out of ``cases``."""
     check("linearize" in cases, f"no linearize_normal launch captured: {sorted(cases)}")
     return cases.pop("linearize")
+
+
+def fusion_case(cases: dict):
+    """The captured fusion step, taken out of ``cases``."""
+    check("fusion_step" in cases, f"no fusion_step launch captured: {sorted(cases)}")
+    return cases.pop("fusion_step")
 
 
 def bench_segsum(src, perm, keys, S: int, offsets) -> dict:
@@ -1994,6 +2029,263 @@ def phase_linearize(args, label: str) -> dict:
     check(res["jacfwd_rhs_diff_over_stiffness"] <= LINEARIZE_RHS_TOL,
           f"{what}: rhs off the jacfwd linearization's by "
           f"{res['jacfwd_rhs_diff_over_stiffness']} of its column's stiffness")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the fusion step
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain version on the card: bit for bit (NaN where
+# the other is NaN). Against a float64 run of the plain version: the mean
+# within FUSION_MEAN_TOL a component (rad, m, m/s) and the information W^T W
+# within FUSION_INFO_TOL of its largest entry, the bounds tests/test_torch_ops.py
+# puts on the port against its own float64 run (the ill-conditioned
+# correction) and on the information. Against the jacfwd oracle
+# (imu/fusion.py::fusion_step_jacfwd, float32 op by op, the route the kernel
+# replaced): the mean within FUSION_JACFWD_MEAN_TOL, that test's bound between
+# two implementations of one correction from one state, and the information
+# within FUSION_INFO_TOL, fixed bounds; the oracle's own distance to the
+# float64 run is recorded beside them (its float32 marginalization is
+# ~1e-3 of the information's largest entry off).
+FUSION_MEAN_TOL = 1e-4
+FUSION_JACFWD_MEAN_TOL = 1e-5
+FUSION_INFO_TOL = 2e-3
+FUSION_OUT = ("R", "p", "v", "ba", "bg", "W", "diverged")
+
+
+# The fusion step's operations as the function needs them (not as
+# csrc/fusion.cu runs them): an add, sub, mul, div, sqrt, sin, cos or atan2 is
+# one; a sign change, a copy or a structural zero is none; an n-term sum is
+# n - 1 adds. The 3 x 3 geometry, each in its cheapest branch:
+EXP_OPS = 37      # theta^2 5, sqrt 1, A and B (Taylor) 2 + 2, W^2 = w w^T - theta^2 I 9, A W 3, B W^2 6, I + ... 9
+EXP_JVP_OPS = 68  # dtheta^2 6, dA and dB (Taylor) 1 + 1, d(W^2) 21, dA W, A dW, dB W^2, B dW^2 18, their sums 21
+LOG_OPS = 21      # trace 2, cos 2, skew part 6, sin^2 5, sqrt 1, atan2 1, scale 1, w 3
+LOG_W_OPS = 3     # of LOG_OPS, w = skew * scale, which only the residual needs
+LOG_JVP_OPS = 32  # dcos 3, dskew 6, d(sin^2) 6, dtheta 7, dscale (Taylor) 1, dw 9
+MM_OPS, MV_OPS = 45, 15  # a 3 x 3 product, a 3 x 3 matrix-vector product
+
+
+def _dot_ops(t: int) -> int:
+    """A t-term product sum."""
+    return 2 * t - 1 if t > 0 else 0
+
+
+def _chol_ops(n: int) -> int:
+    """Cholesky of n x n: column j's entries each a j-term dot, a sub (j > 0)
+    and a sqrt or div."""
+    return sum((n - j) * (_dot_ops(j) + (j > 0) + 1) for j in range(n))
+
+
+def fusion_jacobian_pattern(w_nz: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The nonzero pattern of the 36 x 30 Jacobian (ops/fusion_step.py::
+    system_plain) given the prior's square-root information's pattern
+    [15, 15], and the term counts [9, 30] of the IMU rows' whitening (the
+    lower-triangular imu_W times the raw rows)."""
+    J = np.zeros((36, 30), bool)
+    J[:15, :3] = w_nz[:, :3].any(1)[:, None]
+    J[:15, 3:15] = w_nz[:, 3:]
+    raw = np.zeros((9, 30), bool)
+    raw[0:3, 0:3] = raw[0:3, 12:15] = raw[0:3, 15:18] = True  # theta_i, bg_i, theta_j
+    for r0, blocks in ((3, (6, 9, 12, 21)), (6, (3, 6, 9, 12, 18))):  # the v and p rows
+        raw[r0:r0 + 3, 0:3] = ~np.eye(3, dtype=bool)  # hat(a): no diagonal
+        for c in blocks:
+            raw[r0:r0 + 3, c:c + 3] = True
+    terms = np.cumsum(raw, 0)  # row r of imu_W @ raw: the terms m <= r
+    J[15:24] = terms > 0
+    for m in range(6):
+        J[24 + m, 9 + m] = J[24 + m, 24 + m] = True
+    J[30:33, 15:18] = True
+    for m in range(3):
+        J[33 + m, 18 + m] = True
+    return J, terms
+
+
+def _householder_ops(J: np.ndarray) -> tuple[int, np.ndarray]:
+    """Householder QR of [J | r] on its pattern, with fill-in: a reflector
+    over the rows nonzero in its column, a later column updated only where
+    one of them is nonzero. Returns the count and R's pattern."""
+    A = np.concatenate([J, np.ones((J.shape[0], 1), bool)], 1)
+    ops = 0
+    for k in range(J.shape[1]):
+        below = [i for i in range(k + 1, A.shape[0]) if A[i, k]]
+        if not below:
+            A[k, k] = True
+            continue
+        rows = [k] + below
+        t = len(below)
+        ops += _dot_ops(t) + 3 + 2 + 1 + t  # ||x||^2, the norm, tau, alpha - beta, v
+        for j in range(k + 1, A.shape[1]):
+            hit = [i for i in rows if A[i, j]]
+            if hit:  # v^T a_j (v_k = 1), tau w, a_j - tau w v
+                ops += len(hit) - (k in hit) + len(hit) - 1 + 1 + t + len(rows)
+                A[rows, j] = True
+        A[below, k] = False
+        A[k, k] = True
+    return ops, A
+
+
+def fusion_ops(W: torch.Tensor, gn_iters: int) -> tuple[int, int]:
+    """(float32, float64) operations that fusion_step needs for the lanes of
+    W (the prior's square-root information [B, 15, 15]: its nonzeros set the
+    Jacobian's). Counted on each lane's pattern: the geometry once where the
+    kernel repeats it, the last system without the residual W_new does not
+    need, the QR with its fill-in, H = J^T J its symmetric half; the LU of
+    the Schur complement, A^-1 B and C - B^T A^-1 B dense (H's first 15 rows
+    are ~80 % nonzero)."""
+    f32 = f64 = 0
+    for w_nz in (W != 0).cpu().numpy():
+        J, terms = fusion_jacobian_pattern(w_nz)
+        corr_J = 3 + MV_OPS + EXP_OPS + MM_OPS  # dbg, w = dR_dbg dbg, exp(w), dR0 exp(w)
+        corr_r = 3 + 2 * (2 * MV_OPS + 6)  # dba; dv and dp corrected
+        log_jac = 3 * (LOG_OPS - LOG_W_OPS)
+        system_J = (
+            MM_OPS + 3 * LOG_JVP_OPS + 3 * int(sum(_dot_ops(int(n)) for n in w_nz[:, :3].sum(1)))
+            + corr_J + 2 * MM_OPS + 9 * LOG_JVP_OPS + 3 * MM_OPS + 3 * (EXP_JVP_OPS + 2 * MM_OPS)
+            + (5 + MV_OPS) + (13 + MV_OPS) + 9 + int(sum(_dot_ops(int(t)) for t in terms.ravel()))
+            + MM_OPS + 3 * LOG_JVP_OPS + 9 + log_jac)
+        system_r = (12 + int(sum(_dot_ops(int(n)) for n in w_nz.sum(1))) + corr_r + 6
+                    + sum(_dot_ops(r + 1) for r in range(9)) + 12 + 9 + 3 * LOG_W_OPS)
+        qr, Rp = _householder_ops(J)
+        back = sum(2 + _dot_ops(int(Rp[k, k + 1:30].sum())) + bool(Rp[k, k + 1:30].any())
+                   for k in range(30)) + 30
+        gn = (int(sum(_dot_ops(int(n)) + 1 for n in J.sum(0))) + int(J.sum()) + qr + back
+              + 2 * (EXP_OPS + MM_OPS + 12))
+        setup = 9 + _chol_ops(9) + 9 + sum(2 * (i - c) for c in range(9) for i in range(c + 1, 9))
+        setup += 5 + 2 + 28 + 20 + MM_OPS  # bias and lidar weights, the prediction
+        f32 += setup + (gn_iters + 1) * system_J + gn_iters * (system_r + gn) + 3 * 6
+        both = (J[:, :, None] & J[:, None, :]).sum(0)[np.triu_indices(30)]
+        f64 += (int(sum(_dot_ops(int(t)) for t in both)) + 30 + 2 * int((both > 0).sum()) + 30
+                + sum((14 - k) + 2 * (14 - k) * (29 - k) for k in range(15))
+                + 15 * sum(_dot_ops(14 - k) + (k < 14) + 1 for k in range(15))
+                + 225 * (_dot_ops(15) + 1) + 105 * 2 + 15 + _chol_ops(15) + 120)
+    return f32, f64
+
+
+def fusion_params(consts) -> tfusion.FusionParams:
+    acc_rw, gyr_rw, gravity, rot, trans, deg, max_v, max_b, iters = consts
+    return tfusion.FusionParams(
+        imu=tfusion.ImuParams(acc_bias_rw=acc_rw, gyr_bias_rw=gyr_rw, gravity=gravity),
+        correction_rot_sigma=rot, correction_trans_sigma=trans, degenerate_sigma=deg,
+        max_velocity=max_v, max_bias=max_b, gn_iters=iters)
+
+
+def fusion_jacfwd(tensors, params):
+    """The jacfwd oracle on every lane (vmapped, as the multistream lanes ran
+    it before the kernel): the op's seven outputs with a lane axis."""
+    def one(*t):
+        filt = tfusion.FusionFilter(tfusion.FusionState(*t[:5]), t[5])
+        st = tfusion.fusion_step_jacfwd(filt, tfusion.Preintegrated(*t[6:18]), t[18], t[19],
+                                        t[20], params)
+        return (*st.filter.mean, st.filter.sqrt_info, st.diverged)
+
+    if tensors[0].shape[0] == 1:
+        return tuple(x[None] for x in one(*(t[0] for t in tensors)))
+    return torch.func.vmap(one)(*tensors)
+
+
+def same_bits(x, y) -> bool:
+    """Equal, NaN where the other is NaN."""
+    return bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all()) if x.is_floating_point() \
+        else bool(torch.equal(x, y))
+
+
+def fusion_diffs(out, ref) -> dict:
+    """The largest difference of the mean (a component) and of the
+    information W^T W (over its largest entry), lanes that diverged in
+    neither left out."""
+    keep = ~(out[6] | ref[6])
+    mean = max((float((a[keep].double() - b[keep].double()).abs().max()) if keep.any() else 0.0)
+               for a, b in zip(out[:5], ref[:5]))
+    if not keep.any():
+        return dict(mean=mean, info=0.0)
+    W, Wr = out[5][keep].double(), ref[5][keep].double()
+    I, Ir = W.transpose(1, 2) @ W, Wr.transpose(1, 2) @ Wr
+    return dict(mean=mean, info=float((I - Ir).abs().max() / Ir.abs().max()))
+
+
+def bench_fusion(args) -> dict:
+    """The fusion kernel on the arguments a path gave it: against its plain
+    version on the card (bit for bit), against itself, each lane against its
+    own launch, against a float64 run of the plain version (FUSION_MEAN_TOL,
+    FUSION_INFO_TOL) and against the jacfwd oracle (FUSION_JACFWD_MEAN_TOL,
+    FUSION_INFO_TOL); timed beside the plain
+    version on the card and the op-by-op oracle it replaced (no single
+    PyTorch call runs a fusion step: library_ms null)."""
+    k = len(fstep.ARGS)
+    tensors, consts = args[:k], args[k:]
+    B = tensors[0].shape[0]
+
+    def kernel():
+        return fstep.fusion_step(*args)
+
+    out = fstep._launch(*args)
+    again = kernel()
+    plain = fstep.fusion_step_plain(*args)
+    alone = [fstep.fusion_step(*(t[b:b + 1] for t in tensors), *consts) for b in range(B)]
+    f64 = fstep.fusion_step_plain(*(t.double() if t.is_floating_point() else t for t in tensors),
+                                  *consts)
+    params = fusion_params(consts)
+    oracle = fusion_jacfwd(tensors, params)
+    f32_ops, f64_ops = fusion_ops(tensors[fstep.ARGS.index("W")], int(consts[-1]))
+    bytes_moved = (sum(t.numel() * t.element_size() for t in tensors)
+                   + sum(o.numel() * o.element_size() for o in out))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = f32_ops / FP32_FLOP_PER_S + f64_ops / FP64_FLOP_PER_S
+    vs64, vsj, oracle64 = fusion_diffs(out, f64), fusion_diffs(out, oracle), fusion_diffs(oracle, f64)
+    res = dict(
+        shape=dict(lanes=B, gn_iters=int(consts[-1])), lanes=B,
+        diverged_lanes=int(out[6].sum()), degenerate_lanes=int(tensors[-1].sum()),
+        max_abs_err=max(float((o.double() - p.double()).abs().nan_to_num(0.0).max())
+                        for o, p in zip(out, plain)),
+        equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
+        repeats=all(same_bits(o, a) for o, a in zip(out, again)),
+        lanes_equal_one_lane_launches=all(
+            same_bits(o, torch.cat([x[i] for x in alone])) for i, o in enumerate(out)),
+        float64_mean_max_abs_diff=vs64["mean"], float64_info_max_rel_diff=vs64["info"],
+        jacfwd_mean_max_abs_diff=vsj["mean"], jacfwd_info_max_rel_diff=vsj["info"],
+        jacfwd_vs_float64_mean_max_abs_diff=oracle64["mean"],
+        jacfwd_vs_float64_info_max_rel_diff=oracle64["info"],
+        diverged_equal_float64=bool(torch.equal(out[6], f64[6])),
+        diverged_equal_jacfwd=bool(torch.equal(out[6], oracle[6])),
+        finite=all(bool(torch.isfinite(o[~out[6]]).all()) for o in out[:6]),
+        **kernel_ms(kernel),
+        # the kernel's own time on the card, apart from the wrapper's host time
+        device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: fstep.fusion_step_plain(*args), reps=5, warm=1),
+        op_by_op_ms=cuda_ms(lambda: fusion_jacfwd(tensors, params), reps=3, warm=1),
+        op_by_op_call="imu/fusion.py::fusion_step_jacfwd (jacfwd, library QR, solve_ex, "
+                      "cholesky_ex)" + (", vmapped over the lanes" if B > 1 else ""),
+        library_ms=None,
+        bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved, flops=dict(float32=f32_ops, float64=f64_ops),
+    )
+    return res
+
+
+def phase_fusion(args, label: str) -> dict:
+    """The fusion kernel held on the last launch a path gave it
+    (capture_kernel_args): one line a path, then its checks."""
+    res = bench_fusion(args)
+    emit("kernels_fusion", path=label, **res,
+         tolerance=f"bit for bit against the plain version on the card (NaN where it is NaN); "
+                   f"float64 run: mean within {FUSION_MEAN_TOL} a component, W^T W within "
+                   f"{FUSION_INFO_TOL} of its largest entry; jacfwd oracle: mean within "
+                   f"{FUSION_JACFWD_MEAN_TOL}, W^T W within {FUSION_INFO_TOL}; the oracle's "
+                   f"own distance to the float64 run for information")
+    what = f"fusion_step on {label} {res['shape']}"
+    check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
+    check(res["repeats"], f"{what}: two launches differ")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(res["finite"], f"{what}: not finite where it did not diverge")
+    check(res["diverged_equal_float64"] and res["diverged_equal_jacfwd"],
+          f"{what}: the divergence flag differs from the float64 run's or the oracle's")
+    for ref, mean_tol in (("float64", FUSION_MEAN_TOL), ("jacfwd", FUSION_JACFWD_MEAN_TOL)):
+        check(res[f"{ref}_mean_max_abs_diff"] <= mean_tol
+              and res[f"{ref}_info_max_rel_diff"] <= FUSION_INFO_TOL,
+              f"{what}: off the {ref} run: mean {res[f'{ref}_mean_max_abs_diff']} (bound "
+              f"{mean_tol}), information {res[f'{ref}_info_max_rel_diff']} (bound "
+              f"{FUSION_INFO_TOL})")
     return res
 
 
@@ -2909,7 +3201,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
-    vr_lanes = pcg_lanes = lin_lanes = None
+    vr_lanes = pcg_lanes = lin_lanes = fus_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         cases = {}
@@ -2924,11 +3216,16 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             kern["segment_sum"] = phase_segment_sum()
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
             kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
+            kern["fusion_step"] = phase_fusion(fusion_case(cases), "main_path")
         del lin_main, cases
         resident = None
         if "resident_path" in phases:
-            resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
+            res_cases = {}
+            with capture_kernel_args(res_cases):
+                resident, res_counts = phase_resident_path(pipe.trajectory_arrays()[1])
             if kern is not None:
+                kern["fusion_step_resident"] = phase_fusion(fusion_case(res_cases),
+                                                            "resident_path")
                 # the resident full solve's arguments (the main course lands
                 # no loop or GPS factor, so the path itself runs none)
                 rp = resident[0]
@@ -2966,7 +3263,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "faults" in phases:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts, vr_lanes, pcg_lanes, lin_lanes = phase_multistream_path()
+        multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes = phase_multistream_path()
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -3094,6 +3391,25 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         launches_by_path=by_path("linearize_normal"),
         resident_full={f: kern["linearize_normal_resident_full"][f] for f in lin_fields},
         lanes8={f: lin_lanes[f] for f in lin_fields}))
+    # the fusion row: the main path's last launch (one lane)
+    fus_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
+                  "op_by_op_ms", "bound_ms", "bound_by", "flops", "max_abs_err",
+                  "float64_mean_max_abs_diff", "float64_info_max_rel_diff",
+                  "jacfwd_mean_max_abs_diff", "jacfwd_info_max_rel_diff")
+    fus_main = kern["fusion_step"]
+    kernels.append(row(
+        "fusion_step",
+        "none (not a TPU kernel): the op-by-op jacfwd fusion step of "
+        "liorf_tpu_torch/imu/fusion.py (fusion_step_jacfwd; the JAX package's jitted fusion_step "
+        "at liorf_tpu/imu/fusion.py:98-213)",
+        main_counts["fusion_step"], r=fus_main, source=FUSION_SOURCE, shape=fus_main["shape"],
+        op_by_op_ms=fus_main["op_by_op_ms"], device_ms=fus_main["device_ms"],
+        float64_mean_max_abs_diff=fus_main["float64_mean_max_abs_diff"],
+        jacfwd_mean_max_abs_diff=fus_main["jacfwd_mean_max_abs_diff"],
+        jacfwd_info_max_rel_diff=fus_main["jacfwd_info_max_rel_diff"],
+        launches_by_path=by_path("fusion_step"), fusion_calls_by_path=by_path("fusion_calls"),
+        resident={f: kern["fusion_step_resident"][f] for f in fus_fields},
+        lanes8={f: fus_lanes[f] for f in fus_fields}))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
     check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
@@ -3120,6 +3436,9 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
               f"{c['voxel_filter_calls']} voxel filter calls")
         check(c["segment_sum"] == 0,
               f"{path}: {c['segment_sum']} segment sum launches on a single-device path")
+        check(c["fusion_step"] > 0 and c["fusion_step"] == c["fusion_calls"],
+              f"{path}: {c['fusion_step']} fusion_step launches for {c['fusion_calls']} "
+              f"fusion calls")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -43,11 +43,13 @@ def find_nvcc() -> str:
 
 def build_cuda_library(source: Path, extra_flags: tuple[str, ...] = ()) -> tuple[Path, float | None]:
     """Compile ``source`` into ``build_dir()/lib<stem>_<hash>.so`` once per
-    source content and flags. Returns the library's path and the wall time
-    of the nvcc run (None when the library was already built). Raises on a
-    failed build; prints the compiler's output when ``extra_flags`` asked
-    for a report (``-Xptxas -v``)."""
-    src = source.read_bytes()
+    content (the source and the headers beside it, ``*.cuh``) and flags.
+    Returns the library's path and the wall time of the nvcc run (None when
+    the library was already built). Raises on a failed build; prints the
+    compiler's output when ``extra_flags`` asked for a report
+    (``-Xptxas -v``)."""
+    src = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra_flags).encode()).hexdigest()[:12]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import se3
+from ..ops import fusion_step as fstep
 from .preintegration import (
     ImuParams, NavState, Preintegrated, predict, prefix_products, residual,
 )
@@ -78,11 +79,10 @@ def init_filter(R0: torch.Tensor, p0: torch.Tensor, params: FusionParams) -> Fus
     dev = R0.device
     z = torch.zeros(3, dtype=torch.float32, device=dev)
     mean = FusionState(R=R0, p=p0, v=z, ba=z.clone(), bg=z.clone())
-    sig = torch.tensor(
-        [params.init_pose_sigma] * 6 + [params.init_vel_sigma] * 3
-        + [params.init_bias_sigma] * 6,
-        dtype=torch.float32, device=dev,
-    )
+    # filled on the device (a list through torch.tensor is a blocking upload)
+    sig = torch.full((15,), params.init_pose_sigma, dtype=torch.float32, device=dev)
+    sig[6:9] = params.init_vel_sigma
+    sig[9:15] = params.init_bias_sigma
     return FusionFilter(mean=mean, sqrt_info=torch.diag(1.0 / sig))
 
 
@@ -107,7 +107,71 @@ def fusion_step(
     degenerate: torch.Tensor,
     params: FusionParams = FusionParams(),
 ) -> FusionStep:
-    """One lidar correction: GN over (state_i, state_j), then marginalize i."""
+    """One lidar correction: GN over (state_i, state_j), then marginalize i.
+
+    One call of ``ops/fusion_step.py::fusion_step`` (the kernel
+    ``csrc/fusion.cu`` on the card, its plain version on the CPU): the same
+    factors, GN iterations and marginalization as :func:`fusion_step_jacfwd`
+    with closed-form Jacobians. Under ``torch.func.vmap`` the lanes are one
+    launch. ``fusion_step.calls`` counts the calls (a vmapped call once)."""
+    fusion_step.calls += 1
+    m, pre = filt.mean, preint
+    tensors = (m.R, m.p, m.v, m.ba, m.bg, filt.sqrt_info, pre.dR, pre.dv, pre.dp, pre.dt,
+               pre.dR_dbg, pre.dv_dba, pre.dv_dbg, pre.dp_dba, pre.dp_dbg, pre.cov,
+               pre.bias_acc_lin, pre.bias_gyr_lin, lidar_R, lidar_p, degenerate)
+    R, p, v, ba, bg, W, diverged = (o[0] for o in fstep.fusion_step(
+        *(t[None] for t in tensors),
+        params.imu.acc_bias_rw, params.imu.gyr_bias_rw, params.imu.gravity,
+        params.correction_rot_sigma, params.correction_trans_sigma, params.degenerate_sigma,
+        params.max_velocity, params.max_bias, params.gn_iters))
+    return FusionStep(filter=FusionFilter(mean=FusionState(R, p, v, ba, bg), sqrt_info=W),
+                      diverged=diverged)
+
+
+fusion_step.calls = 0
+
+
+def jacfwd_system(prior_mean, prior_W, imu_W, bias_W, corr_W, preint, lidar_R, lidar_p,
+                  s_i, s_j, params):
+    """(J [36, 30], r [36]) of :func:`fusion_step_jacfwd`'s residual (prior,
+    IMU, bias, lidar rows) at (s_i, s_j): ``torch.func.jacfwd`` at xi = 0,
+    as ``jax.jacfwd`` in the JAX package."""
+
+    def residuals(xi):
+        si = _retract(s_i, xi[0:15])
+        sj = _retract(s_j, xi[15:30])
+        r_prior = prior_W @ _local(prior_mean, si)
+        r_imu = imu_W @ residual(
+            NavState(R=si.R, p=si.p, v=si.v),
+            NavState(R=sj.R, p=sj.p, v=sj.v),
+            si.ba,
+            si.bg,
+            preint,
+            params.imu,
+        )
+        r_bias = bias_W * torch.cat([sj.ba - si.ba, sj.bg - si.bg])
+        r_lidar = corr_W * torch.cat(
+            [se3.so3_log(lidar_R.T @ sj.R), sj.p - lidar_p]
+        )
+        r = torch.cat([r_prior, r_imu, r_bias, r_lidar])
+        return r, r
+
+    zero = torch.zeros(30, dtype=s_i.p.dtype, device=s_i.p.device)
+    return torch.func.jacfwd(residuals, has_aux=True)(zero)
+
+
+def fusion_step_jacfwd(
+    filt: FusionFilter,
+    preint: Preintegrated,
+    lidar_R: torch.Tensor,
+    lidar_p: torch.Tensor,
+    degenerate: torch.Tensor,
+    params: FusionParams = FusionParams(),
+) -> FusionStep:
+    """:func:`fusion_step` op by op, as the JAX package writes it: the
+    Jacobian by ``torch.func.jacfwd``, the library's QR, triangular solves,
+    ``solve_ex`` and ``cholesky_ex``. The oracle of the closed-form version
+    (tests and ``chip_smoke.py``); nothing on the main path calls it."""
     dtype, dev = filt.mean.p.dtype, filt.mean.p.device
     prior_mean = filt.mean
     prior_W = filt.sqrt_info
@@ -150,33 +214,9 @@ def fusion_step(
         R=guess_nav.R, p=guess_nav.p, v=guess_nav.v, ba=prior_mean.ba, bg=prior_mean.bg
     )
 
-    def residuals(xi, s_i, s_j):
-        si = _retract(s_i, xi[0:15])
-        sj = _retract(s_j, xi[15:30])
-        r_prior = prior_W @ _local(prior_mean, si)
-        r_imu = imu_W @ residual(
-            NavState(R=si.R, p=si.p, v=si.v),
-            NavState(R=sj.R, p=sj.p, v=sj.v),
-            si.ba,
-            si.bg,
-            preint,
-            params.imu,
-        )
-        r_bias = bias_W * torch.cat([sj.ba - si.ba, sj.bg - si.bg])
-        r_lidar = corr_W * torch.cat(
-            [se3.so3_log(lidar_R.T @ sj.R), sj.p - lidar_p]
-        )
-        return torch.cat([r_prior, r_imu, r_bias, r_lidar])
-
-    zero = torch.zeros(30, dtype=dtype, device=dev)
-
     def jac_and_res(s_i, s_j):
-        # forward-mode Jacobian at xi = 0, as jax.jacfwd in the original
-        def f(xi):
-            r = residuals(xi, s_i, s_j)
-            return r, r
-
-        return torch.func.jacfwd(f, has_aux=True)(zero)
+        return jacfwd_system(prior_mean, prior_W, imu_W, bias_W, corr_W, preint, lidar_R,
+                             lidar_p, s_i, s_j, params)
 
     s_i, s_j = prior_mean, state_j0
     # fixed-length Python loop in place of lax.scan (fusion.py:187); no host
@@ -241,7 +281,8 @@ def predict_poses(
     sequential recursion up to f32 reassociation.
     """
     dt = torch.where(mask, dts, 0.0)
-    g = torch.tensor([0.0, 0.0, -gravity], dtype=state.p.dtype, device=state.p.device)
+    g = torch.zeros(3, dtype=state.p.dtype, device=state.p.device)
+    g[2:] = -gravity  # a slice fill on the device (g[2] = x waits for the card)
 
     dR_inc = se3.so3_exp((gyr - state.bg) * dt[:, None])  # [K,3,3]
     Rs = state.R @ prefix_products(dR_inc)  # rotation AFTER each sample

@@ -298,7 +298,11 @@ def bias_corrected_deltas(preint: Preintegrated, bias_acc, bias_gyr):
 
 
 def _gravity(params: ImuParams, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, -params.gravity], dtype=like.dtype, device=like.device)
+    # a slice fill on the device: a list through torch.tensor is a blocking
+    # upload, and an integer index (g[2] = x) waits for the card too
+    g = torch.zeros(3, dtype=like.dtype, device=like.device)
+    g[2:] = -params.gravity
+    return g
 
 
 def predict(

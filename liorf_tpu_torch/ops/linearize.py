@@ -55,20 +55,18 @@ plain version, a CUDA tensor launches the kernel or raises. The kernel is a
 from __future__ import annotations
 
 import ctypes
-import math
 from pathlib import Path
 
 import torch
 
 from ..core.build import build_cuda_library
 from ..core.se3 import hat
+from ..core.so3_jvp import hat_p, log_jvp, mtm, mtv, q_hat
 from .segment_sum import _fold_lanes, segment_sum_plain
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "linearize.cu"
 
 ROW = 42  # a plan row: the factor's -J^T r (6) and J^T J (36) at one endpoint
-_NEAR_PI = math.pi - 1e-2
-_SIXTH = 1.0 / 6.0
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
@@ -91,125 +89,6 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------
-
-def _mtm(A, B):
-    """A^T B of [..., 3, 3] blocks, each entry (a0 b0 + a1 b1) + a2 b2."""
-    p = [A[..., l, :, None] * B[..., l, None, :] for l in range(3)]
-    return (p[0] + p[1]) + p[2]
-
-
-def _mtv(A, v):
-    """A^T v: [..., 3, 3] x [..., 3] -> [..., 3]."""
-    p = [A[..., l, :] * v[..., l, None] for l in range(3)]
-    return (p[0] + p[1]) + p[2]
-
-
-def _cols(c0, c1, c2):
-    """A [..., 3, 3] from its three columns [..., 3]."""
-    return torch.stack([c0, c1, c2], -1)
-
-
-def _q_hat(Q):
-    """Q hat(e_k) for k = 0, 1, 2 -> [..., 3, 3, 3] (exact column moves):
-    the tangent of Q exp(w) along w = e_k."""
-    z = torch.zeros_like(Q[..., 0])
-    c = [Q[..., :, 0], Q[..., :, 1], Q[..., :, 2]]
-    return torch.stack([_cols(z, c[2], -c[1]), _cols(-c[2], z, c[0]), _cols(c[1], -c[0], z)], -3)
-
-
-def _hat_p(P):
-    """-hat(e_k) P for k = 0, 1, 2 -> [..., 3, 3, 3] (exact row moves): with
-    Rm^T in front, the tangent of Rm^T exp(w)^T P along w = e_k."""
-    z = torch.zeros_like(P[..., 0, :])
-    r = [P[..., 0, :], P[..., 1, :], P[..., 2, :]]
-    return torch.stack([torch.stack(x, -2) for x in
-                        ((z, r[2], -r[1]), (-r[2], z, r[0]), (r[1], -r[0], z))], -3)
-
-
-def _sum3(x0, x1, x2):
-    return (x0 + x1) + x2
-
-
-def _log_jvp(Q, dQ):
-    """``so3_log(Q)`` [..., 3] and its derivative along each direction dQ
-    [..., D, 3, 3] -> [..., D, 3]: the formula of ``core/se3.py::so3_log``
-    and its forward-mode derivative, branch by branch (the derivative
-    ``jacfwd`` takes of the branch the value takes)."""
-
-    def q(a, c):
-        return Q[..., a, c]
-
-    # value (every per-rotation scalar [...]); the tangents [..., D]
-    tr = _sum3(q(0, 0), q(1, 1), q(2, 2))
-    cr = (tr - 1.0) * 0.5
-    cin = (cr >= -1.0) & (cr <= 1.0)
-    cos = torch.clamp(cr, -1.0, 1.0)
-    ws = [(q(2, 1) - q(1, 2)) * 0.5, (q(0, 2) - q(2, 0)) * 0.5, (q(1, 0) - q(0, 1)) * 0.5]
-    s2 = _sum3(ws[0] * ws[0], ws[1] * ws[1], ws[2] * ws[2])
-    small_s = s2 < 1e-12
-    sin = torch.where(small_s, torch.zeros_like(s2), torch.sqrt(s2))
-    theta = torch.atan2(sin.double(), cos.double()).to(sin.dtype)  # see the module's note
-    small = theta < 1e-5
-    near = theta > _NEAR_PI
-    tiny = sin < 1e-9
-    safe = torch.where(tiny, torch.ones_like(sin), sin)
-    scale = torch.where(small, 1.0 + s2 * _SIXTH, theta / safe)
-    w_gen = [x * scale for x in ws]
-
-    # near pi: the axis from the diagonal of M = (Q + Q^T) / 2 - cos I
-    d = [q(a, a) - cos for a in range(3)]
-    omc = 1.0 - cos
-    den_in = omc >= 1e-9
-    den = torch.clamp(omc, min=1e-9)
-    ax2 = [x / den for x in d]
-    pos = [x > 1e-12 for x in ax2]
-    aabs = [torch.where(p, torch.sqrt(x), torch.zeros_like(x)) for p, x in zip(pos, ax2)]
-    r = torch.argmax(torch.stack(d, -1), -1)  # the first largest
-
-    def m(a, c):
-        return d[a] if a == c else (q(a, c) + q(c, a)) * 0.5
-
-    def pick(vals):  # vals[r]
-        return torch.where(r == 0, vals[0], torch.where(r == 1, vals[1], vals[2]))
-
-    one = torch.ones_like(cos)
-    sgr = torch.where(pick(ws) >= 0, one, -one)
-    sg = [torch.where(pick([m(a, c) for a in range(3)]) >= 0, one, -one) * sgr for c in range(3)]
-    ax = [a * s for a, s in zip(aabs, sg)]
-    a2 = _sum3(ax[0] * ax[0], ax[1] * ax[1], ax[2] * ax[2])
-    a_pos = a2 > 1e-12
-    nrm = torch.where(a_pos, torch.sqrt(a2), one)
-    axn = [x / nrm for x in ax]
-    w = torch.stack([torch.where(near, a * theta, g) for a, g in zip(axn, w_gen)], -1)
-
-    # tangents: the value's scalars broadcast over the direction axis
-    def v(x):
-        return x[..., None]
-
-    def dq(a, c):
-        return dQ[..., a, c]
-
-    zero = torch.zeros_like(dQ[..., 0, 0])
-    dcos = torch.where(v(cin), _sum3(dq(0, 0), dq(1, 1), dq(2, 2)) * 0.5, zero)
-    dws = [(dq(2, 1) - dq(1, 2)) * 0.5, (dq(0, 2) - dq(2, 0)) * 0.5, (dq(1, 0) - dq(0, 1)) * 0.5]
-    ds2 = _sum3(v(ws[0]) * dws[0], v(ws[1]) * dws[1], v(ws[2]) * dws[2]) * 2.0
-    dsin = torch.where(v(small_s), zero, ds2 / v(sin * 2.0))
-    dtheta = (v(cos) * dsin - v(sin) * dcos) / v(sin * sin + cos * cos)
-    dsafe = torch.where(v(tiny), zero, dsin)
-    dscale = torch.where(v(small), ds2 * _SIXTH, (dtheta - v(scale) * dsafe) / v(safe))
-    dw_gen = [dx * v(scale) + v(x) * dscale for dx, x in zip(dws, ws)]
-    dden = torch.where(v(den_in), -dcos, zero)
-    dax = []
-    for a in range(3):
-        dax2 = ((dq(a, a) - dcos) - v(ax2[a]) * dden) / v(den)
-        daabs = torch.where(v(pos[a]), dax2 / v(aabs[a] * 2.0), zero)
-        dax.append(daabs * v(sg[a]))
-    da2 = _sum3(v(ax[0]) * dax[0], v(ax[1]) * dax[1], v(ax[2]) * dax[2]) * 2.0
-    dnrm = torch.where(v(a_pos), da2 / v(nrm * 2.0), zero)
-    dw = [torch.where(v(near), ((dx - v(x) * dnrm) / v(nrm)) * v(theta) + v(x) * dtheta, g)
-          for dx, x, g in zip(dax, axn, dw_gen)]
-    return w, torch.stack(dw, -1)
-
 
 def _blocks(tl, tr, bl, br):
     """A [..., 6, 6] from its four [..., 3, 3] blocks."""
@@ -248,11 +127,11 @@ def factor_rows_plain(Rs, ts, e_i, e_j, e_Rm, e_tm, e_sqrt_info, e_cauchy, e_mas
 
     # between factors
     Ri, Rj, ti, tj = _take(Rs, e_i), _take(Rs, e_j), _take(ts, e_i), _take(ts, e_j)
-    P = _mtm(Ri, Rj)
-    Q = _mtm(e_Rm, P)
-    u = _mtv(Ri, tj - ti)
-    dQ = torch.cat([_mtm(e_Rm[..., None, :, :], _hat_p(P)), _q_hat(Q)], -3)
-    w_log, dw = _log_jvp(Q, dQ)
+    P = mtm(Ri, Rj)
+    Q = mtm(e_Rm, P)
+    u = mtv(Ri, tj - ti)
+    dQ = torch.cat([mtm(e_Rm[..., None, :, :], hat_p(P)), q_hat(Q)], -3)
+    w_log, dw = log_jvp(Q, dQ)
     A = dw.transpose(-1, -2)  # [..., 3, 6]: columns w_i then w_j
     Ji0 = _blocks(A[..., :3], zero3.expand_as(P), hat(u), (-eye).expand_as(P))
     Jj0 = _blocks(A[..., 3:], zero3.expand_as(P), zero3.expand_as(P), P)
@@ -277,8 +156,8 @@ def factor_rows_plain(Rs, ts, e_i, e_j, e_Rm, e_tm, e_sqrt_info, e_cauchy, e_mas
 
     # the prior (a factor axis of one)
     Rp, tp = _take(Rs, p_i), _take(ts, p_i)
-    Qp = _mtm(prior_R[:, None], Rp)
-    wp, dwp = _log_jvp(Qp, _q_hat(Qp))
+    Qp = mtm(prior_R[:, None], Rp)
+    wp, dwp = log_jvp(Qp, q_hat(Qp))
     Jp0 = _blocks(dwp.transpose(-1, -2), zero3.expand_as(Rp), zero3.expand_as(Rp), Rp)
     psi = prior_sqrt_info[:, None]
     rp = torch.cat([wp, tp - prior_t[:, None]], -1) * psi
