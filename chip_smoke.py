@@ -13,7 +13,9 @@ index_add; the pose graph's PCG kernel bit for bit against its plain version
 on the CPU; its linearization kernel bit for bit against its plain version
 and within a stated bound of the jacfwd linearization; the IMU fusion
 kernel bit for bit against its plain version on the card and within stated
-bounds of a float64 run and of the jacfwd fusion step),
+bounds of a float64 run and of the jacfwd fusion step; the scan matcher's
+linearization and update kernels and ICP's alignment kernel bit for bit
+against their plain versions on the card),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
 process_scan / trajectory_arrays) at the repo's bench size and on the
 loop-closure course, the device-resident pipeline (``make_pipeline``,
@@ -36,9 +38,16 @@ linearization also on the resident full solve's), and on the 8-lane
 launches of multistream_path; the fusion kernel on the last launch of the
 main path, the resident path and the 8-lane multistream path; the segment
 sum on a seeded plan of the dist phase's graph; both k-NN kernels with a
-lane axis at N = 8 in the kernels phase. A single-device path launches no
-segment sum, one voxel_reduce a voxel filter call and one fusion_step a
-fusion call. Everything runs
+lane axis at N = 8 in the kernels phase; the scan matcher's two kernels on
+the last launches of the main path, the resident path and the 8-lane
+multistream path, ICP's alignment kernel on the last launch of the resident
+loop path and the multistream loop course. A single-device path launches no
+segment sum, one voxel_reduce a voxel filter call, one fusion_step a fusion
+call, one scan_linearize and one scan_update a K1 launch (a GN iteration)
+and one icp_align an ICP iteration (a K2 launch but each run's last);
+resident_loop_path's host syncs come from no library solver, no upload and
+no kernel wrapper, at most MAX_SYNCS_PER_FRAME a frame; main_path and
+resident_path name their five slowest frames. Everything runs
 in the default mode (``torch.use_deterministic_algorithms`` off).
 
 Each phase prints one JSON line. Any failed check raises, so the exit code is
@@ -84,14 +93,19 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU\n")
     sys.exit(5)
 
+from liorf_tpu_torch import native  # noqa: E402
 from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
-from liorf_tpu_torch.core import build  # noqa: E402
+from liorf_tpu_torch.core import build, se3  # noqa: E402
 from liorf_tpu_torch.graph import pose_graph as pg  # noqa: E402
 from liorf_tpu_torch.imu import fusion as tfusion  # noqa: E402
 from liorf_tpu_torch.ops import fusion_step as fstep  # noqa: E402
+from liorf_tpu_torch.ops import icp as ticp  # noqa: E402
+from liorf_tpu_torch.ops import icp_align as ialign  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
 from liorf_tpu_torch.ops import linearize as lin  # noqa: E402
 from liorf_tpu_torch.ops import pcg  # noqa: E402
+from liorf_tpu_torch.ops import scan_gn as sgn  # noqa: E402
+from liorf_tpu_torch.ops import scan_match as tmatch  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
 from liorf_tpu_torch.ops import voxel_reduce as vred  # noqa: E402
 from liorf_tpu_torch.core import voxel as tvoxel  # noqa: E402
@@ -117,6 +131,8 @@ PCG_SOURCE = "liorf_tpu_torch/csrc/pcg.cu"
 LINEARIZE_SOURCE = "liorf_tpu_torch/csrc/linearize.cu"
 VOXEL_SOURCE = "liorf_tpu_torch/csrc/voxel_reduce.cu"
 FUSION_SOURCE = "liorf_tpu_torch/csrc/fusion.cu"
+SCAN_GN_SOURCE = "liorf_tpu_torch/csrc/scan_gn.cu"
+ICP_ALIGN_SOURCE = "liorf_tpu_torch/csrc/icp_align.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -150,23 +166,31 @@ MULTI_CAPS = dict(
 MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
+KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vred, fstep, sgn, ialign)
+
+
 def reset_counts() -> None:
     """Every kernel's launch count, the pose graph's count of GN steps, the
-    voxel filter's and the fusion step's counts of calls to 0 (just before
-    a path runs)."""
-    for m in (knn_cuda, segsum, pcg, lin, vred, fstep):
+    voxel filter's, the fusion step's and the scan matcher's counts of calls
+    and the ICP's count of runs to 0 (just before a path runs)."""
+    for m in KERNEL_MODULES:
         m.reset_launch_counts()
     pg.solve.gn_steps = 0
     tvoxel.voxel_downsample.calls = 0
     tfusion.fusion_step.calls = 0
+    ticp.icp_point2point_lanes.runs = 0
+    tmatch.scan_to_map_lanes.calls = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {**knn_cuda.launch_counts(), **segsum.launch_counts(), **pcg.launch_counts(),
-            **lin.launch_counts(), **vred.launch_counts(), **fstep.launch_counts(),
-            "pose_graph_gn_steps": pg.solve.gn_steps,
+    out = {}
+    for m in KERNEL_MODULES:
+        out.update(m.launch_counts())
+    return {**out, "pose_graph_gn_steps": pg.solve.gn_steps,
             "voxel_filter_calls": tvoxel.voxel_downsample.calls,
-            "fusion_calls": tfusion.fusion_step.calls}
+            "fusion_calls": tfusion.fusion_step.calls,
+            "icp_runs": ticp.icp_point2point_lanes.runs,
+            "scan_to_map_calls": tmatch.scan_to_map_lanes.calls}
 
 
 _EMIT = threading.Lock()
@@ -256,7 +280,7 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and the six kernel libraries built at once
+    """The card, the toolchain, and the eight kernel libraries built at once
     (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
@@ -264,9 +288,8 @@ def phase_device(ptxas: bool) -> str:
     ).stdout.strip().splitlines()[-2:]
     flags = ("-Xptxas", "-v") if ptxas else ()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as ex:
-        for f in [ex.submit(m.load_library, flags)
-                  for m in (knn_cuda, segsum, pcg, lin, vred, fstep)]:
+    with ThreadPoolExecutor(len(KERNEL_MODULES)) as ex:
+        for f in [ex.submit(m.load_library, flags) for m in KERNEL_MODULES]:
             f.result()
     emit(
         "device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -276,6 +299,7 @@ def phase_device(ptxas: bool) -> str:
                                   pcg=pcg.build_seconds, linearize=lin.build_seconds,
                                   voxel_reduce=vred.build_seconds,
                                   fusion=fstep.build_seconds,
+                                  scan_gn=sgn.build_seconds, icp_align=ialign.build_seconds,
                                   all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -570,7 +594,10 @@ def phase_k1_main_grid(pipe: LiorfPipeline) -> dict:
 # phases: main_path, loop_path
 # ---------------------------------------------------------------------------
 
-def run_pipeline(pipe: LiorfPipeline, syn: SyntheticDataset, n_frames: int):
+def run_pipeline(pipe: LiorfPipeline, syn: SyntheticDataset, n_frames: int, log=None):
+    """Every frame through ``pipe``, each timed by the host's clock around
+    ``process_scan`` and a synchronize; with ``log`` (a FrameLog) each
+    frame's kinds are noted outside the timed window."""
     imu = syn.imu_stream()
     ii = 0
     frame_ms, results = [], []
@@ -579,12 +606,94 @@ def run_pipeline(pipe: LiorfPipeline, syn: SyntheticDataset, n_frames: int):
         while ii < len(imu) and imu[ii].stamp <= scan.end_time + 0.02:
             pipe.push_imu(imu[ii])
             ii += 1
+        if log is not None:
+            log.before()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results.append(pipe.process_scan(scan))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if log is not None:
+            log.after(results[-1])
     return results, frame_ms
+
+
+_SEEN_IN_PROCESS: set[str] = set()  # every event kind a frame of this process has shown
+
+
+class FrameLog:
+    """What each frame of a path did, for its slowest frames: keyframe,
+    window or full solve, loop search, ICP, ring growth, the host's garbage
+    collected and frozen, the native scan packer's first use (and build), and
+    which of those
+    and of the kernels ran for the first time in this process (the first
+    call of the library routines and kernels behind them). Hooks the
+    pipeline's solve and loop search while it is open; reads the launch
+    counters and the growth count between frames, outside the timed window."""
+
+    def __init__(self, pipe):
+        self.pipe, self.kinds, self._cur, self._restore = pipe, [], [], []
+        if isinstance(pipe, tres.ResidentPipeline):
+            self._hook(tres, "_solve_graph_resident", lambda st, params, full: "full solve"
+                       if full else "window solve")
+            self._hook(tres, "_try_loop_closure", lambda *a, **k: "loop search")
+        else:
+            self._hook(pipe, "_solve_graph", lambda *a, full=False, **k: "full solve" if full
+                       else "window solve")
+            self._hook(pipe.loop_detector, "run", lambda *a, **k: "loop search")
+
+    def _hook(self, obj, name, kind):
+        real = getattr(obj, name)
+
+        def call(*a, **k):
+            self._cur.append(kind(*a, **k))
+            return real(*a, **k)
+
+        setattr(obj, name, call)
+        self._restore.append((obj, name, real))
+
+    def close(self):
+        for obj, name, real in reversed(self._restore):
+            setattr(obj, name, real)
+        self._restore = []
+
+    def before(self):
+        self._cur, self._counts = [], launch_counts()
+        self._growth = getattr(self.pipe, "growth_events", 0)
+        self._kf = self._keyframes()
+        # the resident pipeline collects and freezes the host's garbage once
+        # at a set frame (utils/gc_control.py::quiesce), and again after a growth
+        if self.pipe.frame_idx == getattr(self.pipe, "_gc_quiesce_at", None):
+            self._cur.append("gc quiesce (gc.collect + gc.freeze)")
+        self._native = native._lib is not None
+
+    def _keyframes(self) -> int:
+        # the resident pipeline's FrameResult leaves is_keyframe False: its
+        # host view counts them
+        host = getattr(self.pipe, "_host", None)
+        return host.kf_count if host is not None else self.pipe.store.count
+
+    def after(self, result):
+        counts = launch_counts()
+        ran = [k for k, v in counts.items() if v > self._counts[k] and k in
+               {n for m in KERNEL_MODULES for n in m.launch_counts()}]
+        kinds = (["keyframe"] if self._keyframes() > self._kf else []) + self._cur
+        if counts["icp_runs"] > self._counts["icp_runs"]:
+            kinds.append("ICP")
+        if getattr(self.pipe, "growth_events", 0) > self._growth:
+            kinds.append("ring growth")
+        if not self._native and native._lib is not None:
+            kinds.append("native packer first used (its g++ build where none is cached)")
+        firsts = [k for k in dict.fromkeys(kinds + [f"kernel {n}" for n in ran])
+                  if k not in _SEEN_IN_PROCESS]
+        _SEEN_IN_PROCESS.update(firsts)
+        self.kinds.append(list(dict.fromkeys(kinds)) + [f"first in process: {k}" for k in firsts])
+
+
+def slowest_frames(frame_ms, kinds, n: int = 5) -> list[dict]:
+    """The n slowest frames but the bootstrap: index, ms, kinds."""
+    order = sorted(range(1, len(frame_ms)), key=lambda f: -frame_ms[f])[:n]
+    return [dict(frame=f, ms=frame_ms[f], kind=kinds[f] or ["plain frame"]) for f in order]
 
 
 def percentile(xs, p):
@@ -736,7 +845,11 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
     pipe = LiorfPipeline(cfg)  # device=None: the card
     check(pipe.device.type == "cuda", "pipeline must default to the GPU")
     reset_counts()
-    results, frame_ms = run_pipeline(pipe, syn, n_frames)
+    log = FrameLog(pipe)
+    try:
+        results, frame_ms = run_pipeline(pipe, syn, n_frames, log)
+    finally:
+        log.close()
     counts = launch_counts()
 
     _, poses = pipe.trajectory_arrays()
@@ -755,6 +868,7 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
         ms_per_frame_mean=float(np.mean(steady)),
         degenerate_frames=int(sum(r.degenerate for r in results)),
         num_matched_mean=float(np.mean([r.num_matched for r in results[1:]])),
+        slowest_frames=slowest_frames(frame_ms, log.kinds),
     )
     check(ate < 0.3, f"ATE {ate} m >= 0.3 m")
     check(pipe.store.count >= 2, "fewer than 2 keyframes")
@@ -773,7 +887,7 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     snapshots) also the resident step's stages."""
     from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
     from liorf_tpu_torch.imu import fusion, preintegration
-    from liorf_tpu_torch.ops import plane_fit, scan_match, scancontext
+    from liorf_tpu_torch.ops import scan_match, scancontext
 
     cfg, fp = pipe.cfg, pipe.frame_params
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -788,8 +902,6 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     norm_q = torch.sqrt(torch.sqrt(torch.linalg.norm(world, dim=-1) + 1e-12))
     raw = torch.cat([world, world + 0.1], dim=0)[: cfg.raw_cap].contiguous()
     raw_mask = torch.ones(raw.shape[0], dtype=torch.bool, device=DEV)
-    S = torch.randn((n, 3, 3), generator=gen, device=DEV)
-    S = S @ S.transpose(-1, -2)
     K = cfg.imu_window
     acc = torch.randn((K, 3), generator=gen, device=DEV) + torch.tensor([0, 0, 9.8], device=DEV)
     gyr = 0.1 * torch.randn((K, 3), generator=gen, device=DEV)
@@ -802,14 +914,22 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     stamp = pipe.last_scan_stamp
     kf_pose = pipe.store.poses[pipe.store.count - 1].copy()
     grid1 = knn.SpatialHashGrid(*(f[None] for f in grid))
+    st0 = sgn.init_state(pose[None])
+    H, g, cnt = scan_match._build_system_lanes(
+        pose[None], world[None], mask[None], norm_q[None], grid1, fp.match)
 
     stages = {
-        "gn_iteration (_build_system_lanes, one lane: knn_grid + fit_planes + H,g)":
+        "gn_iteration (_build_system_lanes, one lane: the moved scan + knn_grid + scan_linearize)":
             lambda: scan_match._build_system_lanes(
                 pose[None], world[None], mask[None], norm_q[None], grid1, fp.match),
+        "gn_iteration, the scan already moved (knn_grid + scan_linearize, as in the loop)":
+            lambda: scan_match._build_system_lanes(
+                pose[None], world[None], mask[None], norm_q[None], grid1, fp.match, world=world[None]),
         "knn_grid (one K1 launch)": lambda: knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket),
-        "eigh [16384,3,3]": lambda: torch.linalg.eigh(S),
-        "fit_planes": lambda: plane_fit.fit_planes(grid.xyz[pick.reshape(-1, 1).expand(-1, 5)], mask[:, None].expand(-1, 5)),
+        "scan_update (one lane, first iteration)": lambda: sgn.scan_update(
+            st0, H, g, cnt, world[None], fp.match, first=True),
+        "scan_update (one lane, later iteration)": lambda: sgn.scan_update(
+            st0, H, g, cnt, world[None], fp.match, first=False),
         "voxel_downsample scan (raw -> scan_capacity)": lambda: voxel_downsample_xyz(raw, raw_mask, fp.leaf, fp.scan_cap),
         "scancontext descriptor": lambda: scancontext.make_descriptor(raw, raw_mask),
         "preintegrate": lambda: preintegration.preintegrate(acc, gyr, dts, imask, z3, z3, fp.fusion.imu),
@@ -1129,7 +1249,11 @@ def phase_resident_path(main_poses: np.ndarray, n_frames: int = MAIN_FRAMES):
     rp._dispatch_step = capture
     syn = main_dataset(n_frames)
     reset_counts()
-    _, frame_ms = run_pipeline(rp, syn, n_frames)
+    log = FrameLog(rp)
+    try:
+        _, frame_ms = run_pipeline(rp, syn, n_frames, log)
+    finally:
+        log.close()
     counts = launch_counts()
     rp._dispatch_step = dispatch
 
@@ -1143,6 +1267,7 @@ def phase_resident_path(main_poses: np.ndarray, n_frames: int = MAIN_FRAMES):
     emit(
         "resident_path", points_per_scan=32 * 900, ate_rmse_m=ate,
         max_dist_to_main_path_m=float(dist.max()), **rep,
+        slowest_frames=slowest_frames(frame_ms, log.kinds),
         note="snapshots of the last 8 frames' states are taken inside their timed window",
     )
     check(ate < 0.3, f"resident ATE {ate} m >= 0.3 m")
@@ -1190,6 +1315,28 @@ def resident_stages(rp, snaps):
     return stages, notes
 
 
+# The host syncs of resident_loop_path: none may come from the scan
+# matcher's or ICP's arithmetic (their kernels run without a library solver)
+# or from a host value uploaded at a grid build or a keyframe; each loop may
+# read its one "all done" flag an iteration. What is left (~10 a frame:
+# those flags, is_kf, the loop gate and full-solve flags) stays under
+# MAX_SYNCS_PER_FRAME.
+NO_SYNC_FILES = ("ops/plane_fit.py", "ops/scan_gn.py", "ops/icp_align.py", "ops/knn.py",
+                 "graph/marginal.py")
+FLAG_READ = "if bool(all_done):"
+MAX_SYNCS_PER_FRAME = 12
+
+
+def allowed_sync(site: str) -> bool:
+    path, line = site.rsplit(":", 1)
+    if path.endswith(NO_SYNC_FILES):
+        return False
+    if path.endswith(("ops/scan_match.py", "ops/icp.py")):
+        with open(path) as f:
+            return FLAG_READ in f.read().splitlines()[int(line) - 1]
+    return True
+
+
 def phase_resident_loop_path(n_frames: int = LOOP_FRAMES):
     """The loop course of loop_path through make_pipeline. Run with CUDA's
     sync debug mode on, which warns at every point where the host waits for
@@ -1223,6 +1370,10 @@ def phase_resident_loop_path(n_frames: int = LOOP_FRAMES):
         **rep, note="frame times taken with the sync debug mode on",
     )
     check(bool(np.isfinite(poses).all()), "resident loop trajectory not finite")
+    waits = [site for site in sync_sites if not allowed_sync(site)]
+    check(not waits, f"the host waits for the card where it may not: {waits}")
+    check(syncs / (n_frames - 1) <= MAX_SYNCS_PER_FRAME,
+          f"{syncs / (n_frames - 1)} host syncs a frame (at most {MAX_SYNCS_PER_FRAME})")
     check(rep["loop_factors"] >= 1, "no loop factor landed on the resident loop path")
     check(counts["knn_bruteforce"] > 0, "K2 never launched on the resident loop path")
     check(counts["knn_grid_topk"] == rep["gn_iters_total"], "K1 count != GN iterations")
@@ -1497,13 +1648,16 @@ def phase_multistream_path() -> dict:
          single_session_ms_per_frame_p50=percentile(single_ms, 50),
          single_session_scans_per_sec=1e3 / percentile(single_ms, 50),
          runs=[per_n[n] for n in MULTI_LANES], k1_per_tick_ratio_8_to_1=k1_8 / k1_1)
-    out["loop_n4"] = multistream_loop_course(MULTI_PARITY_LANES)
+    icp_cases = {}
+    out["loop_n4"] = multistream_loop_course(MULTI_PARITY_LANES, icp_cases)
     # the lane-folded launches of the widest run, held as the main path's are
     pcg_lanes = phase_pcg(pcg_cases(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     lin_lanes = phase_linearize(linearize_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     fus_lanes = phase_fusion(fusion_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     vr_lanes = phase_voxel_reduce(lane_cases, max(MULTI_LANES))
-    del lane_cases
+    sg_lanes = phase_scan_gn(lane_cases, f"multistream_path_{max(MULTI_LANES)}")
+    ia_lanes = phase_icp_align(icp_cases, f"multistream_loop_course_{MULTI_PARITY_LANES}")
+    del lane_cases, icp_cases
     # the checks after the lines, so a failing run still shows its numbers
     for p in parity:
         check(p["one_tick_flags_equal"], f"lane {p['lane']}: a tick's flags differ from the single step's")
@@ -1528,15 +1682,16 @@ def phase_multistream_path() -> dict:
         # the fusion step: at most one launch a tick, every lane in it
         check(row["fusion_launches_per_tick_max"] <= 1,
               f"N={n}: {row['fusion_launches_per_tick_max']} fusion launches in one tick")
-    return out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes
+    return out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes
 
 
-def multistream_loop_course(n: int) -> dict:
+def multistream_loop_course(n: int, captured: dict) -> dict:
     """N sessions on the loop course (loop_path's configuration and
     course, each lane its own seed): the batched loop branch, its gate read
     and the batched ICP (one K2 launch per iteration for the lanes whose
     gate is open) on the card. At the multistream operating point no loop
-    search finds a candidate within 60 ticks (30 s time gap)."""
+    search finds a candidate within 60 ticks (30 s time gap). The widest
+    ICP alignment launch of the run goes into ``captured``."""
     from liorf_tpu_torch.pipeline.multistream import MultiStreamPipeline
 
     cfg = loop_config()
@@ -1553,7 +1708,8 @@ def multistream_loop_course(n: int) -> dict:
         scans = [syns[b][0][f] for b in range(n)]
         for b in range(n):
             iis[b] = feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], syns[b][1], iis[b])
-        mp.step(scans)
+        with capture_kernel_args(captured, None):
+            mp.step(scans)
     mp.finish()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -1667,9 +1823,16 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     size (``voxel_reduce_out<S>``); the PCG for each iteration count
     (``pcg_iters<n>``: the window and the full solves); the linearization
     (``linearize``); of the fusion step (``fusion_step``); and of any segment
-    sum (``segment_sum``: a single-device path launches none)."""
+    sum (``segment_sum``: a single-device path launches none); of the scan
+    matcher's linearization (``scan_linearize``), update (``scan_update``,
+    and ``scan_update_first`` of a first GN iteration) and first move of the
+    scan (``transform``); and of ICP's
+    alignment (``icp_align``; with ``lanes`` None the widest launch, the last
+    of equals)."""
     real, real_pcg, real_lin, real_vred = segsum._launch, pcg._launch, lin._launch, vred._launch
-    real_fus = fstep._launch
+    real_fus, real_sl, real_su, real_ia = (fstep._launch, sgn._launch_linearize, sgn._launch_update,
+                                           ialign._launch_align)
+    real_tf = sgn._launch_transform
 
     def spy(*args, **kw):
         cases["segment_sum"] = args
@@ -1695,13 +1858,36 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases["fusion_step"] = args
         return real_fus(*args)
 
+    def spy_sl(*args):
+        if args[0].shape[0] == lanes:
+            cases["scan_linearize"] = args
+        return real_sl(*args)
+
+    def spy_su(*args):
+        if args[1].shape[0] == lanes:
+            cases["scan_update_first" if args[-1] else "scan_update"] = args
+        return real_su(*args)
+
+    def spy_tf(*args):
+        if args[0].shape[0] == lanes:
+            cases["transform"] = args
+        return real_tf(*args)
+
+    def spy_ia(*args):
+        b = args[1].shape[0]
+        if b == lanes or (lanes is None and b >= cases.get("icp_align", args)[1].shape[0]):
+            cases["icp_align"] = args
+        return real_ia(*args)
+
     segsum._launch, pcg._launch, lin._launch, vred._launch = spy, spy_pcg, spy_lin, spy_vred
-    fstep._launch = spy_fus
+    fstep._launch, sgn._launch_linearize, sgn._launch_update = spy_fus, spy_sl, spy_su
+    ialign._launch_align, sgn._launch_transform = spy_ia, spy_tf
     try:
         yield cases
     finally:
         segsum._launch, pcg._launch, lin._launch, vred._launch = real, real_pcg, real_lin, real_vred
-        fstep._launch = real_fus
+        fstep._launch, sgn._launch_linearize, sgn._launch_update = real_fus, real_sl, real_su
+        ialign._launch_align, sgn._launch_transform = real_ia, real_tf
 
 
 def pcg_cases(cases: dict) -> dict:
@@ -2289,6 +2475,254 @@ def phase_fusion(args, label: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the scan matcher's GN iteration and ICP's alignment step
+# ---------------------------------------------------------------------------
+
+# Operations as the data needs them (an add, sub, mul, div, sqrt, sin, cos,
+# asin or atan2 is one): a plane fit ~850 float32 (the centroid 36, the
+# scatter matrix 78, 15 Jacobi rotations of ~43, the plane and its residuals
+# ~50) for every point that passes its mask and the 5th-NN gate; ~95 more
+# for a selected point (its row of J, b, the 27 products); 15 (its world
+# position) and 28 (the sums) for every point. A GN step: ~12400 float64
+# on a first iteration (120 Jacobi rotations of ~100, the projection), ~220
+# on a later one (the LU, the step); 15 a point moved. ICP: 28 a
+# correspondence (both passes' products and sums), ~2400 float64 a lane
+# (Horn's matrix, 36 Jacobi rotations, the composition, the euler angles).
+FIT_OPS, ROW_OPS, POINT_OPS, MOVE_OPS = 850, 95, 43, 15
+UPDATE_FIRST_OPS, UPDATE_OPS = 12400, 220
+ICP_PAIR_OPS, HORN_OPS = 28, 2400
+EIGH_SLICE = 16384  # cuSOLVER's batched eigh refuses 32768 or more [3, 3] matrices (H100, CUDA 12.8)
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def rows_read(idx, valid, m: int) -> int:
+    """Distinct rows (lane, index) of a [B, m, 3] table that the valid
+    entries of idx [B, N, k] read."""
+    lane = torch.arange(idx.shape[0], device=idx.device).view(-1, *([1] * (idx.dim() - 1)))
+    return int(torch.unique((lane * m + idx.long())[valid]).numel())
+
+
+def flat(out) -> tuple:
+    """An update's or alignment's (state, moved, flag) as one tuple."""
+    return (*out[0], out[1], out[2])
+
+
+def max_abs_err(out, ref) -> float:
+    return max(float((o.double() - r.double()).abs().nan_to_num(0.0).max()) if o.numel() else 0.0
+               for o, r in zip(out, ref))
+
+
+def bound(bytes_moved: int, f32_ops: int, f64_ops: int = 0) -> dict:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = f32_ops / FP32_FLOP_PER_S + f64_ops / FP64_FLOP_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, flops=dict(float32=f32_ops, float64=f64_ops))
+
+
+def scatter_matrices(args):
+    """The [B * N, 3, 3] scatter matrices of a linearization's neighbourhoods
+    (the old route's input to the library eigh)."""
+    pose, scan, mask, nq, d2, idx, gxyz = args[:7]
+    B, N = mask.shape
+    gate = d2[..., 4] < args[7] * args[7]
+    w = (torch.isfinite(d2) & gate[..., None]).to(torch.float32).reshape(B * N, 5, 1)
+    nb = torch.gather(gxyz, 1, idx.long().reshape(B, N * 5, 1).expand(-1, -1, 3)).reshape(B * N, 5, 3)
+    cnt = w.sum(1).clamp(min=1.0)
+    c = (nb - (nb * w).sum(1, keepdim=True) / cnt[:, None]) * w
+    return c.transpose(1, 2) @ c / cnt[:, :, None]
+
+
+def bench_scan_linearize(args) -> dict:
+    """The linearization kernel on the arguments a path gave it: against its
+    plain version on the card (bit for bit), itself, each lane's own launch;
+    timed beside the plain version and the old route's library call, one
+    batched eigh of the scatter matrices (in slices of EIGH_SLICE)."""
+    B, N = args[2].shape
+    M = args[6].shape[1]
+
+    def kernel():
+        return sgn._launch_linearize(*args)
+
+    out, again = kernel(), kernel()
+    plain = sgn.scan_linearize_plain(*args)
+    alone = [sgn._launch_linearize(*(t[b:b + 1] for t in args[:7]), *args[7:]) for b in range(B)]
+    d2, idx = args[4], args[5]
+    gate = d2[..., 4] < args[7] * args[7]
+    fits, sel = int((args[2] & gate).sum()), int(out[2].sum())
+    used = torch.isfinite(d2) & gate[..., None]
+    S = scatter_matrices(args)
+    return dict(
+        shape=dict(lanes=B, points=N, grid=M), lanes=B, fits=fits, selected=sel,
+        max_abs_err=max_abs_err(out, plain),
+        equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
+        repeats=all(same_bits(o, a) for o, a in zip(out, again)),
+        lanes_equal_one_lane_launches=all(
+            same_bits(o, torch.cat([x[k] for x in alone])) for k, o in enumerate(out)),
+        finite=all(bool(torch.isfinite(o).all()) for o in out[:2]),
+        **kernel_ms(kernel), device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: sgn.scan_linearize_plain(*args), reps=5, warm=1),
+        library_ms=cuda_ms(lambda: [torch.linalg.eigh(c) for c in torch.split(S, EIGH_SLICE)],
+                           reps=5, warm=1),
+        library_call=f"torch.linalg.eigh of the [{B * N}, 3, 3] scatter matrices"
+                     + (f", in slices of {EIGH_SLICE}" if B * N > EIGH_SLICE else ""),
+        **bound(nbytes(args[:6]) + 12 * rows_read(idx, used, M) + nbytes(out),
+                FIT_OPS * fits + ROW_OPS * sel + POINT_OPS * B * N),
+    )
+
+
+def bench_scan_update(args) -> dict:
+    """The update kernel on the arguments a path gave it (its state, H, g,
+    count, scan, params, first): against its plain version on the card (bit
+    for bit), itself, each lane's own launch; timed beside the plain version
+    and torch.linalg.solve of the damped systems (the library call it
+    replaced; the first iteration's eigh went with it)."""
+    state, H, g, cnt, scan, params, first = args
+    B, N = scan.shape[:2]
+
+    def kernel():
+        return sgn._launch_update(*args)
+
+    out, again = flat(kernel()), flat(kernel())
+    plain = flat(sgn.scan_update_plain(*args))
+    alone = [flat(sgn._launch_update(sgn.GNState(*(t[b:b + 1] for t in state)), H[b:b + 1],
+                                     g[b:b + 1], cnt[b:b + 1], scan[b:b + 1], params, first))
+             for b in range(B)]
+    lane_outs = range(len(out) - 1)  # the all-done flag is the lanes' together
+    A = H + torch.eye(6, device=H.device) * 1e-6
+    return dict(
+        shape=dict(lanes=B, points=N, first=bool(first)), lanes=B,
+        max_abs_err=max_abs_err(out, plain),
+        equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
+        repeats=all(same_bits(o, a) for o, a in zip(out, again)),
+        lanes_equal_one_lane_launches=all(
+            same_bits(out[k], torch.cat([x[k] for x in alone])) for k in lane_outs),
+        finite=bool(torch.isfinite(out[0]).all()),
+        **kernel_ms(kernel), device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: sgn.scan_update_plain(*args), reps=5, warm=1),
+        library_ms=cuda_ms(lambda: torch.linalg.solve(A, g), reps=5, warm=1),
+        library_call=f"torch.linalg.solve of [{B}, 6, 6] float32",
+        **bound(nbytes((*state, H, g, cnt, scan)) + nbytes(out),
+                MOVE_OPS * B * N, B * (UPDATE_FIRST_OPS if first else UPDATE_OPS)),
+    )
+
+
+def bench_transform(args) -> dict:
+    """The scan moved by its pose, the kernel on the arguments a path gave it:
+    against its plain version on the card (bit for bit), itself, each lane's
+    own launch; timed beside the plain version and the route it replaced
+    (se3.euler_to_rot, a batched product and an add; no one PyTorch call
+    forms R from the euler angles: library_ms null)."""
+    pose, xyz = args
+    B, N = xyz.shape[:2]
+
+    def kernel():
+        return sgn._launch_transform(*args)
+
+    def old_route():
+        return xyz @ se3.euler_to_rot(pose[:, :3]).transpose(-1, -2) + pose[:, None, 3:]
+
+    out, again, plain = kernel(), kernel(), sgn.transform_plain(*args)
+    alone = torch.cat([sgn._launch_transform(pose[b:b + 1], xyz[b:b + 1]) for b in range(B)])
+    return dict(
+        shape=dict(lanes=B, points=N), lanes=B, max_abs_err=max_abs_err([out], [plain]),
+        equal_to_plain=same_bits(out, plain), repeats=same_bits(out, again),
+        lanes_equal_one_lane_launches=same_bits(out, alone),
+        old_route_max_abs_diff=float((out - old_route()).abs().max()),
+        finite=bool(torch.isfinite(out).all()),
+        **kernel_ms(kernel), device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: sgn.transform_plain(*args), reps=5, warm=1),
+        op_by_op_ms=cuda_ms(old_route, reps=5, warm=1),
+        op_by_op_call="xyz @ se3.euler_to_rot(pose).T + t (the route the kernel replaced)",
+        library_ms=None, library_call=None,
+        **bound(nbytes(args) + nbytes([out]), MOVE_OPS * B * N),
+    )
+
+
+def phase_scan_gn(cases: dict, label: str) -> dict:
+    """The scan matcher's two kernels held on the last launches a path gave
+    them (capture_kernel_args): one line a path, then its checks."""
+    check(all(k in cases for k in ("scan_linearize", "scan_update_first", "transform")),
+          f"{label}: no scan_linearize / first scan_update / transform launch captured: "
+          f"{sorted(cases)}")
+    res = {"scan_linearize": bench_scan_linearize(cases.pop("scan_linearize")),
+           "scan_update_first": bench_scan_update(cases.pop("scan_update_first")),
+           "transform": bench_transform(cases.pop("transform"))}
+    if "scan_update" in cases:
+        res["scan_update"] = bench_scan_update(cases.pop("scan_update"))
+    emit("kernels_scan_gn", path=label, **res,
+         tolerance="bit for bit against the plain versions on the card (NaN where it is NaN), "
+                   "against a second launch and, lane by lane, against one-lane launches")
+    for name, r in res.items():
+        what = f"{name} on {label} {r['shape']}"
+        check(r["equal_to_plain"], f"{what}: differs from its plain version by {r['max_abs_err']}")
+        check(r["repeats"], f"{what}: two launches differ")
+        check(r["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+        check(r["finite"], f"{what}: not finite")
+    return res
+
+
+def bench_icp_align(args) -> dict:
+    """ICP's alignment kernel on the arguments a path gave it: against its
+    plain version on the card (bit for bit), itself, each lane's own launch;
+    timed beside the plain version and torch.linalg.svd of the lanes'
+    cross-covariances (the library call it replaced, with a det)."""
+    state, moved, d2, idx, target, mask, source, max_d2, eps = args
+    B, N = mask.shape
+    M = target.shape[1]
+
+    def kernel():
+        return ialign._launch_align(*args)
+
+    out, again = flat(kernel()), flat(kernel())
+    plain = flat(ialign.icp_align_plain(*args))
+    alone = [flat(ialign._launch_align(ialign.ICPState(*(t[b:b + 1] for t in state)),
+                                       *(t[b:b + 1] for t in args[1:7]), max_d2, eps))
+             for b in range(B)]
+    ok = mask & torch.isfinite(d2[..., 0]) & (d2[..., 0] < max_d2)
+    w = ok.to(torch.float32)[..., None]
+    mt = torch.gather(target, 1, idx.long().expand(-1, -1, 3))
+    wsum = w.sum(1).clamp(min=1.0)
+    S = ((mt - (mt * w).sum(1, keepdim=True) / wsum[:, None]) * w).transpose(1, 2) @ (
+        moved - (moved * w).sum(1, keepdim=True) / wsum[:, None])
+    pairs = int(ok.sum())
+    return dict(
+        shape=dict(lanes=B, source=N, target=M), lanes=B, correspondences=pairs,
+        max_abs_err=max_abs_err(out, plain),
+        equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
+        repeats=all(same_bits(o, a) for o, a in zip(out, again)),
+        lanes_equal_one_lane_launches=all(
+            same_bits(out[k], torch.cat([x[k] for x in alone])) for k in range(len(out) - 1)),
+        finite=bool(torch.isfinite(out[0]).all()),
+        **kernel_ms(kernel), device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: ialign.icp_align_plain(*args), reps=5, warm=1),
+        library_ms=cuda_ms(lambda: torch.linalg.svd(S), reps=5, warm=1),
+        library_call=f"torch.linalg.svd of [{B}, 3, 3] float32",
+        **bound(nbytes((*state, moved, d2, idx, mask, source)) + 12 * rows_read(idx, ok[..., None], M)
+                + nbytes(out), MOVE_OPS * B * N + ICP_PAIR_OPS * pairs, HORN_OPS * B),
+    )
+
+
+def phase_icp_align(cases: dict, label: str) -> dict:
+    """ICP's alignment kernel held on the last launch a path gave it
+    (capture_kernel_args): one line a path, then its checks."""
+    check("icp_align" in cases, f"{label}: no icp_align launch captured: {sorted(cases)}")
+    res = bench_icp_align(cases.pop("icp_align"))
+    emit("kernels_icp_align", path=label, **res,
+         tolerance="bit for bit against the plain version on the card (NaN where it is NaN), "
+                   "against a second launch and, lane by lane, against one-lane launches")
+    what = f"icp_align on {label} {res['shape']}"
+    check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
+    check(res["repeats"], f"{what}: two launches differ")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(res["finite"], f"{what}: not finite")
+    return res
+
+
 PCG_PHASES = ("tree_rz", "p_own", "edges", "gps_prior", "sync1", "node_sums", "sync2",
               "tree_pap", "x_r", "precond", "sync3")
 
@@ -2303,8 +2737,6 @@ def random_graph(K: int, n: int, E: int, G: int, seed: int):
     e_i[: n - 1], e_j[: n - 1] = torch.arange(n - 1), torch.arange(1, n)
     e_i[n - 1: n + 2], e_j[n - 1: n + 2] = torch.tensor([0, 1, 2]), torch.tensor([n - 1, n - 2, n - 3])
     gi = torch.randint(0, n, (G,), generator=g)
-    from liorf_tpu_torch.core import se3
-
     graph = pg.empty_graph(K, E, G, device="cpu")._replace(
         ts=truth + 0.3 * torch.randn((K, 3), generator=g),
         Rs=se3.so3_exp(0.1 * torch.randn((K, 3), generator=g)),
@@ -3201,7 +3633,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
-    vr_lanes = pcg_lanes = lin_lanes = fus_lanes = None
+    vr_lanes = pcg_lanes = lin_lanes = fus_lanes = sg_lanes = ia_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         cases = {}
@@ -3217,6 +3649,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
             kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
             kern["fusion_step"] = phase_fusion(fusion_case(cases), "main_path")
+            kern["scan_gn"] = phase_scan_gn(cases, "main_path")
         del lin_main, cases
         resident = None
         if "resident_path" in phases:
@@ -3226,6 +3659,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             if kern is not None:
                 kern["fusion_step_resident"] = phase_fusion(fusion_case(res_cases),
                                                             "resident_path")
+                kern["scan_gn_resident"] = phase_scan_gn(res_cases, "resident_path")
                 # the resident full solve's arguments (the main course lands
                 # no loop or GPS factor, so the path itself runs none)
                 rp = resident[0]
@@ -3251,7 +3685,12 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "loop_path" in phases:
         loop_counts = phase_loop_path()
     if "resident_loop_path" in phases:
-        res_loop_counts, res_loop_run = phase_resident_loop_path()
+        rl_cases = {}
+        with capture_kernel_args(rl_cases):
+            res_loop_counts, res_loop_run = phase_resident_loop_path()
+        if kern is not None:
+            kern["icp_align"] = phase_icp_align(rl_cases, "resident_loop_path")
+        del rl_cases
     if "repeat" in phases:
         new_counts["repeat"] = phase_repeat()
     if "gps_path" in phases:
@@ -3263,7 +3702,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "faults" in phases:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes = phase_multistream_path()
+        multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes = (
+            phase_multistream_path())
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -3410,6 +3850,48 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         launches_by_path=by_path("fusion_step"), fusion_calls_by_path=by_path("fusion_calls"),
         resident={f: kern["fusion_step_resident"][f] for f in fus_fields},
         lanes8={f: fus_lanes[f] for f in fus_fields}))
+    # the scan matcher's rows: the main path's last launches (one lane)
+    gn_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
+                 "library_ms", "library_call", "bound_ms", "bound_by", "bytes", "flops",
+                 "max_abs_err")
+    gn_replaces = ("none (not a TPU kernel): the eager ops and library solvers of "
+                   "liorf_tpu_torch/ops/scan_match.py::_build_system_lanes / scan_to_map_lanes "
+                   "and ops/plane_fit.py (the JAX package's XLA at "
+                   "liorf_tpu/ops/scan_match.py:83-121,164-195 and liorf_tpu/ops/plane_fit.py:22-55)")
+    sg = kern["scan_gn"]
+    for name in ("scan_linearize", "scan_update"):
+        r = sg.get(name, sg["scan_update_first"])
+        kernels.append(row(
+            name, gn_replaces, main_counts[name], r=r, source=SCAN_GN_SOURCE, shape=r["shape"],
+            device_ms=r["device_ms"], library_call=r["library_call"],
+            launches_by_path=by_path(name), k1_launches_by_path=by_path("knn_grid_topk"),
+            first_iteration=({f: sg["scan_update_first"][f] for f in gn_fields}
+                             if name == "scan_update" else None),
+            resident={k: {f: v[f] for f in gn_fields} for k, v in kern["scan_gn_resident"].items()},
+            lanes8={k: {f: v[f] for f in gn_fields} for k, v in sg_lanes.items()}))
+    tf = sg["transform"]
+    kernels.append(row(
+        "transform",
+        "none (not a TPU kernel): the eager moved scan (se3.euler_to_rot, a batched product, an "
+        "add) of liorf_tpu_torch/ops/scan_match.py and ops/icp.py",
+        main_counts["transform"], r=tf, source=SCAN_GN_SOURCE, shape=tf["shape"],
+        device_ms=tf["device_ms"], op_by_op_ms=tf["op_by_op_ms"],
+        launches_by_path=by_path("transform"), scan_to_map_calls_by_path=by_path("scan_to_map_calls"),
+        resident={f: kern["scan_gn_resident"]["transform"][f] for f in gn_fields},
+        lanes8={f: sg_lanes["transform"][f] for f in gn_fields}))
+    # ICP's row: the resident loop path's last launch (one lane); launches
+    # from the loop path's run, as K2's
+    ia = kern["icp_align"]
+    kernels.append(row(
+        "icp_align",
+        "none (not a TPU kernel): the eager Kabsch step (torch.linalg.svd, det) of "
+        "liorf_tpu_torch/ops/icp.py::icp_point2point_lanes (the JAX package's XLA at "
+        "liorf_tpu/ops/icp.py:73-91)",
+        loop_counts["icp_align"], r=ia, source=ICP_ALIGN_SOURCE, shape=ia["shape"],
+        device_ms=ia["device_ms"], library_call=ia["library_call"],
+        launches_by_path=by_path("icp_align"), k2_launches_by_path=by_path("knn_bruteforce"),
+        icp_runs_by_path=by_path("icp_runs"),
+        lanes=({f: ia_lanes[f] for f in gn_fields} | {"correspondences": ia_lanes["correspondences"]})))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
     check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
@@ -3439,6 +3921,18 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         check(c["fusion_step"] > 0 and c["fusion_step"] == c["fusion_calls"],
               f"{path}: {c['fusion_step']} fusion_step launches for {c['fusion_calls']} "
               f"fusion calls")
+        # one linearization and one update a (batched) GN iteration, as K1;
+        # one alignment an ICP iteration: K2 less each run's last pass
+        check(c["scan_linearize"] == c["knn_grid_topk"] == c["scan_update"],
+              f"{path}: {c['scan_linearize']} scan_linearize and {c['scan_update']} scan_update "
+              f"launches for {c['knn_grid_topk']} K1 launches")
+        check(c["icp_align"] == c["knn_bruteforce"] - c["icp_runs"],
+              f"{path}: {c['icp_align']} icp_align launches for {c['knn_bruteforce']} K2 "
+              f"launches in {c['icp_runs']} ICP runs")
+        # one first move a scan match and an ICP run
+        check(c["transform"] == c["scan_to_map_calls"] + c["icp_runs"],
+              f"{path}: {c['transform']} transform launches for {c['scan_to_map_calls']} scan "
+              f"matches and {c['icp_runs']} ICP runs")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -49,10 +49,11 @@ _VAR_CLAMP = 1.0e4
 
 
 def _f32(xp, values, device=None):
-    """float32 constant of namespace ``xp`` (torch: on ``device``)."""
+    """float32 constant of namespace ``xp`` (torch: on ``device``, each value
+    filled there: a host list uploaded would make the host wait for the card)."""
     if xp is np:
         return np.asarray(values, dtype=np.float32)
-    return xp.as_tensor(values, dtype=xp.float32, device=device)
+    return xp.stack([xp.full((), v, dtype=xp.float32, device=device) for v in values])
 
 
 def initial_cov(xp=np, device=None):

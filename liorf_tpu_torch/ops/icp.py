@@ -2,9 +2,10 @@
 
 Replacement for the PCL ``IterativeClosestPoint`` used to verify loop
 candidates (``liorf/src/mapOptmization.cpp:571-585,663-677``):
-point-to-point correspondences (exact 1-NN, CUDA kernel K2), closed-form SVD
-(Kabsch) alignment per iteration, fitness = mean squared correspondence
-distance (PCL ``getFitnessScore`` semantics).
+point-to-point correspondences (exact 1-NN, CUDA kernel K2), closed-form
+alignment per iteration (Horn's quaternion: Kabsch's minimizer without an
+SVD; ``ops/icp_align.py``, one hand-written kernel on the card), fitness =
+mean squared correspondence distance (PCL ``getFitnessScore`` semantics).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from . import icp_align, scan_gn
 from .knn import knn_bruteforce
 
 
@@ -72,55 +73,27 @@ def icp_point2point_lanes(
     every field of the result gets the [B] axis.
 
     One batched loop (in place of the JAX package's ``lax.while_loop``,
-    icp.py:106 there): each iteration is one K2 launch for every lane and B
-    Kabsch solves together; a lane whose own loop would have stopped
+    icp.py:106 there): each iteration is one K2 launch for every lane and one
+    ``icp_align.icp_align`` call (the alignment of every lane, and the source
+    moved for the next K2); a lane whose own loop would have stopped
     (transform change below epsilon) keeps its pose, as a vmapped
     ``lax.while_loop`` does. The host reads one "all done" flag per
     iteration."""
-    B = source_xyz.shape[0]
-    dev = source_xyz.device
+    icp_point2point_lanes.runs += 1
     max_d2 = params.max_corr_dist * params.max_corr_dist
-    target_xyz = target_xyz.contiguous()
-    lanes = torch.arange(B, device=dev)[:, None]
-
-    def correspondences(pose):
-        R = se3.euler_to_rot(pose[:, :3])
-        moved = source_xyz @ R.transpose(-1, -2) + pose[:, None, 3:]
+    target_xyz, source_xyz = target_xyz.contiguous(), source_xyz.contiguous()
+    source_mask = source_mask.contiguous()
+    state = icp_align.init_state(init_pose)
+    moved = scan_gn.transform(state.pose, source_xyz)
+    for _ in range(params.max_iters):
         d2, idx = _nn1(target_xyz, target_mask, moved, source_mask)
-        d2, idx = d2[..., 0], idx[..., 0]
-        ok = source_mask & torch.isfinite(d2) & (d2 < max_d2)
-        return moved, target_xyz[lanes, idx], ok, d2
-
-    pose = init_pose.to(torch.float32)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    it = 0
-    while it < params.max_iters:
-        moved, matched, ok, _ = correspondences(pose)
-        w = ok.to(source_xyz.dtype)
-        wsum = torch.clamp(torch.sum(w, dim=-1), min=1.0)[:, None]
-        mu_s = (w[:, None, :] @ moved)[:, 0] / wsum
-        mu_t = (w[:, None, :] @ matched)[:, 0] / wsum
-        S = ((matched - mu_t[:, None]) * w[..., None]).transpose(-1, -2) @ (moved - mu_s[:, None])
-        U, _, Vt = torch.linalg.svd(S)
-        det = torch.linalg.det(U @ Vt)
-        one = torch.ones_like(det)
-        D = torch.diag_embed(torch.stack([one, one, det], dim=-1))
-        R_d = U @ D @ Vt
-        t_d = mu_t - (R_d @ mu_s[..., None])[..., 0]
-        R0 = se3.euler_to_rot(pose[:, :3])
-        R_new, t_new = se3.se3_compose(R_d, t_d, R0, pose[:, 3:])
-        new_pose = torch.cat([se3.rot_to_euler(R_new), t_new], dim=-1)
-        delta = torch.sum((new_pose - pose) ** 2, dim=-1)
-        live = ~done
-        pose = torch.where(live[:, None], new_pose, pose)
-        iters = iters + live.to(torch.int32)
-        done = done | (delta < params.epsilon)
-        it += 1
-        if bool(torch.all(done)):
+        state, moved, all_done = icp_align.icp_align(
+            state, moved, d2, idx, target_xyz, source_mask, source_xyz, max_d2, params.epsilon)
+        if bool(all_done):
             break
 
-    _, _, ok, d2 = correspondences(pose)
+    d2 = _nn1(target_xyz, target_mask, moved, source_mask)[0][..., 0]
+    ok = source_mask & torch.isfinite(d2) & (d2 < max_d2)
     n_ok = torch.clamp(torch.sum(ok.to(torch.float32), dim=-1), min=1.0)
     fitness = torch.sum(torch.where(ok, d2, 0.0), dim=-1) / n_ok
     any_ok = torch.sum(ok.to(torch.int32), dim=-1) > 0
@@ -132,5 +105,10 @@ def icp_point2point_lanes(
     # mapOptmization.cpp:581): true when the solver terminated by ANY
     # criterion — transformation epsilon OR the iteration cap — with valid
     # correspondences; quality is judged by the separate fitness gate.
-    return ICPResult(pose=pose, fitness=fitness, converged=any_ok, iters=iters,
+    return ICPResult(pose=state.pose, fitness=fitness, converged=any_ok, iters=state.iters,
                      inlier_frac=inlier_frac)
+
+
+# calls: each moves its source once before its loop and makes one
+# correspondence pass after it
+icp_point2point_lanes.runs = 0

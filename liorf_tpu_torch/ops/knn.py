@@ -47,7 +47,8 @@ def build_grid(
         keys=keys[order].contiguous(),
         mask=(mask & in_range)[order],
         origin=origin,
-        cell_size=torch.as_tensor(cell_size, dtype=xyz.dtype, device=xyz.device),
+        # filled on the device: a host value uploaded would make the host wait
+        cell_size=torch.full((), cell_size, dtype=xyz.dtype, device=xyz.device),
     )
 
 

@@ -7,8 +7,8 @@ kd-tree; the top-k is CUDA kernel K1), a plane is fit through them, and the
 weighted point-to-plane residuals drive a 6-DoF euler-parameterized
 Gauss-Newton step with the LOAM-style eigenvalue degeneracy projection
 (``mapOptmization.cpp:1242-1271``). Every iteration is fully batched on the
-device; the loop itself runs on the host and reads one ``done`` flag per
-iteration.
+device (``ops/scan_gn.py``: two hand-written kernels an iteration beside K1);
+the loop itself runs on the host and reads one ``done`` flag per iteration.
 
 Semantics kept from the reference:
   * pose = [roll, pitch, yaw, x, y, z], R = Rz Ry Rx;
@@ -25,9 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from . import scan_gn
 from .knn import SpatialHashGrid, knn_grid
-from .plane_fit import fit_planes
 
 
 class ScanMatchParams(NamedTuple):
@@ -52,30 +51,6 @@ class ScanMatchResult(NamedTuple):
     converged: torch.Tensor  # [] bool
     iters: torch.Tensor  # [] int32
     num_matched: torch.Tensor  # [] int32 (matched points at the last iteration)
-
-
-def _rot_derivatives(rpy: torch.Tensor) -> torch.Tensor:
-    """[3] euler -> [3, 3, 3]: dR/d(roll), dR/d(pitch), dR/d(yaw)."""
-    r, p, y = rpy[0], rpy[1], rpy[2]
-    cr, sr = torch.cos(r), torch.sin(r)
-    cp, sp = torch.cos(p), torch.sin(p)
-    cy, sy = torch.cos(y), torch.sin(y)
-    z = torch.zeros_like(r)
-    o = torch.ones_like(r)
-
-    def mat(rows):
-        return torch.stack([torch.stack(row) for row in rows])
-
-    Rx = mat([[o, z, z], [z, cr, -sr], [z, sr, cr]])
-    Ry = mat([[cp, z, sp], [z, o, z], [-sp, z, cp]])
-    Rz = mat([[cy, -sy, z], [sy, cy, z], [z, z, o]])
-    dRx = mat([[z, z, z], [z, -sr, -cr], [z, cr, -sr]])
-    dRy = mat([[-sp, z, cp], [z, z, z], [-cp, z, -sp]])
-    dRz = mat([[-sy, -cy, z], [cy, -sy, z], [z, z, z]])
-    d_roll = Rz @ Ry @ dRx
-    d_pitch = Rz @ dRy @ Rx
-    d_yaw = dRz @ Ry @ Rx
-    return torch.stack([d_roll, d_pitch, d_yaw])
 
 
 def scan_to_map(
@@ -105,50 +80,28 @@ def scan_to_map(
 
 
 def _build_system_lanes(pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params,
-                        mesh=None):
+                        mesh=None, world=None):
     """One linearization of B sessions at once (correspondences + plane fits
     + (H, g, count)): pose [B, 6], scan [B, N, 3] + mask, a stacked grid
-    ([B, ...] fields). One K1 launch for every lane; the plane fits run over
-    the flattened [B*N] neighbourhoods. Returns H [B, 6, 6], g [B, 6],
-    count [B].
+    ([B, ...] fields). One K1 launch for every lane, then one call of
+    ``scan_gn.scan_linearize``. ``world`` is the scan moved by ``pose``
+    (``scan_gn.transform``, as ``scan_gn.scan_update`` writes it), moved here
+    when not given. Returns H [B, 6, 6], g [B, 6], count [B].
 
     With a ``mesh`` the scan is this rank's block of points and (H, g,
     count) are summed over the ranks in one all-reduce of 36 + 6 + 1 values
     a lane (the JAX package's ``psum``, scan_match.py:117-120 there); the
     count travels as float32, exact below 2^24 points."""
-    B, N = scan_mask.shape
-    R = se3.euler_to_rot(pose[:, :3])  # [B, 3, 3]
-    t = pose[:, 3:]
-    world = scan_xyz @ R.transpose(-1, -2) + t[:, None, :]
-
+    B = scan_mask.shape[0]
+    if world is None:
+        world = scan_gn.transform(pose, scan_xyz)
     d2, idx = knn_grid(grid, world, scan_mask, k=5, bucket=params.knn_bucket)
-    gate = d2[..., 4] < params.corr_dist * params.corr_dist
-    nbr_mask = torch.isfinite(d2) & gate[..., None]
-    lanes = torch.arange(B, device=idx.device)[:, None, None]
-    neighbors = grid.xyz[lanes, idx]  # [B, N, 5, 3]
-
-    fit = fit_planes(
-        neighbors.reshape(B * N, 5, 3), nbr_mask.reshape(B * N, 5), params.plane_max_resid
-    )
-    normal, d, valid = fit.normal.reshape(B, N, 3), fit.d.reshape(B, N), fit.valid.reshape(B, N)
-    pd2 = torch.einsum("bni,bni->bn", normal, world) + d
-    s = 1.0 - 0.9 * torch.abs(pd2) / scan_norm_quarter
-    sel = scan_mask & gate & valid & (s > params.min_weight)
-    w = torch.where(sel, s, 0.0)
-
-    dR = torch.func.vmap(_rot_derivatives)(pose[:, :3])  # [B, 3, 3, 3]
-    rotated = torch.einsum("bkij,bnj->bnki", dR, scan_xyz)
-    J_rot = torch.einsum("bnki,bni->bnk", rotated, normal)
-    J = torch.cat([J_rot, normal], dim=-1) * w[..., None]  # [B, N, 6]
-    b_ = -(w * pd2)
-
-    Jt = J.transpose(-1, -2)
-    H = Jt @ J
-    g = (Jt @ b_[..., None])[..., 0]
-    count = torch.sum(sel.to(torch.int32), dim=-1)
+    H, g, count = scan_gn.scan_linearize(pose, scan_xyz, scan_mask, scan_norm_quarter, d2, idx,
+                                         grid.xyz, params)
     if mesh is not None:
         red = mesh.all_reduce(torch.cat([H.reshape(B, 36), g, count[:, None].to(H.dtype)], 1))
-        H, g, count = red[:, :36].reshape(B, 6, 6), red[:, 36:42], red[:, 42].to(torch.int32)
+        H, g = red[:, :36].reshape(B, 6, 6).contiguous(), red[:, 36:42].contiguous()
+        count = red[:, 42].to(torch.int32)
     return H, g, count
 
 
@@ -165,9 +118,11 @@ def scan_to_map_lanes(
     of the result gets the [B] axis. The single-session matcher is its
     B = 1 case.
 
-    One batched Gauss-Newton loop: each iteration linearizes every lane
-    (one K1 launch for all of them) and solves the B 6x6 systems together;
-    a lane whose own loop would have stopped (converged or too few
+    One batched Gauss-Newton loop: the scan moved once
+    (``scan_gn.transform``), then each iteration is one K1 launch for every
+    lane, one ``scan_gn.scan_linearize`` and one ``scan_gn.scan_update``
+    call (the two kernels of ``csrc/scan_gn.cu`` on the card: no library
+    solver); a lane whose own loop would have stopped (converged or too few
     matches) is frozen — its pose, match count and iteration count stay as
     its single-session loop left them, as a vmapped ``lax.while_loop``
     does. The host reads one "all done" flag per iteration (in place of
@@ -176,56 +131,32 @@ def scan_to_map_lanes(
     With a ``mesh`` the scans are this rank's blocks of points and the
     normal equations are all-reduced (:func:`_build_system_lanes`): every
     rank then takes the same steps and reads the same flag."""
-    B = scan_xyz.shape[0]
-    dev = scan_xyz.device
+    scan_xyz, scan_mask = scan_xyz.contiguous(), scan_mask.contiguous()
     scan_norm_quarter = torch.sqrt(
         torch.sqrt(torch.linalg.norm(scan_xyz, dim=-1) + 1e-12)
     )
-    pose = init_pose.to(torch.float32)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    P = eye6.expand(B, 6, 6)
-    degenerate = torch.zeros((B,), dtype=torch.bool, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    count = torch.zeros((B,), dtype=torch.int32, device=dev)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    it = 0
-    while it < params.max_iters:
+    scan_to_map_lanes.calls += 1
+    state = scan_gn.init_state(init_pose)
+    world = scan_gn.transform(state.pose, scan_xyz)
+    for it in range(params.max_iters):
         H, g, cnt = _build_system_lanes(
-            pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params, mesh
+            state.pose, scan_xyz, scan_mask, scan_norm_quarter, grid, params, mesh, world
         )
-        live = ~done
-        enough = cnt >= params.min_points
-        # Degeneracy analysis on the first iteration only (reference :1242);
-        # every lane is on its first iteration together.
-        if it == 0:
-            lam, V = torch.linalg.eigh(H)
-            good = lam >= params.eigen_thresh
-            P = (V * good[:, None, :].to(H.dtype)) @ V.transpose(-1, -2)
-            degenerate = ~torch.all(good, dim=-1)
-
-        x = torch.linalg.solve(H + eye6 * 1e-6, g)
-        x = torch.where(degenerate[:, None], (P @ x[..., None])[..., 0], x)
-        x = torch.where(enough[:, None], x, torch.zeros_like(x))
-
-        pose = torch.where(live[:, None], pose + x, pose)
-        count = torch.where(live, cnt, count)
-        iters = iters + live.to(torch.int32)
-        delta_rot = torch.rad2deg(torch.linalg.norm(x[:, :3], dim=-1))
-        delta_trans = torch.linalg.norm(x[:, 3:], dim=-1) * 100.0
-        converged = (delta_rot < params.conv_rot_deg) & (
-            delta_trans < params.conv_trans_cm
-        )
-        done = done | (converged | ~enough)
-        it += 1
-        if bool(torch.all(done)):
+        state, world, all_done = scan_gn.scan_update(state, H, g, cnt, scan_xyz, params,
+                                                     first=it == 0)
+        if bool(all_done):
             break
 
     # The match count is the last linearization's (pre-final-update), as in
     # the reference's diagnostics.
     return ScanMatchResult(
-        pose=pose,
-        degenerate=degenerate,
-        converged=done & (count >= params.min_points),
-        iters=iters,
-        num_matched=count,
+        pose=state.pose,
+        degenerate=state.degenerate,
+        converged=state.done & (state.count >= params.min_points),
+        iters=state.iters,
+        num_matched=state.count,
     )
+
+
+# calls: each moves its scan once before its loop (scan_gn.transform)
+scan_to_map_lanes.calls = 0
