@@ -13,7 +13,9 @@ index_add; the pose graph's PCG kernel bit for bit against its plain version
 on the CPU; its linearization kernel bit for bit against its plain version
 and within a stated bound of the jacfwd linearization; the IMU fusion
 kernel bit for bit against its plain version on the card and within stated
-bounds of a float64 run and of the jacfwd fusion step; the scan matcher's
+bounds of a float64 run and of the jacfwd fusion step; the IMU
+preintegration kernel bit for bit against its plain version on the card and
+within the CPU tests' bounds of the sequential recursion; the scan matcher's
 linearization and update kernels and ICP's alignment kernel bit for bit
 against their plain versions on the card),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
@@ -35,18 +37,20 @@ at the main path's shapes on the main path's own final grid, and the voxel
 filter's reduction, the PCG kernel and the linearization on the arguments
 the main path gave them, right after that path (the PCG and the
 linearization also on the resident full solve's), and on the 8-lane
-launches of multistream_path; the fusion kernel on the last launch of the
-main path, the resident path and the 8-lane multistream path; the segment
+launches of multistream_path; the fusion and the preintegration kernels on
+the last launch of the main path, the resident path and the 8-lane
+multistream path (the preintegration also on a seeded K = 256 window); the segment
 sum on a seeded plan of the dist phase's graph; both k-NN kernels with a
 lane axis at N = 8 in the kernels phase; the scan matcher's two kernels on
 the last launches of the main path, the resident path and the 8-lane
 multistream path, ICP's alignment kernel on the last launch of the resident
 loop path and the multistream loop course. A single-device path launches no
 segment sum, one voxel_reduce a voxel filter call, one fusion_step a fusion
-call, one scan_linearize and one scan_update a K1 launch (a GN iteration)
+call, one preintegrate a preintegration call (at most one of each a
+multistream tick), one scan_linearize and one scan_update a K1 launch (a GN iteration)
 and one icp_align an ICP iteration (a K2 launch but each run's last);
-resident_loop_path's host syncs come from no library solver, no upload and
-no kernel wrapper, at most MAX_SYNCS_PER_FRAME a frame; main_path and
+resident_loop_path's host syncs come from no library solver, no upload, no
+kernel wrapper and not the IMU preintegration, at most MAX_SYNCS_PER_FRAME a frame; main_path and
 resident_path name their five slowest frames. Everything runs
 in the default mode (``torch.use_deterministic_algorithms`` off).
 
@@ -98,12 +102,14 @@ from liorf_tpu_torch.eval.metrics import ate_rmse  # noqa: E402
 from liorf_tpu_torch.core import build, se3  # noqa: E402
 from liorf_tpu_torch.graph import pose_graph as pg  # noqa: E402
 from liorf_tpu_torch.imu import fusion as tfusion  # noqa: E402
+from liorf_tpu_torch.imu import preintegration as tpre  # noqa: E402
 from liorf_tpu_torch.ops import fusion_step as fstep  # noqa: E402
 from liorf_tpu_torch.ops import icp as ticp  # noqa: E402
 from liorf_tpu_torch.ops import icp_align as ialign  # noqa: E402
 from liorf_tpu_torch.ops import knn, knn_cuda  # noqa: E402
 from liorf_tpu_torch.ops import linearize as lin  # noqa: E402
 from liorf_tpu_torch.ops import pcg  # noqa: E402
+from liorf_tpu_torch.ops import preintegrate as tpop  # noqa: E402
 from liorf_tpu_torch.ops import scan_gn as sgn  # noqa: E402
 from liorf_tpu_torch.ops import scan_match as tmatch  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
@@ -133,6 +139,7 @@ VOXEL_SOURCE = "liorf_tpu_torch/csrc/voxel_reduce.cu"
 FUSION_SOURCE = "liorf_tpu_torch/csrc/fusion.cu"
 SCAN_GN_SOURCE = "liorf_tpu_torch/csrc/scan_gn.cu"
 ICP_ALIGN_SOURCE = "liorf_tpu_torch/csrc/icp_align.cu"
+PREINT_SOURCE = "liorf_tpu_torch/csrc/preintegrate.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -166,18 +173,20 @@ MULTI_CAPS = dict(
 MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
-KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vred, fstep, sgn, ialign)
+KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vred, fstep, sgn, ialign, tpop)
 
 
 def reset_counts() -> None:
     """Every kernel's launch count, the pose graph's count of GN steps, the
-    voxel filter's, the fusion step's and the scan matcher's counts of calls
-    and the ICP's count of runs to 0 (just before a path runs)."""
+    voxel filter's, the fusion step's, the preintegration's and the scan
+    matcher's counts of calls and the ICP's count of runs to 0 (just before a
+    path runs)."""
     for m in KERNEL_MODULES:
         m.reset_launch_counts()
     pg.solve.gn_steps = 0
     tvoxel.voxel_downsample.calls = 0
     tfusion.fusion_step.calls = 0
+    tpre.preintegrate.calls = 0
     ticp.icp_point2point_lanes.runs = 0
     tmatch.scan_to_map_lanes.calls = 0
 
@@ -189,6 +198,7 @@ def launch_counts() -> dict[str, int]:
     return {**out, "pose_graph_gn_steps": pg.solve.gn_steps,
             "voxel_filter_calls": tvoxel.voxel_downsample.calls,
             "fusion_calls": tfusion.fusion_step.calls,
+            "preintegrate_calls": tpre.preintegrate.calls,
             "icp_runs": ticp.icp_point2point_lanes.runs,
             "scan_to_map_calls": tmatch.scan_to_map_lanes.calls}
 
@@ -280,7 +290,7 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and the eight kernel libraries built at once
+    """The card, the toolchain, and the nine kernel libraries built at once
     (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
@@ -300,6 +310,7 @@ def phase_device(ptxas: bool) -> str:
                                   voxel_reduce=vred.build_seconds,
                                   fusion=fstep.build_seconds,
                                   scan_gn=sgn.build_seconds, icp_align=ialign.build_seconds,
+                                  preintegrate=tpop.build_seconds,
                                   all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -888,6 +899,7 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
     from liorf_tpu_torch.imu import fusion, preintegration
     from liorf_tpu_torch.ops import scan_match, scancontext
+    from liorf_tpu_torch.ops.deskew import deskew_scan, integrate_gyro
 
     cfg, fp = pipe.cfg, pipe.frame_params
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -908,6 +920,11 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     dts = torch.full((K,), 0.01, device=DEV)
     imask = torch.arange(K, device=DEV) < 10
     z3 = torch.zeros(3, device=DEV)
+    # deskew's inputs: a gyro window of 24 samples at 200 Hz over a 0.1 s scan
+    dk_times = 0.3 + 0.005 * torch.arange(K, device=DEV, dtype=torch.float32)
+    dk_mask = torch.arange(K, device=DEV) < 24
+    rel_t = 0.1 * torch.rand(raw.shape[0], generator=gen, device=DEV)
+    scan_start = torch.full((), 0.31, device=DEV)
     pre = preintegration.preintegrate(acc, gyr, dts, imask, z3, z3, fp.fusion.imu)
     filt = fusion.init_filter(torch.eye(3, device=DEV), z3, fp.fusion)
     no = torch.zeros((), dtype=torch.bool, device=DEV)
@@ -932,7 +949,10 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
             st0, H, g, cnt, world[None], fp.match, first=False),
         "voxel_downsample scan (raw -> scan_capacity)": lambda: voxel_downsample_xyz(raw, raw_mask, fp.leaf, fp.scan_cap),
         "scancontext descriptor": lambda: scancontext.make_descriptor(raw, raw_mask),
-        "preintegrate": lambda: preintegration.preintegrate(acc, gyr, dts, imask, z3, z3, fp.fusion.imu),
+        "preintegrate (one csrc/preintegrate.cu launch)": lambda: preintegration.preintegrate(
+            acc, gyr, dts, imask, z3, z3, fp.fusion.imu),
+        "deskew (integrate_gyro + deskew_scan, raw_capacity points)": lambda: deskew_scan(
+            raw, rel_t, raw_mask, scan_start, integrate_gyro(dk_times, gyr, dk_mask)),
         "fusion_step": lambda: fusion.fusion_step(filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
         "fusion_step_jacfwd (op by op, the oracle)": lambda: fusion.fusion_step_jacfwd(
             filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
@@ -1316,13 +1336,14 @@ def resident_stages(rp, snaps):
 
 
 # The host syncs of resident_loop_path: none may come from the scan
-# matcher's or ICP's arithmetic (their kernels run without a library solver)
-# or from a host value uploaded at a grid build or a keyframe; each loop may
+# matcher's or ICP's arithmetic (their kernels run without a library solver),
+# from the IMU preintegration (one kernel, no read) or from a host value
+# uploaded at a grid build or a keyframe; each loop may
 # read its one "all done" flag an iteration. What is left (~10 a frame:
 # those flags, is_kf, the loop gate and full-solve flags) stays under
 # MAX_SYNCS_PER_FRAME.
 NO_SYNC_FILES = ("ops/plane_fit.py", "ops/scan_gn.py", "ops/icp_align.py", "ops/knn.py",
-                 "graph/marginal.py")
+                 "graph/marginal.py", "ops/preintegrate.py", "imu/preintegration.py")
 FLAG_READ = "if bool(all_done):"
 MAX_SYNCS_PER_FRAME = 12
 
@@ -1530,13 +1551,14 @@ def phase_multistream_path() -> dict:
         mp = MultiStreamPipeline(cfg, n_streams=n)
         check(mp.device.type == "cuda", "MultiStreamPipeline must default to the GPU")
         iis = [0] * n
-        tick_ms, k1_tick, gn_tick, fus_tick = [], [], [], []
+        tick_ms, k1_tick, gn_tick, fus_tick, pre_tick = [], [], [], [], []
         reset_counts()
         for f in range(MULTI_TICKS):
             scans = [streams[b][0][f] for b in range(n)]
             for b in range(n):
                 iis[b] = feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], streams[b][1], iis[b])
             k1, fus = launch_counts()["knn_grid_topk"], fstep.fusion_step.launches
+            pre = tpop.preintegrate.launches
             torch.cuda.synchronize()
             a = time.perf_counter()
             if captured is None:
@@ -1548,10 +1570,11 @@ def phase_multistream_path() -> dict:
             tick_ms.append((time.perf_counter() - a) * 1e3)
             k1_tick.append(launch_counts()["knn_grid_topk"] - k1)
             fus_tick.append(fstep.fusion_step.launches - fus)
+            pre_tick.append(tpop.preintegrate.launches - pre)
             gn_tick.append(mp.last_gn_iters)
         counts = launch_counts()
         mp.finish()
-        return mp, counts, tick_ms, k1_tick, gn_tick, fus_tick
+        return mp, counts, tick_ms, k1_tick, gn_tick, fus_tick, pre_tick
 
     def lane_report(mp, n):
         ates, kf_counts, loops = [], [], []
@@ -1584,7 +1607,7 @@ def phase_multistream_path() -> dict:
     # Timing: N = 1, 4, 8 lanes.
     out, per_n, lane_cases, mp_det = {}, {}, {}, None
     for n in MULTI_LANES:
-        mp, counts, tick_ms, k1_tick, gn_tick, fus_tick = multi(
+        mp, counts, tick_ms, k1_tick, gn_tick, fus_tick, pre_tick = multi(
             n, lane_cases if n == max(MULTI_LANES) else None)
         ticks = mp.ticks
         # per tick: the batched GN loop runs until its slowest lane stops,
@@ -1609,6 +1632,7 @@ def phase_multistream_path() -> dict:
             k1_per_tick=counts["knn_grid_topk"] / ticks, k2_per_tick=counts["knn_bruteforce"] / ticks,
             k1_bootstrap_tick=k1_tick[0], k1_ticks_off_slowest_lane=sum(x != 0 for x in k1_vs_max),
             fusion_launches_per_tick_max=max(fus_tick),
+            preintegrate_launches_per_tick_max=max(pre_tick),
             gn_iters_batched=gn_batched, gn_iters_per_lane=mp.gn_iters_per_lane(),
             gn_iters_slowest_lane_per_tick=float(gn.max(axis=1).mean()),
             gn_iters_lane_mean_per_tick=float(gn.mean()),
@@ -1654,6 +1678,8 @@ def phase_multistream_path() -> dict:
     pcg_lanes = phase_pcg(pcg_cases(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     lin_lanes = phase_linearize(linearize_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     fus_lanes = phase_fusion(fusion_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
+    pre_lanes = phase_preintegrate(preintegrate_case(lane_cases),
+                                   f"multistream_path_{max(MULTI_LANES)}")
     vr_lanes = phase_voxel_reduce(lane_cases, max(MULTI_LANES))
     sg_lanes = phase_scan_gn(lane_cases, f"multistream_path_{max(MULTI_LANES)}")
     ia_lanes = phase_icp_align(icp_cases, f"multistream_loop_course_{MULTI_PARITY_LANES}")
@@ -1682,7 +1708,11 @@ def phase_multistream_path() -> dict:
         # the fusion step: at most one launch a tick, every lane in it
         check(row["fusion_launches_per_tick_max"] <= 1,
               f"N={n}: {row['fusion_launches_per_tick_max']} fusion launches in one tick")
-    return out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes
+        # the preintegration: at most one launch a tick, every lane in it
+        check(row["preintegrate_launches_per_tick_max"] <= 1,
+              f"N={n}: {row['preintegrate_launches_per_tick_max']} preintegrate launches in one "
+              "tick")
+    return out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes, pre_lanes
 
 
 def multistream_loop_course(n: int, captured: dict) -> dict:
@@ -1822,7 +1852,8 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     the launch's leading axis) of: the voxel filter's reduction, by output
     size (``voxel_reduce_out<S>``); the PCG for each iteration count
     (``pcg_iters<n>``: the window and the full solves); the linearization
-    (``linearize``); of the fusion step (``fusion_step``); and of any segment
+    (``linearize``); of the fusion step (``fusion_step``); of the IMU
+    preintegration (``preintegrate``); and of any segment
     sum (``segment_sum``: a single-device path launches none); of the scan
     matcher's linearization (``scan_linearize``), update (``scan_update``,
     and ``scan_update_first`` of a first GN iteration) and first move of the
@@ -1832,7 +1863,7 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     real, real_pcg, real_lin, real_vred = segsum._launch, pcg._launch, lin._launch, vred._launch
     real_fus, real_sl, real_su, real_ia = (fstep._launch, sgn._launch_linearize, sgn._launch_update,
                                            ialign._launch_align)
-    real_tf = sgn._launch_transform
+    real_tf, real_pre = sgn._launch_transform, tpop._launch
 
     def spy(*args, **kw):
         cases["segment_sum"] = args
@@ -1858,6 +1889,11 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases["fusion_step"] = args
         return real_fus(*args)
 
+    def spy_pre(*args):
+        if args[0].shape[0] == lanes:
+            cases["preintegrate"] = args
+        return real_pre(*args)
+
     def spy_sl(*args):
         if args[0].shape[0] == lanes:
             cases["scan_linearize"] = args
@@ -1881,13 +1917,13 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
 
     segsum._launch, pcg._launch, lin._launch, vred._launch = spy, spy_pcg, spy_lin, spy_vred
     fstep._launch, sgn._launch_linearize, sgn._launch_update = spy_fus, spy_sl, spy_su
-    ialign._launch_align, sgn._launch_transform = spy_ia, spy_tf
+    ialign._launch_align, sgn._launch_transform, tpop._launch = spy_ia, spy_tf, spy_pre
     try:
         yield cases
     finally:
         segsum._launch, pcg._launch, lin._launch, vred._launch = real, real_pcg, real_lin, real_vred
         fstep._launch, sgn._launch_linearize, sgn._launch_update = real_fus, real_sl, real_su
-        ialign._launch_align, sgn._launch_transform = real_ia, real_tf
+        ialign._launch_align, sgn._launch_transform, tpop._launch = real_ia, real_tf, real_pre
 
 
 def pcg_cases(cases: dict) -> dict:
@@ -1905,6 +1941,12 @@ def fusion_case(cases: dict):
     """The captured fusion step, taken out of ``cases``."""
     check("fusion_step" in cases, f"no fusion_step launch captured: {sorted(cases)}")
     return cases.pop("fusion_step")
+
+
+def preintegrate_case(cases: dict):
+    """The captured preintegration, taken out of ``cases``."""
+    check("preintegrate" in cases, f"no preintegrate launch captured: {sorted(cases)}")
+    return cases.pop("preintegrate")
 
 
 def bench_segsum(src, perm, keys, S: int, offsets) -> dict:
@@ -2472,6 +2514,158 @@ def phase_fusion(args, label: str) -> dict:
               f"{what}: off the {ref} run: mean {res[f'{ref}_mean_max_abs_diff']} (bound "
               f"{mean_tol}), information {res[f'{ref}_info_max_rel_diff']} (bound "
               f"{FUSION_INFO_TOL})")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the IMU preintegration
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain version on the card: bit for bit. Against
+# imu/preintegration.py::preintegrate_sequential (the Forster recursion on
+# core/se3.py's own Rodrigues forms, in float64 on a CPU copy of each lane, so
+# that it shares no helper and no rounding with the code under test), as
+# tests/test_torch_preintegrate.py holds them, a form's rounding counted at
+# its worst (PREINT_ROUNDINGS a field's entry a sample: the covariance's
+# A Q A^T + Q, two 9-term product sums and an add): the plain version in
+# float64 within 2 PREINT_ROUNDINGS n eps64 max|field| a field (a 3 x 3 block
+# of the covariance), n the valid samples (sequential_max_ratio_to_bound);
+# and the kernel's float32 result within (PREINT_ROUNDINGS n eps32 + 3 e)
+# max|field|, e = max over the samples of min(eps32 / (2 theta), theta / 2),
+# theta = |w dt|, what float32's cancellation in Rodrigues'
+# (1 - cos theta) / theta^2 can put into a leaf's Jr
+# (exact_max_ratio_to_bound). Each line records the largest distance over
+# its bound (<= 1 holds).
+EPS32 = 2.0**-24
+EPS64 = 2.0**-53
+PREINT_ROUNDINGS = 19
+PREINT_K256 = (256, 230)  # the seeded window: K and its valid samples (a dt = 0, a masked one)
+
+# The operations the function needs a valid sample (the sequential Forster
+# recursion on A's structure, not the kernel's tree): a and w dt 9; so3_exp
+# (EXP_OPS); Jr 28; the state (P hat(a) 27, P a 15, dp 12, dv 6, dR 45, T 1);
+# the five Jacobians 207; the covariance A S A^T on A's block structure (513
+# for A S, 285 for the symmetric half of (A S) A^T) and B N B^T on B's (180).
+PREINT_SAMPLE_OPS = 9 + EXP_OPS + 28 + (27 + 15 + 12 + 6 + 45 + 1) + 207 + (513 + 285 + 180)
+
+
+def _cov_blocks(name, x):
+    if name != "cov":
+        return [x]
+    return [x[3 * i:3 * i + 3, 3 * j:3 * j + 3] for i in range(3) for j in range(3)]
+
+
+def _scaled_ratio(got, want, rel: float) -> float:
+    """The largest distance of got from want over rel max|field| (each 3 x 3
+    block of the covariance its own field)."""
+    worst = 0.0
+    for name, x, y in zip(tpop.FIELDS, got, want):
+        for xb, yb in zip(_cov_blocks(name, x.double()), _cov_blocks(name, y.double())):
+            d, scale = float((xb - yb).abs().max()), rel * float(yb.abs().max())
+            worst = max(worst, d / scale if scale > 0 else (0.0 if d == 0 else float("inf")))
+    return worst
+
+
+def preint_oracle_ratios(args, out) -> dict:
+    """The plain version in float64 and the kernel's float32 result against
+    preintegrate_sequential in float64, each lane on a CPU copy, over their
+    bounds (see PREINT_ROUNDINGS)."""
+    host = [t.cpu() for t in args[:6]]
+    wide = [t.double() if t.is_floating_point() else t for t in host]
+    params = tpre.ImuParams(acc_noise=args[6], gyr_noise=args[7], int_noise=args[8])
+    plain64 = tpop.preintegrate_plain(*wide, *args[6:])
+    seq_ratio = exact_ratio = 0.0
+    for b in range(host[0].shape[0]):
+        seq = tpre.preintegrate_sequential(*(t[b] for t in wide), params)
+        seq = [getattr(seq, f) for f in tpop.FIELDS]
+        acc, gyr, dts, mask, ba, bg = (t[b] for t in host)
+        n = int(mask.sum())
+        theta = ((gyr - bg) * torch.where(mask, dts, 0.0)[:, None]).double().norm(dim=1)
+        leaf = float(torch.minimum(EPS32 / (2 * theta), theta / 2).max())
+        seq_ratio = max(seq_ratio, _scaled_ratio([o[b] for o in plain64], seq,
+                                                 2 * PREINT_ROUNDINGS * n * EPS64))
+        exact_ratio = max(exact_ratio, _scaled_ratio([o[b].cpu() for o in out], seq,
+                                                     PREINT_ROUNDINGS * n * EPS32 + 3 * leaf))
+    return dict(sequential_max_ratio_to_bound=seq_ratio, exact_max_ratio_to_bound=exact_ratio)
+
+
+def preint_seeded_case(lanes: int = 4):
+    """tests/test_torch_ops.py::_imu_case's window at K = 256 (230 valid
+    samples, a duplicate timestamp, a masked one), one lane a seed 5, 6, ..."""
+    K, n_valid = PREINT_K256
+    cols = []
+    for seed in range(5, 5 + lanes):
+        rng = np.random.default_rng(seed)
+        acc = (rng.normal(0, 0.5, (K, 3)) + [0.3, -0.2, 9.8]).astype(np.float32)
+        gyr = rng.normal(0, 0.3, (K, 3)).astype(np.float32)
+        dts = np.full(K, 0.005, np.float32)
+        dts[3] = 0.0
+        mask = np.arange(K) < n_valid
+        mask[7] = False
+        cols.append((acc, gyr, dts, mask, np.array([0.02, -0.01, 0.03], np.float32),
+                     np.array([0.001, 0.002, -0.001], np.float32)))
+    p = tpre.ImuParams()
+    return (*(torch.from_numpy(np.stack(c)).to(DEV) for c in zip(*cols)), p.acc_noise,
+            p.gyr_noise, p.int_noise)
+
+
+def bench_preintegrate(args) -> dict:
+    """The preintegration kernel on the arguments a path gave it: against
+    its plain version on the card (bit for bit), against itself, each lane
+    against its own launch, against the sequential oracle in float64 (see
+    PREINT_ROUNDINGS); timed beside the plain version (no single PyTorch call
+    preintegrates a window: library_ms null). bound_ms counts what the
+    function needs: the mask, the valid samples' acc, gyr and dt, the biases
+    and the outputs, each once, and PREINT_SAMPLE_OPS a valid sample."""
+    tensors, consts = args[:6], args[6:]
+    B, K = tensors[2].shape
+
+    def kernel():
+        return tpop.preintegrate(*args)
+
+    out = tpop._launch(*args)
+    again = kernel()
+    plain = tpop.preintegrate_plain(*args)
+    alone = [tpop.preintegrate(*(t[b:b + 1] for t in tensors), *consts) for b in range(B)]
+    n_valid = int(tensors[3].sum())
+    return dict(
+        shape=dict(lanes=B, K=K, valid_samples=n_valid), lanes=B,
+        max_abs_err=max_abs_err(out, plain),
+        equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
+        repeats=all(same_bits(o, a) for o, a in zip(out, again)),
+        lanes_equal_one_lane_launches=all(
+            same_bits(o, torch.cat([x[i] for x in alone])) for i, o in enumerate(out)),
+        **preint_oracle_ratios(args, out),
+        finite=all(bool(torch.isfinite(o).all()) for o in out),
+        **kernel_ms(kernel),
+        # the kernel's own time on the card, apart from the wrapper's host time
+        device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: tpop.preintegrate_plain(*args), reps=5, warm=1),
+        library_ms=None,
+        **bound(nbytes(tensors[3:]) + n_valid * (12 + 12 + 4) + nbytes(out),
+                n_valid * PREINT_SAMPLE_OPS),
+    )
+
+
+def phase_preintegrate(args, label: str) -> dict:
+    """The preintegration kernel held on the launch a path gave it
+    (capture_kernel_args) or on the seeded window: one line, then its checks."""
+    res = bench_preintegrate(args)
+    emit("kernels_preintegrate", path=label, **res,
+         tolerance="bit for bit against the plain version on the card; against the sequential "
+                   "oracle in float64: the plain version in float64 within 38 n eps64 "
+                   "max|field| (sequential_max_ratio_to_bound <= 1), the kernel within "
+                   "(19 n eps32 + 3 e) max|field| (exact_max_ratio_to_bound <= 1)")
+    what = f"preintegrate on {label} {res['shape']}"
+    check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
+    check(res["repeats"], f"{what}: two launches differ")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(res["finite"], f"{what}: not finite")
+    check(res["sequential_max_ratio_to_bound"] <= 1.0,
+          f"{what}: the plain version in float64 {res['sequential_max_ratio_to_bound']} of its "
+          f"bound from the sequential oracle")
+    check(res["exact_max_ratio_to_bound"] <= 1.0,
+          f"{what}: {res['exact_max_ratio_to_bound']} of its bound from the float64 oracle")
     return res
 
 
@@ -3633,7 +3827,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
-    vr_lanes = pcg_lanes = lin_lanes = fus_lanes = sg_lanes = ia_lanes = None
+    vr_lanes = pcg_lanes = lin_lanes = fus_lanes = sg_lanes = ia_lanes = pre_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         cases = {}
@@ -3649,6 +3843,9 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
             kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
             kern["fusion_step"] = phase_fusion(fusion_case(cases), "main_path")
+            kern["preintegrate"] = phase_preintegrate(preintegrate_case(cases), "main_path")
+            kern["preintegrate_k256"] = phase_preintegrate(
+                preint_seeded_case(), f"seeded K={PREINT_K256[0]} window")
             kern["scan_gn"] = phase_scan_gn(cases, "main_path")
         del lin_main, cases
         resident = None
@@ -3660,6 +3857,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                 kern["fusion_step_resident"] = phase_fusion(fusion_case(res_cases),
                                                             "resident_path")
                 kern["scan_gn_resident"] = phase_scan_gn(res_cases, "resident_path")
+                kern["preintegrate_resident"] = phase_preintegrate(
+                    preintegrate_case(res_cases), "resident_path")
                 # the resident full solve's arguments (the main course lands
                 # no loop or GPS factor, so the path itself runs none)
                 rp = resident[0]
@@ -3702,8 +3901,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "faults" in phases:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
-        multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes = (
-            phase_multistream_path())
+        (multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes,
+         pre_lanes) = phase_multistream_path()
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -3850,6 +4049,26 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         launches_by_path=by_path("fusion_step"), fusion_calls_by_path=by_path("fusion_calls"),
         resident={f: kern["fusion_step_resident"][f] for f in fus_fields},
         lanes8={f: fus_lanes[f] for f in fus_fields}))
+    # the preintegration row: the main path's last launch (one lane)
+    pre_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by", "bytes", "flops", "max_abs_err",
+                  "sequential_max_ratio_to_bound", "exact_max_ratio_to_bound")
+    pre_main = kern["preintegrate"]
+    kernels.append(row(
+        "preintegrate",
+        "none (not a TPU kernel): the eager log-depth tree (a Hillis-Steele prefix and pairwise "
+        "_compose levels) of liorf_tpu_torch/imu/preintegration.py::preintegrate (the JAX "
+        "package's jitted preintegrate, two lax.associative_scans, at "
+        "liorf_tpu/imu/preintegration.py:56-162)",
+        main_counts["preintegrate"], r=pre_main, source=PREINT_SOURCE, shape=pre_main["shape"],
+        device_ms=pre_main["device_ms"],
+        sequential_max_ratio_to_bound=pre_main["sequential_max_ratio_to_bound"],
+        exact_max_ratio_to_bound=pre_main["exact_max_ratio_to_bound"],
+        launches_by_path=by_path("preintegrate"),
+        preintegrate_calls_by_path=by_path("preintegrate_calls"),
+        resident={f: kern["preintegrate_resident"][f] for f in pre_fields},
+        lanes8={f: pre_lanes[f] for f in pre_fields},
+        seeded_k256={f: kern["preintegrate_k256"][f] for f in pre_fields}))
     # the scan matcher's rows: the main path's last launches (one lane)
     gn_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
                  "library_ms", "library_call", "bound_ms", "bound_by", "bytes", "flops",
@@ -3921,6 +4140,9 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         check(c["fusion_step"] > 0 and c["fusion_step"] == c["fusion_calls"],
               f"{path}: {c['fusion_step']} fusion_step launches for {c['fusion_calls']} "
               f"fusion calls")
+        check(c["preintegrate"] > 0 and c["preintegrate"] == c["preintegrate_calls"],
+              f"{path}: {c['preintegrate']} preintegrate launches for "
+              f"{c['preintegrate_calls']} preintegrate calls")
         # one linearization and one update a (batched) GN iteration, as K1;
         # one alignment an ICP iteration: K2 less each run's last pass
         check(c["scan_linearize"] == c["knn_grid_topk"] == c["scan_update"],

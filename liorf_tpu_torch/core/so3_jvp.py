@@ -1,13 +1,15 @@
 """The SO(3) algebra of the hand-written kernels' plain versions, in torch
 ops with every operation rounded on its own and in the kernels' order: the
 3 x 3 products (:func:`mm`, :func:`mv`, :func:`mtm`, :func:`mtv`), ``so3_exp``
-and its forward-mode derivative (:func:`so3_exp`, :func:`so3_exp_jvp`), and
-``so3_log`` and its forward-mode derivative (:func:`log_jvp`). The plain
-versions of the pose graph's linearization (``ops/linearize.py``) and of the
-IMU fusion correction (``ops/fusion_step.py``) take their rotation Jacobians
-from here; ``csrc/so3_log.cuh`` is the log's CUDA twin and ``csrc/fusion.cu``
-spells the rest (the same operations in the same order, so each kernel
-equals its plain version bit for bit on the card).
+and its forward-mode derivative (:func:`so3_exp`, :func:`so3_exp_jvp`), the
+Jacobians' W^2 term (:func:`jr_term`), and ``so3_log`` and its forward-mode
+derivative (:func:`log_jvp`). The plain versions of the pose graph's
+linearization (``ops/linearize.py``), of the IMU fusion correction
+(``ops/fusion_step.py``) and of IMU preintegration (``ops/preintegrate.py``)
+take their rotation algebra from here; ``csrc/so3_log.cuh`` is the log's CUDA
+twin, ``csrc/so3_exp.cuh`` the exp's and the products', and
+``csrc/fusion.cu`` spells the rest (the same operations in the same order, so
+each kernel equals its plain version bit for bit on the card).
 
 The derivative is the one ``torch.func.jacfwd`` takes of
 ``core/se3.py::so3_log``'s formula, in the branch the value takes (theta <
@@ -68,6 +70,13 @@ def exp_terms(w):
     A = torch.where(small, 1.0 - th2 / 6.0, sn / st)
     B = torch.where(small, 0.5 - th2 / 24.0, (1.0 - cs) / (st * st))
     return th2, small, st, sn, cs, A, B
+
+
+def jr_term(th2, small, st, sn):
+    """(theta - sin theta) / theta^3 from :func:`exp_terms`' scalars, the W^2
+    coefficient of the left and right Jacobians (1/6 - theta^2 / 120 below
+    1e-5; ``csrc/so3_exp.cuh::jr_term``)."""
+    return torch.where(small, _SIXTH - th2 * (1.0 / 120.0), (st - sn) / ((st * st) * st))
 
 
 def so3_exp(w):

@@ -51,6 +51,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "so3_exp.cuh"
 #include "so3_log.cuh"
 
 namespace {
@@ -140,62 +141,10 @@ __device__ __forceinline__ void load(float* dst, const float* src, int n, int ti
   for (int i = tid; i < n; i += kThreads) dst[i] = src[i];
 }
 
-// A B
-__device__ __forceinline__ void mm(const float A[3][3], const float B[3][3], float out[3][3]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      out[a][c] = sum3(mul(A[a][0], B[0][c]), mul(A[a][1], B[1][c]), mul(A[a][2], B[2][c]));
-}
-
-// A x
-__device__ __forceinline__ void mv(const float A[3][3], const float x[3], float out[3]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) out[a] = sum3(mul(A[a][0], x[0]), mul(A[a][1], x[1]), mul(A[a][2], x[2]));
-}
-
 // A^T x
 __device__ __forceinline__ void mtv(const float A[3][3], const float x[3], float out[3]) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) out[c] = sum3(mul(A[0][c], x[0]), mul(A[1][c], x[1]), mul(A[2][c], x[2]));
-}
-
-__device__ __forceinline__ void hat3(const float w[3], float W[3][3]) {
-  W[0][0] = 0.0f; W[0][1] = -w[2]; W[0][2] = w[1];
-  W[1][0] = w[2]; W[1][1] = 0.0f; W[1][2] = -w[0];
-  W[2][0] = -w[1]; W[2][1] = w[0]; W[2][2] = 0.0f;
-}
-
-// so3_exp's scalars (core/se3.py::_rodrigues_terms)
-struct Exp {
-  float th2, st, sn, cs, A, B;
-  bool small;
-};
-
-__device__ __forceinline__ void exp_terms(const float w[3], Exp& e) {
-  e.th2 = sum3(mul(w[0], w[0]), mul(w[1], w[1]), mul(w[2], w[2]));
-  const float th = __fsqrt_rn(e.th2);
-  e.small = th < 1e-5f;
-  e.st = e.small ? 1.0f : th;
-  e.sn = (float)sin((double)e.st);  // as the plain version
-  e.cs = (float)cos((double)e.st);
-  e.A = e.small ? sub(1.0f, dvd(e.th2, 6.0f)) : dvd(e.sn, e.st);
-  e.B = e.small ? sub(0.5f, dvd(e.th2, 24.0f)) : dvd(sub(1.0f, e.cs), mul(e.st, e.st));
-}
-
-// I + A W + B W^2
-__device__ __forceinline__ void so3_exp(const float w[3], float R[3][3]) {
-  Exp e;
-  exp_terms(w, e);
-  float W[3][3], W2[3][3];
-  hat3(w, W);
-  mm(W, W, W2);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      R[a][c] = add(add(a == c ? 1.0f : 0.0f, mul(e.A, W[a][c])), mul(e.B, W2[a][c]));
 }
 
 // so3_exp's forward-mode derivative at w along dw, in the branch w takes

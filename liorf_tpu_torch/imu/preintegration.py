@@ -3,8 +3,8 @@
 Replacement for GTSAM's ``PreintegratedImuMeasurements`` used by the
 reference (``liorf/src/imuPreintegration.cpp:176-177,214-228,359-375``):
 Delta-R/v/p accumulation, first-order bias Jacobians, and 9x9 covariance
-propagation over a fixed-capacity masked window of IMU samples, in log-depth
-batched form (no per-sample Python loop on the frame path).
+propagation over a fixed-capacity masked window of IMU samples, in one kernel
+call (``ops/preintegrate.py``; no per-sample Python loop on the frame path).
 
 Conventions: gravity acts in -z with magnitude ``imuGravity``
 (``MakeSharedU``, imuPreintegration.cpp:213); acc/gyro samples are already
@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import se3
+from ..ops import preintegrate as pre_op
 
 
 class ImuParams(NamedTuple):
@@ -51,10 +52,6 @@ def _so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     return se3.so3_left_jacobian(-w)
 
 
-def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return (M @ v[..., None])[..., 0]
-
-
 def prefix_products(mats: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix products P[i] = M[0] @ ... @ M[i] of [K, n, n].
 
@@ -69,28 +66,6 @@ def prefix_products(mats: torch.Tensor) -> torch.Tensor:
         out = torch.cat([out[:d], out[:-d] @ out[d:]], dim=0)
         d *= 2
     return out
-
-
-def _compose(L, R):
-    """Monoid product of two preintegrated segments, L earlier than R
-    (batched over a leading axis); operand order as preintegration.py:132-148
-    of the JAX package."""
-    (dR_a, dv_a, dp_a, T_a, dRbg_a, dvba_a, dvbg_a, dpba_a, dpbg_a, A_a, Q_a) = L
-    (dR_b, dv_b, dp_b, T_b, dRbg_b, dvba_b, dvbg_b, dpba_b, dpbg_b, A_b, Q_b) = R
-    Tb = T_b[..., None]
-    dR = dR_a @ dR_b
-    dv = dv_a + _mv(dR_a, dv_b)
-    dp = dp_a + dv_a * Tb + _mv(dR_a, dp_b)
-    hat_dv_b = se3.hat(dv_b)
-    hat_dp_b = se3.hat(dp_b)
-    dRbg = dR_b.transpose(-1, -2) @ dRbg_a + dRbg_b
-    dvba = dvba_a + dR_a @ dvba_b
-    dvbg = dvbg_a + dR_a @ dvbg_b - dR_a @ hat_dv_b @ dRbg_a
-    dpba = dpba_a + dvba_a * Tb[..., None] + dR_a @ dpba_b
-    dpbg = dpbg_a + dvbg_a * Tb[..., None] + dR_a @ dpbg_b - dR_a @ hat_dp_b @ dRbg_a
-    A_ = A_b @ A_a
-    Q_ = A_b @ Q_a @ A_b.transpose(-1, -2) + Q_b
-    return (dR, dv, dp, T_a + T_b, dRbg, dvba, dvbg, dpba, dpbg, A_, Q_)
 
 
 def preintegrate(
@@ -111,92 +86,22 @@ def preintegrate(
         dp = dp_A + dv_A T_B + dR_A dp_B,  T = T_A + T_B,
 
     with the first-order bias Jacobians and the covariance recursion
-    (e' = A e + n) composing associatively alongside. Masked samples are the
-    monoid identity. ``preintegrate_sequential`` is the oracle."""
-    dtype, dev = acc.dtype, acc.device
-    K = acc.shape[0]
-    eye = torch.eye(3, dtype=dtype, device=dev)
-    sg2 = params.gyr_noise**2
-    sa2 = params.acc_noise**2
-    si2 = params.int_noise**2
-
-    a = acc - bias_acc
-    w = gyr - bias_gyr
-    dt = torch.where(mask, dts, 0.0)
-    wdt = w * dt[:, None]
-    dR_inc = se3.so3_exp(wdt)  # [K, 3, 3]
-    Jr = _so3_right_jacobian(wdt)
-
-    # pass 1: accumulated rotation BEFORE each step (exclusive prefix)
-    prods = prefix_products(dR_inc)
-    pre_R = torch.cat([eye[None], prods[:-1]], dim=0)  # [K, 3, 3]
-
-    # --- per-step (leaf) segments, local frame ---
-    dtc = dt[:, None]
-    dv_l = a * dtc
-    dp_l = 0.5 * a * dtc * dtc
-    dR_dbg_l = -Jr * dtc[..., None]
-    dv_dba_l = -eye[None] * dtc[..., None]
-    dv_dbg_l = torch.zeros((K, 3, 3), dtype=dtype, device=dev)
-    dp_dba_l = -0.5 * eye[None] * (dtc * dtc)[..., None]
-    dp_dbg_l = torch.zeros((K, 3, 3), dtype=dtype, device=dev)
-
-    # covariance leaves use the accumulated pre-step rotation (exactly the
-    # sequential A_i/B_i); masked steps are (A=I, Q=0)
-    Ra_hat = pre_R @ se3.hat(a)  # [K,3,3]
-    # the 9x9 / 9x6 blocks are assembled out of place (no slice writes into
-    # a fresh tensor), so the function also runs under torch.func.vmap
-    # (the lane axis of pipeline/multistream.py)
-    z33 = torch.zeros((K, 3, 3), dtype=dtype, device=dev)
-    I33 = eye.expand(K, 3, 3)
-
-    def blocks(rows):
-        return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=-2)
-
-    A = blocks([
-        [dR_inc.transpose(-1, -2), z33, z33],
-        [-Ra_hat * dtc[..., None], I33, z33],
-        [-0.5 * Ra_hat * (dtc * dtc)[..., None], I33 * dtc[..., None], I33],
-    ])
-    B = blocks([
-        [Jr * dtc[..., None], z33],
-        [z33, pre_R * dtc[..., None]],
-        [z33, 0.5 * pre_R * (dtc * dtc)[..., None]],
-    ])
-    safe_dt = torch.where(dt > 0, dt, 1.0)
-    noise = torch.cat(
-        [(sg2 / safe_dt)[:, None].expand(K, 3), (sa2 / safe_dt)[:, None].expand(K, 3)],
-        dim=-1,
-    ).to(dtype)
-    Q = (B * noise[:, None, :]) @ B.transpose(-1, -2)
-    q_int = I33 * (si2 * dt)[:, None, None]
-    Q = torch.cat([Q[:, :6], torch.cat([Q[:, 6:, :6], Q[:, 6:, 6:] + q_int], dim=-1)], dim=-2)
-
-    segs = (
-        dR_inc, dv_l, dp_l, dt,
-        dR_dbg_l, dv_dba_l, dv_dbg_l, dp_dba_l, dp_dbg_l, A, Q,
+    (e' = A e + n) composing associatively alongside; masked samples are the
+    monoid identity. One call of ``ops/preintegrate.py::preintegrate`` (the
+    kernel ``csrc/preintegrate.cu`` on the card, its plain version on the
+    CPU): each sample's segment, the rotations' prefix and the segments
+    composed in order, in tiles of 64 samples. Under ``torch.func.vmap`` the
+    lanes are one launch. ``preintegrate.calls`` counts the calls (a vmapped
+    call once); ``preintegrate_sequential`` is the oracle."""
+    preintegrate.calls += 1
+    out = pre_op.preintegrate(
+        acc[None], gyr[None], dts[None], mask[None], bias_acc[None], bias_gyr[None],
+        params.acc_noise, params.gyr_noise, params.int_noise,
     )
-    # Pairwise tree reduction in place of the second lax.associative_scan
-    # (preintegration.py:154-157 of the JAX package uses only its last
-    # element): neighbours are composed in order, an odd tail is carried.
-    n = K
-    while n > 1:
-        even = n - (n % 2)
-        merged = _compose(
-            tuple(x[0:even:2] for x in segs), tuple(x[1:even:2] for x in segs)
-        )
-        if n % 2:
-            merged = tuple(torch.cat([m, x[even:n]], dim=0) for m, x in zip(merged, segs))
-        segs = merged
-        n = segs[0].shape[0]
-    (dR, dv, dp, T, dR_dbg, dv_dba, dv_dbg, dp_dba, dp_dbg, _, cov) = (
-        x[0] for x in segs
-    )
-    return Preintegrated(
-        dR=dR, dv=dv, dp=dp, dt=T,
-        dR_dbg=dR_dbg, dv_dba=dv_dba, dv_dbg=dv_dbg, dp_dba=dp_dba, dp_dbg=dp_dbg,
-        cov=cov, bias_acc_lin=bias_acc, bias_gyr_lin=bias_gyr,
-    )
+    return Preintegrated(*(o[0] for o in out), bias_acc_lin=bias_acc, bias_gyr_lin=bias_gyr)
+
+
+preintegrate.calls = 0
 
 
 def preintegrate_sequential(

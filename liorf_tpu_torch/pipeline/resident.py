@@ -1293,6 +1293,9 @@ class ResidentPipeline(LiorfPipeline):
         # "read:ring_counts") and ICP runs ("icp_runs")
         self.tally: Counter = Counter()
         self._gn_iters = torch.zeros((), dtype=_I64, device=self.device)
+        # the native scan packer is built (g++, once per source) here and
+        # not at the first frame; without it the numpy packer serves
+        native.get_lib()
 
     def packer(self) -> dict[str, int]:
         """Frames whose scan the native packer packed, and those the numpy

@@ -284,3 +284,82 @@ def test_multistream_on_the_card_matches_single_sessions(dev):
         assert int(shell.state.l_count) == int(one.state.l_count)
         np.testing.assert_allclose(shell.trajectory_arrays()[1], one.trajectory_arrays()[1],
                                    atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# IMU preintegration (csrc/preintegrate.cu)
+# ---------------------------------------------------------------------------
+
+PREINT_NOISE = (3.9939570888238808e-03, 1.5636343949698187e-03, 1e-4)  # ImuParams' defaults
+
+
+def _imu_windows(seed, lanes, K, dev):
+    """Masked IMU windows, numpy-seeded: a duplicate timestamp (dt = 0), a
+    masked tail, and a sample whose rotation takes so3_exp's Taylor branch
+    (|w dt| < 1e-5)."""
+    rng = np.random.default_rng(seed)
+    acc = (rng.normal(0, 0.5, (lanes, K, 3)) + [0.3, -0.2, 9.8]).astype(np.float32)
+    gyr = rng.normal(0, 0.3, (lanes, K, 3)).astype(np.float32)
+    dts = rng.uniform(0.002, 0.006, (lanes, K)).astype(np.float32)
+    mask = rng.uniform(size=(lanes, K)) > 0.1
+    mask[:, K - K // 8:] = False
+    ba = rng.normal(0, 0.02, (lanes, 3)).astype(np.float32)
+    bg = rng.normal(0, 0.002, (lanes, 3)).astype(np.float32)
+    dts[:, min(3, K - 1)] = 0.0
+    gyr[:, min(1, K - 1)] = bg + 3e-4
+    return [torch.from_numpy(a).to(dev) for a in (acc, gyr, dts, mask, ba, bg)]
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("K", [1, 13, 64, 256, 300])
+def test_preintegrate_kernel_vs_plain(dev, K, lanes):
+    """Bit for bit against the plain version on the card, one launch for all
+    lanes; a second launch repeats; each lane equals its own launch."""
+    from liorf_tpu_torch.ops import preintegrate as pop
+
+    args = _imu_windows(K + lanes, lanes, K, dev)
+    want = pop.preintegrate_plain(*args, *PREINT_NOISE)
+    before = pop.preintegrate.launches
+    got = pop.preintegrate(*args, *PREINT_NOISE)
+    again = pop.preintegrate(*args, *PREINT_NOISE)
+    assert pop.preintegrate.launches == before + 2
+    for name, x, y, z in zip(pop.FIELDS, got, want, again):
+        assert torch.equal(x, y) and torch.equal(x, z), (name, float((x - y).abs().max()))
+    for b in range(lanes):
+        one = pop.preintegrate(*(a[b:b + 1] for a in args), *PREINT_NOISE)
+        assert all(torch.equal(x[b:b + 1], y) for x, y in zip(got, one)), b
+
+
+def test_preintegrate_on_every_card(dev):
+    """The kernel's ~100 KB of dynamic shared memory is an opt-in of each
+    device's context: a process that launches on one card and then on
+    another gets the same bits from both (as the plain version on each)."""
+    from liorf_tpu_torch.ops import preintegrate as pop
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    host = _imu_windows(11, 3, 64, "cpu")
+    first = None
+    for d in range(torch.cuda.device_count()):
+        card = torch.device("cuda", d)
+        args = [a.to(card) for a in host]
+        got = pop.preintegrate(*args, *PREINT_NOISE)
+        want = pop.preintegrate_plain(*args, *PREINT_NOISE)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), d
+        got = [x.cpu() for x in got]
+        first = first or got
+        assert all(torch.equal(x, y) for x, y in zip(got, first)), d
+
+
+def test_preintegrate_raises_on_what_the_kernel_does_not_take(dev):
+    from liorf_tpu_torch.ops import preintegrate as pop
+
+    args = _imu_windows(0, 2, 16, dev)
+    bad = {0: args[0].double(), 3: args[3].float(), 1: args[1][:, :8], 4: args[4][:1],
+           2: args[2].cpu()}
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            pop.preintegrate(*args[:i], t, *args[i + 1:], *PREINT_NOISE)
+    with pytest.raises(ValueError):  # an empty window
+        pop.preintegrate(*(a[:, :0] if a.dim() > 1 and i < 4 else a for i, a in enumerate(args)),
+                         *PREINT_NOISE)

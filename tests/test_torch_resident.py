@@ -9,6 +9,7 @@ comparison. The streams are frozen once and fed to every run, since
 
 import json
 import os
+import shutil
 from collections import Counter
 
 import jax.numpy as jnp
@@ -429,3 +430,18 @@ def test_make_pipeline_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_pipeline(cfg)
     assert isinstance(make_pipeline(cfg, device="cpu"), ResidentPipeline)
+
+
+def test_native_packer_is_built_with_the_pipeline(monkeypatch):
+    """The scan packer's g++ build happens when the pipeline is built, not
+    inside its first frame; without g++ the numpy packer serves."""
+    from liorf_tpu_torch import native
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ (the numpy packer serves without it)")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    pipe = ResidentPipeline(SlamConfig(scan_capacity=256, map_capacity=1024,
+                                       kf_cloud_capacity=256), device="cpu")
+    assert pipe.frame_idx == 0 and pipe.state is None
+    assert native._lib is not None, native.build_error
