@@ -17,7 +17,8 @@ bounds of a float64 run and of the jacfwd fusion step; the IMU
 preintegration kernel bit for bit against its plain version on the card and
 within the CPU tests' bounds of the sequential recursion; the scan matcher's
 linearization and update kernels and ICP's alignment kernel bit for bit
-against their plain versions on the card),
+against their plain versions on the card; the deskew and the ScanContext
+descriptor bit for bit against their plain versions on the card),
 then drives the streaming SLAM pipeline (``LiorfPipeline``: push_imu /
 process_scan / trajectory_arrays) at the repo's bench size and on the
 loop-closure course, the device-resident pipeline (``make_pipeline``,
@@ -39,15 +40,18 @@ the main path gave them, right after that path (the PCG and the
 linearization also on the resident full solve's), and on the 8-lane
 launches of multistream_path; the fusion and the preintegration kernels on
 the last launch of the main path, the resident path and the 8-lane
-multistream path (the preintegration also on a seeded K = 256 window); the segment
+multistream path (the preintegration also on a seeded K = 256 window); the deskew
+and the descriptor on the last launch of the main path, the resident path and
+the 8-lane multistream path (the deskew also on a seeded K = 256 case); the segment
 sum on a seeded plan of the dist phase's graph; both k-NN kernels with a
 lane axis at N = 8 in the kernels phase; the scan matcher's two kernels on
 the last launches of the main path, the resident path and the 8-lane
 multistream path, ICP's alignment kernel on the last launch of the resident
 loop path and the multistream loop course. A single-device path launches no
 segment sum, one voxel_reduce a voxel filter call, one fusion_step a fusion
-call, one preintegrate a preintegration call (at most one of each a
-multistream tick), one scan_linearize and one scan_update a K1 launch (a GN iteration)
+call, one preintegrate a preintegration call, one deskew a deskew call and one
+make_descriptor a descriptor call (at most one of each a multistream tick but
+the bootstrap's, where each lane bootstraps alone), one scan_linearize and one scan_update a K1 launch (a GN iteration)
 and one icp_align an ICP iteration (a K2 launch but each run's last);
 resident_loop_path's host syncs come from no library solver, no upload, no
 kernel wrapper and not the IMU preintegration, at most MAX_SYNCS_PER_FRAME a frame; main_path and
@@ -61,9 +65,11 @@ no CPU fallback: without a CUDA device the script exits with code 5.
 Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
-             [,profile][,pcg_profile][,edge_floor][,repair_cost]
+             [,profile][,profile_resident][,pcg_profile][,edge_floor][,repair_cost]
                       not run by default: "profile" traces 8 warm frames with
-                      torch.profiler (device-busy share, kernel time by name);
+                      torch.profiler (device-busy share, kernel time by name,
+                      host operators by their own time), "profile_resident"
+                      the same through the resident pipeline (one a process);
                       "pcg_profile" times the PCG kernel's phases by clock
                       cycles (a profiling build of csrc/pcg.cu);
                       "edge_floor" holds a factor's linearization bits over
@@ -103,6 +109,7 @@ from liorf_tpu_torch.core import build, se3  # noqa: E402
 from liorf_tpu_torch.graph import pose_graph as pg  # noqa: E402
 from liorf_tpu_torch.imu import fusion as tfusion  # noqa: E402
 from liorf_tpu_torch.imu import preintegration as tpre  # noqa: E402
+from liorf_tpu_torch.ops import deskew as tdsk  # noqa: E402
 from liorf_tpu_torch.ops import fusion_step as fstep  # noqa: E402
 from liorf_tpu_torch.ops import icp as ticp  # noqa: E402
 from liorf_tpu_torch.ops import icp_align as ialign  # noqa: E402
@@ -112,6 +119,7 @@ from liorf_tpu_torch.ops import pcg  # noqa: E402
 from liorf_tpu_torch.ops import preintegrate as tpop  # noqa: E402
 from liorf_tpu_torch.ops import scan_gn as sgn  # noqa: E402
 from liorf_tpu_torch.ops import scan_match as tmatch  # noqa: E402
+from liorf_tpu_torch.ops import scancontext as tsc  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
 from liorf_tpu_torch.ops import voxel_reduce as vred  # noqa: E402
 from liorf_tpu_torch.core import voxel as tvoxel  # noqa: E402
@@ -124,6 +132,9 @@ SEED = 0
 MAIN_FRAMES = 60  # main path, at the bench size
 LOOP_FRAMES = 64  # loop course
 LOOP_PATH_FRAMES = 32  # loop_path's depth: through its first loop closures (frame ~26)
+# main_path's ATE on the card before the deskew kernel (NVIDIA H100 80GB HBM3
+# at 700 W) and how far a change of rounding may move it
+MAIN_ATE_M, MAIN_ATE_DRIFT_M = 0.018448, 0.002
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the bounds below are
 # stated against these, with the card's power limit printed beside them.
@@ -140,6 +151,8 @@ FUSION_SOURCE = "liorf_tpu_torch/csrc/fusion.cu"
 SCAN_GN_SOURCE = "liorf_tpu_torch/csrc/scan_gn.cu"
 ICP_ALIGN_SOURCE = "liorf_tpu_torch/csrc/icp_align.cu"
 PREINT_SOURCE = "liorf_tpu_torch/csrc/preintegrate.cu"
+DESKEW_SOURCE = "liorf_tpu_torch/csrc/deskew.cu"
+SC_SOURCE = "liorf_tpu_torch/csrc/scancontext.cu"
 # tolerance of kernel vs plain version (both use the same rounded arithmetic,
 # so the observed error is expected to be 0)
 D2_RTOL, D2_ATOL = 1e-4, 1e-3
@@ -173,20 +186,22 @@ MULTI_CAPS = dict(
 MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
-KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vred, fstep, sgn, ialign, tpop)
+KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vred, fstep, sgn, ialign, tpop, tdsk, tsc)
 
 
 def reset_counts() -> None:
     """Every kernel's launch count, the pose graph's count of GN steps, the
-    voxel filter's, the fusion step's, the preintegration's and the scan
-    matcher's counts of calls and the ICP's count of runs to 0 (just before a
-    path runs)."""
+    voxel filter's, the fusion step's, the preintegration's, the deskew's,
+    the descriptor's and the scan matcher's counts of calls and the ICP's
+    count of runs to 0 (just before a path runs)."""
     for m in KERNEL_MODULES:
         m.reset_launch_counts()
     pg.solve.gn_steps = 0
     tvoxel.voxel_downsample.calls = 0
     tfusion.fusion_step.calls = 0
     tpre.preintegrate.calls = 0
+    tdsk.deskew_frame.calls = 0
+    tsc.make_descriptor.calls = 0
     ticp.icp_point2point_lanes.runs = 0
     tmatch.scan_to_map_lanes.calls = 0
 
@@ -199,6 +214,8 @@ def launch_counts() -> dict[str, int]:
             "voxel_filter_calls": tvoxel.voxel_downsample.calls,
             "fusion_calls": tfusion.fusion_step.calls,
             "preintegrate_calls": tpre.preintegrate.calls,
+            "deskew_calls": tdsk.deskew_frame.calls,
+            "descriptor_calls": tsc.make_descriptor.calls,
             "icp_runs": ticp.icp_point2point_lanes.runs,
             "scan_to_map_calls": tmatch.scan_to_map_lanes.calls}
 
@@ -290,7 +307,7 @@ def nvidia_smi_line() -> str:
 
 
 def phase_device(ptxas: bool) -> str:
-    """The card, the toolchain, and the nine kernel libraries built at once
+    """The card, the toolchain, and the eleven kernel libraries built at once
     (one nvcc a source, started together)."""
     smi = nvidia_smi_line()
     nvcc = subprocess.run(
@@ -311,6 +328,7 @@ def phase_device(ptxas: bool) -> str:
                                   fusion=fstep.build_seconds,
                                   scan_gn=sgn.build_seconds, icp_align=ialign.build_seconds,
                                   preintegrate=tpop.build_seconds,
+                                  deskew=tdsk.build_seconds, scancontext=tsc.build_seconds,
                                   all_wall=time.perf_counter() - t0),
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32,
@@ -882,7 +900,13 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
         slowest_frames=slowest_frames(frame_ms, log.kinds),
     )
     check(ate < 0.3, f"ATE {ate} m >= 0.3 m")
+    check(abs(ate - MAIN_ATE_M) < MAIN_ATE_DRIFT_M,
+          f"ATE {ate} m moved more than {MAIN_ATE_DRIFT_M} m from {MAIN_ATE_M} m")
     check(pipe.store.count >= 2, "fewer than 2 keyframes")
+    # every frame deskews its scan and takes its descriptor, the bootstrap too
+    check(counts["deskew"] == n_frames and counts["make_descriptor"] == n_frames,
+          f"{counts['deskew']} deskew and {counts['make_descriptor']} descriptor launches in "
+          f"{n_frames} frames")
     check(counts["knn_grid_topk"] > 0, "K1 never launched on the main path")
     check(
         counts["knn_grid_topk"] == sum(gn_iters),
@@ -899,7 +923,7 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
     from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
     from liorf_tpu_torch.imu import fusion, preintegration
     from liorf_tpu_torch.ops import scan_match, scancontext
-    from liorf_tpu_torch.ops.deskew import deskew_scan, integrate_gyro
+    from liorf_tpu_torch.ops.deskew import deskew_frame
 
     cfg, fp = pipe.cfg, pipe.frame_params
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -948,11 +972,12 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
         "scan_update (one lane, later iteration)": lambda: sgn.scan_update(
             st0, H, g, cnt, world[None], fp.match, first=False),
         "voxel_downsample scan (raw -> scan_capacity)": lambda: voxel_downsample_xyz(raw, raw_mask, fp.leaf, fp.scan_cap),
-        "scancontext descriptor": lambda: scancontext.make_descriptor(raw, raw_mask),
+        "scancontext descriptor (one csrc/scancontext.cu launch)": lambda: scancontext.make_descriptor(
+            raw, raw_mask),
         "preintegrate (one csrc/preintegrate.cu launch)": lambda: preintegration.preintegrate(
             acc, gyr, dts, imask, z3, z3, fp.fusion.imu),
-        "deskew (integrate_gyro + deskew_scan, raw_capacity points)": lambda: deskew_scan(
-            raw, rel_t, raw_mask, scan_start, integrate_gyro(dk_times, gyr, dk_mask)),
+        "deskew (one csrc/deskew.cu launch, raw_capacity points)": lambda: deskew_frame(
+            raw, rel_t, raw_mask, scan_start, dk_times, gyr, dk_mask),
         "fusion_step": lambda: fusion.fusion_step(filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
         "fusion_step_jacfwd (op by op, the oracle)": lambda: fusion.fusion_step_jacfwd(
             filt, pre, torch.eye(3, device=DEV), z3, no, fp.fusion),
@@ -978,16 +1003,39 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
             torch.cuda.set_sync_debug_mode("default")
     solve_syncs = Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
                           for w in caught if "synchroniz" in str(w.message).lower())
-    # what one knn_grid call puts on the device, by kernel name
+    # What one call of each one-kernel stage puts on the device, by kernel
+    # name: one trace of the three calls (a second trace in one process has
+    # come back empty on the card), each kernel's name its own op's.
+    one_kernel = {
+        "knn_grid_kernel": lambda: knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket),
+        "deskew_kernel": lambda: deskew_frame(raw, rel_t, raw_mask, scan_start, dk_times, gyr,
+                                              dk_mask),
+        "descriptor_kernel": lambda: scancontext.make_descriptor(raw, raw_mask),
+    }
+    launched, attempts = device_kernels(lambda: [fn() for fn in one_kernel.values()])
+    emit("split", keyframes=pipe.store.count, ms=out, one_call_each_device_kernels=launched,
+         one_call_each_of=list(one_kernel), profiler_attempts=attempts, solve_parts_ms=parts,
+         main_window_solve_host_sync_sites=[[k, n] for k, n in solve_syncs.most_common()],
+         **resident_notes)
+    check(not any("graph/pose_graph.py" in k for k in solve_syncs),
+          f"the pose graph solve waits for the card: {dict(solve_syncs)}")
+    check(len(launched) == len(one_kernel) and all(
+        any(k in e["name"] and e["calls"] == 1 for e in launched) for k in one_kernel),
+        f"one knn_grid, one deskew and one make_descriptor call must be one launch each of "
+        f"{list(one_kernel)}, got {launched}")
+
+
+def device_kernels(fn) -> tuple[list, int]:
+    """What fn() puts on the device, by kernel name (torch.profiler), and the
+    traces it took. The tracer now and then hands back an empty trace (no
+    device event at all, seen once on the card): that is the instrument
+    failing, not the call, so an empty trace is taken again, up to three
+    times; any trace with events is judged as it is."""
     from torch.profiler import ProfilerActivity, profile
 
-    # The tracer now and then hands back an empty trace (no device event at
-    # all, seen once on the card): that is the instrument failing, not the
-    # call, so an empty trace is taken again, up to three times; any trace
-    # with events is judged as it is.
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket)
+            fn()
             torch.cuda.synchronize()
         launched = [
             dict(name=e.key[:80], calls=e.count)
@@ -996,16 +1044,7 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
         ]
         if launched:
             break
-    emit("split", keyframes=pipe.store.count, ms=out, knn_grid_device_kernels=launched,
-         profiler_attempts=attempt + 1, solve_parts_ms=parts,
-         main_window_solve_host_sync_sites=[[k, n] for k, n in solve_syncs.most_common()],
-         **resident_notes)
-    check(not any("graph/pose_graph.py" in k for k in solve_syncs),
-          f"the pose graph solve waits for the card: {dict(solve_syncs)}")
-    check(
-        len(launched) == 1 and launched[0]["calls"] == 1 and "knn_grid_kernel" in launched[0]["name"],
-        f"one knn_grid call must be one K1 launch, got {launched}",
-    )
+    return launched, attempt + 1
 
 
 def solve_parts(fn, reps: int = 3) -> dict:
@@ -1046,12 +1085,16 @@ def solve_parts(fn, reps: int = 3) -> dict:
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
-def phase_profile(warm: int = 12, traced: int = 8) -> None:
+def phase_profile(warm: int = 12, traced: int = 8, resident: bool = False) -> None:
     """Device-busy share of a warm frame and the kernels that fill it, from a
-    torch.profiler trace of `traced` frames at the main path's size. The
-    profiler stretches the host's time but not the device's, so the share is
-    the traced window's device time over the wall time of the `traced`
-    untraced frames just before it, in the same run."""
+    torch.profiler trace of `traced` frames at the main path's size, through
+    LiorfPipeline or, with ``resident``, the resident pipeline
+    (``profile_resident``: run it in a process of its own, since a second trace
+    in one process has come back empty). The profiler stretches the host's
+    time but not the device's, so the share is the traced window's device time
+    over the wall time of the `traced` untraced frames just before it, in the
+    same run. ``top_host`` ranks the host's operators by their own time in
+    the trace (stretched by the profiler alike: read it as shares)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = SlamConfig(
@@ -1060,10 +1103,13 @@ def phase_profile(warm: int = 12, traced: int = 8) -> None:
     )
     n = warm + 2 * traced
     syn = SyntheticDataset(SyntheticConfig(n_frames=n, n_rings=32, points_per_ring=900, seed=SEED))
-    pipe = LiorfPipeline(cfg)
+    pipe = make_pipeline(cfg) if resident else LiorfPipeline(cfg)
     imu = syn.imu_stream()
     scans = [syn.scan(f) for f in range(n)]
     ii = 0
+
+    def keyframes():
+        return pipe._host.kf_count if resident else pipe.store.count
 
     def feed(f):
         nonlocal ii
@@ -1075,32 +1121,43 @@ def phase_profile(warm: int = 12, traced: int = 8) -> None:
     for f in range(warm):
         feed(f)
     torch.cuda.synchronize()
+    kf0 = keyframes()
     t0 = time.perf_counter()
-    untraced = [feed(f) for f in range(warm, warm + traced)]
+    for f in range(warm, warm + traced):
+        feed(f)
     torch.cuda.synchronize()
     untraced_wall_ms = (time.perf_counter() - t0) * 1e3
+    kf1 = keyframes()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        results = [feed(f) for f in range(warm + traced, n)]
+        for f in range(warm + traced, n):
+            feed(f)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
     # device-side events only (kernels, copies): the CPU-side op rows carry
     # the same device time again
     rows = [
         (e.key, e.count, e.self_device_time_total / 1e3)
-        for e in prof.key_averages()
+        for e in averages
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
     rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3) for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CPU), key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
     emit(
-        "profile", frames=traced, keyframes_in_window=int(sum(r.is_keyframe for r in results)),
+        "profile_resident" if resident else "profile",
+        path="resident_path" if resident else "main_path", frames=traced,
+        keyframes_in_window=keyframes() - kf1,
         traced_wall_ms=wall_ms, device_busy_ms=device_ms,
         untraced_frames=traced, untraced_wall_ms=untraced_wall_ms,
-        keyframes_in_untraced_window=int(sum(r.is_keyframe for r in untraced)),
+        keyframes_in_untraced_window=kf1 - kf0,
         device_busy_share=device_ms / untraced_wall_ms,
         device_launches=int(sum(r[1] for r in rows)),
         top=[dict(name=k[:80], calls=c, device_ms=ms) for k, c, ms in rows[:12]],
+        top_host=[dict(name=k[:80], calls=c, self_ms=ms) for k, c, ms in host[:16]],
+        host_self_ms=sum(r[2] for r in host),
         note="share = traced window's device time / wall time of the untraced window before it",
     )
 
@@ -1298,6 +1355,10 @@ def phase_resident_path(main_poses: np.ndarray, n_frames: int = MAIN_FRAMES):
         f"K1 launches {counts['knn_grid_topk']} != GN iterations {rep['gn_iters_total']}",
     )
     check(float(dist.max()) < 0.15, f"resident path {dist.max()} m from main_path's trajectory")
+    # the descriptor only at keyframes (the bootstrap's included), the deskew every frame
+    check(counts["make_descriptor"] == rep["keyframes"] and counts["deskew"] == n_frames,
+          f"{counts['make_descriptor']} descriptor launches for {rep['keyframes']} keyframes, "
+          f"{counts['deskew']} deskew launches in {n_frames} frames")
     return (rp, snaps), counts
 
 
@@ -1337,13 +1398,15 @@ def resident_stages(rp, snaps):
 
 # The host syncs of resident_loop_path: none may come from the scan
 # matcher's or ICP's arithmetic (their kernels run without a library solver),
-# from the IMU preintegration (one kernel, no read) or from a host value
+# from the IMU preintegration, the deskew or the descriptor (one kernel
+# each, no read) or from a host value
 # uploaded at a grid build or a keyframe; each loop may
 # read its one "all done" flag an iteration. What is left (~10 a frame:
 # those flags, is_kf, the loop gate and full-solve flags) stays under
 # MAX_SYNCS_PER_FRAME.
 NO_SYNC_FILES = ("ops/plane_fit.py", "ops/scan_gn.py", "ops/icp_align.py", "ops/knn.py",
-                 "graph/marginal.py", "ops/preintegrate.py", "imu/preintegration.py")
+                 "graph/marginal.py", "ops/preintegrate.py", "imu/preintegration.py",
+                 "ops/deskew.py", "ops/scancontext.py")
 FLAG_READ = "if bool(all_done):"
 MAX_SYNCS_PER_FRAME = 12
 
@@ -1552,6 +1615,7 @@ def phase_multistream_path() -> dict:
         check(mp.device.type == "cuda", "MultiStreamPipeline must default to the GPU")
         iis = [0] * n
         tick_ms, k1_tick, gn_tick, fus_tick, pre_tick = [], [], [], [], []
+        dsk_tick, sc_tick = [], []
         reset_counts()
         for f in range(MULTI_TICKS):
             scans = [streams[b][0][f] for b in range(n)]
@@ -1559,6 +1623,7 @@ def phase_multistream_path() -> dict:
                 iis[b] = feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], streams[b][1], iis[b])
             k1, fus = launch_counts()["knn_grid_topk"], fstep.fusion_step.launches
             pre = tpop.preintegrate.launches
+            dsk, sc = tdsk.deskew.launches, tsc.make_descriptor.launches
             torch.cuda.synchronize()
             a = time.perf_counter()
             if captured is None:
@@ -1571,10 +1636,12 @@ def phase_multistream_path() -> dict:
             k1_tick.append(launch_counts()["knn_grid_topk"] - k1)
             fus_tick.append(fstep.fusion_step.launches - fus)
             pre_tick.append(tpop.preintegrate.launches - pre)
+            dsk_tick.append(tdsk.deskew.launches - dsk)
+            sc_tick.append(tsc.make_descriptor.launches - sc)
             gn_tick.append(mp.last_gn_iters)
         counts = launch_counts()
         mp.finish()
-        return mp, counts, tick_ms, k1_tick, gn_tick, fus_tick, pre_tick
+        return mp, counts, tick_ms, k1_tick, gn_tick, fus_tick, pre_tick, dsk_tick, sc_tick
 
     def lane_report(mp, n):
         ates, kf_counts, loops = [], [], []
@@ -1607,7 +1674,7 @@ def phase_multistream_path() -> dict:
     # Timing: N = 1, 4, 8 lanes.
     out, per_n, lane_cases, mp_det = {}, {}, {}, None
     for n in MULTI_LANES:
-        mp, counts, tick_ms, k1_tick, gn_tick, fus_tick, pre_tick = multi(
+        mp, counts, tick_ms, k1_tick, gn_tick, fus_tick, pre_tick, dsk_tick, sc_tick = multi(
             n, lane_cases if n == max(MULTI_LANES) else None)
         ticks = mp.ticks
         # per tick: the batched GN loop runs until its slowest lane stops,
@@ -1633,6 +1700,13 @@ def phase_multistream_path() -> dict:
             k1_bootstrap_tick=k1_tick[0], k1_ticks_off_slowest_lane=sum(x != 0 for x in k1_vs_max),
             fusion_launches_per_tick_max=max(fus_tick),
             preintegrate_launches_per_tick_max=max(pre_tick),
+            # the bootstrap tick: each lane bootstraps alone (one deskew and
+            # one descriptor a lane); every later tick's lanes are one launch
+            deskew_launches_bootstrap_tick=dsk_tick[0],
+            descriptor_launches_bootstrap_tick=sc_tick[0],
+            deskew_launches_per_tick_max=max(dsk_tick[1:]),
+            descriptor_launches_per_tick_max=max(sc_tick[1:]),
+            descriptor_ticks=sum(x > 0 for x in sc_tick[1:]),
             gn_iters_batched=gn_batched, gn_iters_per_lane=mp.gn_iters_per_lane(),
             gn_iters_slowest_lane_per_tick=float(gn.max(axis=1).mean()),
             gn_iters_lane_mean_per_tick=float(gn.mean()),
@@ -1680,6 +1754,14 @@ def phase_multistream_path() -> dict:
     fus_lanes = phase_fusion(fusion_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     pre_lanes = phase_preintegrate(preintegrate_case(lane_cases),
                                    f"multistream_path_{max(MULTI_LANES)}")
+    dsk_lanes = phase_deskew(front_case(lane_cases, "deskew"), f"multistream_path_{max(MULTI_LANES)}")
+    # the descriptor runs at a tick with a keyframe in any lane; without one
+    # in the run, seeded clouds of as many lanes
+    sc_args = lane_cases.pop("make_descriptor", None)
+    sc_lanes = phase_descriptor(
+        sc_args or seeded_clouds(max(MULTI_LANES)),
+        f"multistream_path_{max(MULTI_LANES)}" if sc_args
+        else f"seeded {max(MULTI_LANES)} lanes (no {max(MULTI_LANES)}-lane keyframe tick)")
     vr_lanes = phase_voxel_reduce(lane_cases, max(MULTI_LANES))
     sg_lanes = phase_scan_gn(lane_cases, f"multistream_path_{max(MULTI_LANES)}")
     ia_lanes = phase_icp_align(icp_cases, f"multistream_loop_course_{MULTI_PARITY_LANES}")
@@ -1712,7 +1794,14 @@ def phase_multistream_path() -> dict:
         check(row["preintegrate_launches_per_tick_max"] <= 1,
               f"N={n}: {row['preintegrate_launches_per_tick_max']} preintegrate launches in one "
               "tick")
-    return out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes, pre_lanes
+        # the deskew and the descriptor: at most one launch a tick after the
+        # bootstrap, every lane in it; the bootstrap one a lane
+        for k in ("deskew", "descriptor"):
+            check(row[f"{k}_launches_per_tick_max"] <= 1 and row[f"{k}_launches_bootstrap_tick"] == n,
+                  f"N={n}: {row[f'{k}_launches_per_tick_max']} {k} launches in one tick, "
+                  f"{row[f'{k}_launches_bootstrap_tick']} in the bootstrap tick")
+    return (out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes, pre_lanes,
+            dsk_lanes, sc_lanes)
 
 
 def multistream_loop_course(n: int, captured: dict) -> dict:
@@ -1853,7 +1942,8 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     size (``voxel_reduce_out<S>``); the PCG for each iteration count
     (``pcg_iters<n>``: the window and the full solves); the linearization
     (``linearize``); of the fusion step (``fusion_step``); of the IMU
-    preintegration (``preintegrate``); and of any segment
+    preintegration (``preintegrate``); of the deskew (``deskew``) and the
+    ScanContext descriptor (``make_descriptor``); and of any segment
     sum (``segment_sum``: a single-device path launches none); of the scan
     matcher's linearization (``scan_linearize``), update (``scan_update``,
     and ``scan_update_first`` of a first GN iteration) and first move of the
@@ -1864,6 +1954,7 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     real_fus, real_sl, real_su, real_ia = (fstep._launch, sgn._launch_linearize, sgn._launch_update,
                                            ialign._launch_align)
     real_tf, real_pre = sgn._launch_transform, tpop._launch
+    real_dsk, real_sc = tdsk._launch, tsc._launch
 
     def spy(*args, **kw):
         cases["segment_sum"] = args
@@ -1894,6 +1985,16 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases["preintegrate"] = args
         return real_pre(*args)
 
+    def spy_dsk(*args):
+        if args[0].shape[0] == lanes:
+            cases["deskew"] = args
+        return real_dsk(*args)
+
+    def spy_sc(*args):
+        if args[0].shape[0] == lanes:
+            cases["make_descriptor"] = args
+        return real_sc(*args)
+
     def spy_sl(*args):
         if args[0].shape[0] == lanes:
             cases["scan_linearize"] = args
@@ -1918,9 +2019,11 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     segsum._launch, pcg._launch, lin._launch, vred._launch = spy, spy_pcg, spy_lin, spy_vred
     fstep._launch, sgn._launch_linearize, sgn._launch_update = spy_fus, spy_sl, spy_su
     ialign._launch_align, sgn._launch_transform, tpop._launch = spy_ia, spy_tf, spy_pre
+    tdsk._launch, tsc._launch = spy_dsk, spy_sc
     try:
         yield cases
     finally:
+        tdsk._launch, tsc._launch = real_dsk, real_sc
         segsum._launch, pcg._launch, lin._launch, vred._launch = real, real_pcg, real_lin, real_vred
         fstep._launch, sgn._launch_linearize, sgn._launch_update = real_fus, real_sl, real_su
         ialign._launch_align, sgn._launch_transform, tpop._launch = real_ia, real_tf, real_pre
@@ -1947,6 +2050,13 @@ def preintegrate_case(cases: dict):
     """The captured preintegration, taken out of ``cases``."""
     check("preintegrate" in cases, f"no preintegrate launch captured: {sorted(cases)}")
     return cases.pop("preintegrate")
+
+
+def front_case(cases: dict, name: str):
+    """The captured deskew (``deskew``) or descriptor (``make_descriptor``),
+    taken out of ``cases``."""
+    check(name in cases, f"no {name} launch captured: {sorted(cases)}")
+    return cases.pop(name)
 
 
 def bench_segsum(src, perm, keys, S: int, offsets) -> dict:
@@ -2666,6 +2776,180 @@ def phase_preintegrate(args, label: str) -> dict:
           f"bound from the sequential oracle")
     check(res["exact_max_ratio_to_bound"] <= 1.0,
           f"{what}: {res['exact_max_ratio_to_bound']} of its bound from the float64 oracle")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the frame's front end: the deskew and the ScanContext descriptor
+# ---------------------------------------------------------------------------
+
+# Operations as the data needs them (an add, sub, mul, div, sin or cos is
+# one; compares, clamps and the search not counted): a masked-in point's
+# deskew 64 float32 (its time 1, the lerp 12, R = Rz Ry Rx from its sines and
+# cosines 21, R p and R0^T (R p) 30) and 6 float64 (sin and cos of three
+# angles); the timeline 4 float32 (dt, gyr dt) and 3 float64 (the running
+# sum) a valid sample.
+DESKEW_POINT_OPS = (64, 6)
+DESKEW_SAMPLE_OPS = (4, 3)
+# The descriptor: a masked-in point's radius 4 (two products, a sum, a root);
+# one within 80 m 9 more (z + 2, atan2, degrees, +360, the ring's and the
+# sector's quotient and product, and its max).
+SC_POINT_OPS, SC_BIN_OPS = 4, 9
+# Against the plain version on a CPU copy (the CPU's libm: sin, cos, atan2):
+# tests/test_torch_ops.py::test_deskew's 5e-5 m and
+# ::test_scancontext_descriptor_and_detect's share of bins that differ.
+DESKEW_CPU_M = 5e-5
+SC_CPU_BINS = 0.01
+DESKEW_SEEDED = ((256, 230), (300, 271))  # (K, valid samples): 256, and a K of no power of two
+
+
+def deskew_seeded_case(K: int, n_valid: int, lanes: int = 4, n: int = BENCH_CAPS["raw_capacity"]):
+    """Seeded scans of n points and gyro windows of K samples (n_valid valid,
+    5 ms apart from 0.3 s, one masked inside), one lane a seed; lane 0's
+    window is empty; points timed from before the timeline to after it, 10 %
+    masked out."""
+    cols = []
+    for b in range(lanes):
+        rng = np.random.default_rng(100 + b)
+        times = (0.3 + 0.005 * np.arange(K)).astype(np.float32)
+        gyr = rng.normal(0, 0.5, (K, 3)).astype(np.float32)
+        imask = (np.arange(K) < n_valid) & (b > 0)
+        imask[n_valid // 2] = False
+        xyz = rng.uniform(-60, 60, (n, 3)).astype(np.float32)
+        rel = rng.uniform(-0.05, 0.005 * n_valid + 0.05, n).astype(np.float32)
+        mask = rng.uniform(size=n) > 0.1
+        cols.append((xyz, rel, mask, np.float32(0.31), times, gyr, imask))
+    return tuple(torch.from_numpy(np.stack(c)).to(DEV) for c in zip(*cols))
+
+
+def bench_deskew(args) -> dict:
+    """The deskew kernel on the arguments a path gave it: against its plain
+    version on the card (bit for bit), against itself, each lane against its
+    own launch, and against the plain version on a CPU copy (within
+    DESKEW_CPU_M); timed beside the plain version (no single PyTorch call
+    deskews: library_ms null). bound_ms counts what the function needs: the
+    mask, xyz and the output of every point (a masked-out point is copied),
+    the time of a masked-in one, the window, and DESKEW_POINT_OPS a masked-in
+    point and DESKEW_SAMPLE_OPS a valid sample."""
+    xyz, rel_t, mask, start, times, gyr, imask = args
+    B, N = mask.shape
+
+    def kernel():
+        return tdsk.deskew(*args)
+
+    out = tdsk._launch(*args)
+    again = kernel()
+    plain = tdsk.deskew_plain(*args)
+    alone = torch.cat([tdsk.deskew(*(t[b:b + 1] for t in args)) for b in range(B)])
+    cpu = tdsk.deskew_plain(*(t.cpu() for t in args))
+    n_in, n_valid = int(mask.sum()), int(imask.sum())
+    (p32, p64), (s32, s64) = DESKEW_POINT_OPS, DESKEW_SAMPLE_OPS
+    return dict(
+        shape=dict(lanes=B, points=N, points_masked_in=n_in, K=times.shape[1],
+                   valid_samples=n_valid), lanes=B,
+        max_abs_err=max_abs_err([out], [plain]),
+        equal_to_plain=same_bits(out, plain), repeats=same_bits(out, again),
+        lanes_equal_one_lane_launches=same_bits(out, alone),
+        cpu_max_abs_diff=max_abs_err([out.cpu()], [cpu]),
+        finite=bool(torch.isfinite(out[mask]).all()),
+        **kernel_ms(kernel),
+        # the kernel's own time on the card, apart from the wrapper's host time
+        device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: tdsk.deskew_plain(*args), reps=5, warm=1),
+        library_ms=None,
+        **bound(nbytes([mask, xyz, out, start, times, gyr, imask]) + 4 * n_in,
+                p32 * n_in + s32 * n_valid, p64 * n_in + s64 * n_valid),
+    )
+
+
+def phase_deskew(args, label: str) -> dict:
+    """The deskew kernel held on the launch a path gave it (capture_kernel_args)
+    or on a seeded case: one line, then its checks."""
+    res = dict(path=label, **bench_deskew(args))
+    emit("kernels_deskew", **res,
+         tolerance=f"bit for bit against the plain version on the card, a second launch and "
+                   f"one-lane launches; within {DESKEW_CPU_M} m of the plain version on a CPU copy "
+                   "(the CPU's sin and cos)")
+    what = f"deskew on {label} {res['shape']}"
+    check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
+    check(res["repeats"], f"{what}: two launches differ")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(res["finite"], f"{what}: a masked-in point is not finite")
+    check(res["cpu_max_abs_diff"] <= DESKEW_CPU_M,
+          f"{what}: {res['cpu_max_abs_diff']} m from the plain version on the CPU")
+    return res
+
+
+def seeded_clouds(lanes: int = 8, n: int = BENCH_CAPS["raw_capacity"]):
+    """tests/test_torch_ops.py's descriptor recipe a lane (points out to 90 m,
+    heights -2..6 m, 10 % masked out), one seed a lane."""
+    xs, ms = [], []
+    for b in range(lanes):
+        rng = np.random.default_rng(200 + b)
+        xyz = rng.uniform(-90, 90, (n, 3)).astype(np.float32)
+        xyz[:, 2] = rng.uniform(-2, 6, n)
+        xs.append(xyz)
+        ms.append(rng.uniform(size=n) > 0.1)
+    return torch.from_numpy(np.stack(xs)).to(DEV), torch.from_numpy(np.stack(ms)).to(DEV)
+
+
+def bench_descriptor(args) -> dict:
+    """The descriptor kernel on the arguments a path gave it: against its
+    plain version on the card (bit for bit), against itself, each lane
+    against its own launch, and against the plain version on a CPU copy (the
+    share of bins that differ, under SC_CPU_BINS); timed beside the plain
+    version and the library's reduction alone (one scatter_reduce(amax) of
+    the points' precomputed bins and heights, ops/scancontext.py::
+    descriptor_bins). bound_ms counts the mask of every point, the xyz of a
+    masked-in one, the output, and SC_POINT_OPS a masked-in point and
+    SC_BIN_OPS one within 80 m."""
+    xyz, mask = args
+    B, N = mask.shape
+
+    def kernel():
+        return tsc.descriptors(xyz, mask)
+
+    out = tsc._launch(xyz, mask)
+    again = kernel()
+    plain = tsc.make_descriptor_plain(xyz, mask)
+    alone = torch.cat([tsc.descriptors(xyz[b:b + 1], mask[b:b + 1]) for b in range(B)])
+    cpu = tsc.make_descriptor_plain(xyz.cpu(), mask.cpu())
+    flat, height = tsc.descriptor_bins(xyz, mask)
+    base = torch.full((B * tsc.BINS,), -torch.inf, device=DEV)
+    n_in = int(mask.sum())
+    n_binned = int((flat % tsc.BINS != tsc.BINS - 1).sum())
+    return dict(
+        shape=dict(lanes=B, points=N, points_masked_in=n_in, points_binned=n_binned), lanes=B,
+        max_abs_err=max_abs_err([out], [plain]),
+        equal_to_plain=same_bits(out, plain), repeats=same_bits(out, again),
+        lanes_equal_one_lane_launches=same_bits(out, alone),
+        cpu_bins_differing=float((out.cpu() != cpu).double().mean()),
+        finite=bool(torch.isfinite(out).all()),
+        **kernel_ms(kernel),
+        device_ms=device_only_ms(kernel),
+        plain_ms=cuda_ms(lambda: tsc.make_descriptor_plain(xyz, mask), reps=5, warm=1),
+        library_ms=cuda_ms(lambda: base.scatter_reduce(0, flat, height, "amax", include_self=True),
+                           reps=10, batch=20),
+        library_call="scatter_reduce(amax) of the precomputed bins (the reduction alone)",
+        **bound(nbytes([mask, out]) + 12 * n_in, SC_POINT_OPS * n_in + SC_BIN_OPS * n_binned),
+    )
+
+
+def phase_descriptor(args, label: str) -> dict:
+    """The descriptor kernel held on the launch a path gave it or on seeded
+    clouds: one line, then its checks."""
+    res = dict(path=label, **bench_descriptor(args))
+    emit("kernels_scancontext", **res,
+         tolerance=f"bit for bit against the plain version on the card, a second launch and "
+                   f"one-lane launches; under {SC_CPU_BINS} of the bins differ from the plain "
+                   "version on a CPU copy (the CPU's atan2)")
+    what = f"make_descriptor on {label} {res['shape']}"
+    check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
+    check(res["repeats"], f"{what}: two launches differ")
+    check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
+    check(res["finite"], f"{what}: not finite")
+    check(res["cpu_bins_differing"] < SC_CPU_BINS,
+          f"{what}: {res['cpu_bins_differing']} of the bins differ from the plain version on the CPU")
     return res
 
 
@@ -3828,6 +4112,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
     vr_lanes = pcg_lanes = lin_lanes = fus_lanes = sg_lanes = ia_lanes = pre_lanes = None
+    dsk_lanes = sc_lanes = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         cases = {}
@@ -3847,6 +4132,13 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             kern["preintegrate_k256"] = phase_preintegrate(
                 preint_seeded_case(), f"seeded K={PREINT_K256[0]} window")
             kern["scan_gn"] = phase_scan_gn(cases, "main_path")
+            kern["deskew"] = phase_deskew(front_case(cases, "deskew"), "main_path")
+            for K, n_valid in DESKEW_SEEDED:
+                kern[f"deskew_k{K}"] = phase_deskew(
+                    deskew_seeded_case(K, n_valid),
+                    f"seeded K={K} ({n_valid} valid), 4 lanes, lane 0's window empty")
+            kern["scancontext"] = phase_descriptor(front_case(cases, "make_descriptor"),
+                                                   "main_path")
         del lin_main, cases
         resident = None
         if "resident_path" in phases:
@@ -3859,6 +4151,10 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                 kern["scan_gn_resident"] = phase_scan_gn(res_cases, "resident_path")
                 kern["preintegrate_resident"] = phase_preintegrate(
                     preintegrate_case(res_cases), "resident_path")
+                kern["deskew_resident"] = phase_deskew(front_case(res_cases, "deskew"),
+                                                       "resident_path")
+                kern["scancontext_resident"] = phase_descriptor(
+                    front_case(res_cases, "make_descriptor"), "resident_path (its last keyframe)")
                 # the resident full solve's arguments (the main course lands
                 # no loop or GPS factor, so the path itself runs none)
                 rp = resident[0]
@@ -3875,6 +4171,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         del pipe, resident
     if "profile" in phases:
         phase_profile()
+    if "profile_resident" in phases:
+        phase_profile(resident=True)
     if "pcg_profile" in phases:
         phase_pcg_profile()
     if "edge_floor" in phases:
@@ -3902,7 +4200,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
         (multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes,
-         pre_lanes) = phase_multistream_path()
+         pre_lanes, dsk_lanes, sc_lanes) = phase_multistream_path()
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -4111,6 +4409,35 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         launches_by_path=by_path("icp_align"), k2_launches_by_path=by_path("knn_bruteforce"),
         icp_runs_by_path=by_path("icp_runs"),
         lanes=({f: ia_lanes[f] for f in gn_fields} | {"correspondences": ia_lanes["correspondences"]})))
+    # the front end's rows: the main path's last launches (one lane)
+    front_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "bytes", "flops", "max_abs_err")
+    dsk = kern["deskew"]
+    kernels.append(row(
+        "deskew",
+        "none (not a TPU kernel): the ~70 eager launches of liorf_tpu_torch/ops/deskew.py "
+        "(integrate_gyro + deskew_scan; the JAX package's jitted lines at "
+        "liorf_tpu/ops/deskew.py:35-108)",
+        main_counts["deskew"], r=dsk, source=DESKEW_SOURCE, shape=dsk["shape"],
+        device_ms=dsk["device_ms"], cpu_max_abs_diff=dsk["cpu_max_abs_diff"],
+        launches_by_path=by_path("deskew"), deskew_calls_by_path=by_path("deskew_calls"),
+        resident={f: kern["deskew_resident"][f] for f in front_fields},
+        lanes8={f: dsk_lanes[f] for f in front_fields},
+        seeded={f"K{K}": {f: kern[f"deskew_k{K}"][f] for f in front_fields}
+                for K, _ in DESKEW_SEEDED}))
+    sc = kern["scancontext"]
+    kernels.append(row(
+        "make_descriptor",
+        "none (not a TPU kernel): the ~15 eager launches of "
+        "liorf_tpu_torch/ops/scancontext.py::make_descriptor (the JAX package's jitted "
+        "make_descriptor at liorf_tpu/ops/scancontext.py:34-53)",
+        main_counts["make_descriptor"], r=sc, source=SC_SOURCE, shape=sc["shape"],
+        device_ms=sc["device_ms"], library_call=sc["library_call"],
+        cpu_bins_differing=sc["cpu_bins_differing"],
+        launches_by_path=by_path("make_descriptor"),
+        descriptor_calls_by_path=by_path("descriptor_calls"),
+        resident={f: kern["scancontext_resident"][f] for f in front_fields},
+        lanes8={f: sc_lanes[f] for f in front_fields} | {"path": sc_lanes["path"]}))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched by its path")
     check(res_counts["knn_grid_topk"] > 0, "K1 never launched on the resident path")
@@ -4143,6 +4470,11 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         check(c["preintegrate"] > 0 and c["preintegrate"] == c["preintegrate_calls"],
               f"{path}: {c['preintegrate']} preintegrate launches for "
               f"{c['preintegrate_calls']} preintegrate calls")
+        check(c["deskew"] > 0 and c["deskew"] == c["deskew_calls"],
+              f"{path}: {c['deskew']} deskew launches for {c['deskew_calls']} deskew calls")
+        check(c["make_descriptor"] > 0 and c["make_descriptor"] == c["descriptor_calls"],
+              f"{path}: {c['make_descriptor']} descriptor launches for "
+              f"{c['descriptor_calls']} make_descriptor calls")
         # one linearization and one update a (batched) GN iteration, as K1;
         # one alignment an ICP iteration: K2 less each run's last pass
         check(c["scan_linearize"] == c["knn_grid_topk"] == c["scan_update"],

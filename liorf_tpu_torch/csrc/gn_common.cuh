@@ -1,5 +1,6 @@
 // Device helpers shared by the scan matcher's Gauss-Newton kernels
-// (scan_gn.cu) and ICP's alignment kernel (icp_align.cu): every operation
+// (scan_gn.cu), ICP's alignment kernel (icp_align.cu) and the deskew
+// (deskew.cu, the rounded ops and the euler rotation): every operation
 // rounded on its own, the halving-tree sum, cyclic Jacobi rotations, the
 // rotation of an euler pose, the transform of a point by it, and two small
 // kernels: the points of every lane moved by its pose, and the one flag a

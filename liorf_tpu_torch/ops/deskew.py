@@ -1,4 +1,4 @@
-"""IMU-aided motion deskew of a LiDAR scan.
+"""IMU-aided motion deskew of a LiDAR scan, in one kernel.
 
 Equivalent of the reference front-end
 (``liorf/src/imageProjection.cpp:331-565``): forward-Euler integration of
@@ -6,28 +6,92 @@ gyro rates over the scan window produces a rotation timeline; every point is
 rotated into the scan-start frame by the linearly interpolated rotation at
 its own timestamp. Positional deskew is intentionally omitted, matching the
 reference (``findPosition`` body is disabled, ``imageProjection.cpp:520-534``).
+The reference treats the integrated gyro angles as roll/pitch/yaw euler
+angles (R = Rz Ry Rx); we keep those semantics.
 
-Everything is batched: the integration is a cumulative sum, the per-point
-lookup is a vectorized ``searchsorted`` + lerp, and the rotation apply is a
-single batched matmul. The reference treats the integrated gyro angles as
-roll/pitch/yaw euler angles (R = Rz Ry Rx); we keep those semantics.
+Not a TPU kernel. The JAX package jits these few lines
+(``liorf_tpu/ops/deskew.py:35-108``) into its frame program. Op by op on the
+card they were ~70 eager launches (a cumulative sum, two ``searchsorted`` +
+gather + lerp chains, the euler rotations, a batched product), ~2.4 ms of host
+time a frame for ~70 floating-point operations a point. The kernel
+(``csrc/deskew.cu``) does all of it in one launch for every lane. What bounds
+it on the card is the points' bytes (~29 a point: xyz in and out, the time,
+the mask) and, behind them, the float64 sine and cosine of three angles a
+point; the timeline is a few hundred samples. So each thread block rebuilds
+the timeline and the scan-start rotation in shared memory (a Hillis-Steele
+prefix, log2 K rounds) and then takes one point a thread: a binary search
+in the shared times, a lerp, and the rotation from registers.
+
+* :func:`deskew` — the deskewed points of every lane: xyz [B, N, 3], rel_t
+  [B, N], mask [B, N], scan_start [B], dk_times [B, K], dk_gyr [B, K, 3],
+  dk_mask [B, K] -> [B, N, 3]. One call on the card serves every lane (a
+  vmapped call's lanes included).
+* :func:`deskew_frame` — one scan (no lane axis), what the pipelines call.
+* :func:`deskew_plain` — :func:`deskew` in torch ops, in the kernel's order:
+  :func:`integrate_gyro`, then :func:`deskew_scan` (through
+  :func:`interp_rotation`), each taking any leading batch axes.
+
+The order contract (the kernel keeps it, this module spells it): every
+operation is rounded on its own (no fused multiply-add); the angles'
+running sum is an inclusive Hillis-Steele prefix in float64 (at step d, x[i]
++ x[i - d] for i >= d), rounded to float32 once; the search is
+``torch.searchsorted``'s upper bound; sin and cos are taken in float64 and
+rounded to float32; a 3-term product sum is ``(a0 b0 + a1 b1) + a2 b2``. On
+the card the kernel and the plain version agree bit for bit.
+
+Dispatch by the tensor's device and nothing else: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises. The kernel is a
+``torch.library`` custom op with a vmap rule, so the lane axis of
+``pipeline/multistream.py`` (``torch.func.vmap``) folds into the launch.
 """
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from ..core import se3
+from ..core.build import build_cuda_library
+from .plane_fit import dot3
+from .scan_gn import rot_f32
+from .segment_sum import _fold_lanes
 
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "deskew.cu"
+
+# The longest gyro window the kernel takes (csrc/deskew.cu::kMaxK): the
+# timeline's prefix and samples in shared memory, 64 bytes a sample.
+MAX_K = 2048
+
+_lib = None
+build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
+
+
+def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (once per source content) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    lib.liorf_deskew.argtypes = [vp] * 8 + [ctypes.c_int] * 3 + [vp]
+    lib.liorf_deskew.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
 
 class ImuRotationTimeline(NamedTuple):
     """Integrated gyro rotation samples over (a window around) one scan."""
 
-    times: torch.Tensor  # [K] absolute seconds, padded with +inf
-    angles: torch.Tensor  # [K, 3] integrated (rotX, rotY, rotZ)
-    count: torch.Tensor  # [] int number of valid samples
+    times: torch.Tensor  # [..., K] absolute seconds, padded with +inf
+    angles: torch.Tensor  # [..., K, 3] integrated (rotX, rotY, rotZ)
+    count: torch.Tensor  # [...] int number of valid samples
 
 
 def integrate_gyro(
@@ -36,22 +100,27 @@ def integrate_gyro(
     """Forward-Euler integrate angular rates into cumulative angles.
 
     Mirrors ``imuDeskewInfo`` (imageProjection.cpp:350-409): angle[0] = 0,
-    angle[i] = angle[i-1] + gyro[i] * (t[i] - t[i-1]).
+    angle[i] = angle[i-1] + gyro[i] * (t[i] - t[i-1]). The running sum is
+    the kernel's: a Hillis-Steele prefix in float64, rounded to float32.
     """
     valid = imu_mask
     # dt[i] = t[i] - t[i-1], 0 for the first valid sample and invalid slots.
-    dt = torch.diff(imu_times, prepend=imu_times[:1])
-    prev_valid = torch.cat([torch.zeros_like(valid[:1]), valid[:-1]])
+    dt = torch.diff(imu_times, dim=-1, prepend=imu_times[..., :1])
+    prev_valid = torch.cat([torch.zeros_like(valid[..., :1]), valid[..., :-1]], -1)
     dt = torch.where(valid & prev_valid, dt, 0.0)
-    increments = imu_gyro * dt[:, None]
-    angles = torch.cumsum(torch.where(valid[:, None], increments, 0.0), dim=0)
-    count = torch.sum(valid.to(torch.int64))
+    increments = imu_gyro * dt[..., None]
+    x = torch.where(valid[..., None], increments, 0.0).double()
+    K, d = x.shape[-2], 1
+    while d < K:
+        x = torch.cat([x[..., :d, :], x[..., d:, :] + x[..., :-d, :]], -2)
+        d *= 2
+    count = torch.sum(valid.to(torch.int64), -1)
     times = torch.where(valid, imu_times, torch.inf)
-    return ImuRotationTimeline(times=times, angles=angles, count=count)
+    return ImuRotationTimeline(times=times, angles=x.float(), count=count)
 
 
 def interp_rotation(timeline: ImuRotationTimeline, t: torch.Tensor) -> torch.Tensor:
-    """Linearly interpolate integrated angles at times t [N] -> [N, 3].
+    """Linearly interpolate integrated angles at times t [..., N] -> [..., N, 3].
 
     Matches ``findRotation`` (imageProjection.cpp:493-518): clamp to the
     last sample when t is beyond the timeline, use the front sample when
@@ -59,18 +128,19 @@ def interp_rotation(timeline: ImuRotationTimeline, t: torch.Tensor) -> torch.Ten
     torch does not clamp an out-of-range gather.
     """
     hi = torch.searchsorted(timeline.times, t.contiguous(), right=True)
-    hi = torch.minimum(torch.clamp(hi, min=1), torch.clamp(timeline.count, min=1))
+    count = timeline.count[..., None]
+    hi = torch.minimum(torch.clamp(hi, min=1), torch.clamp(count, min=1))
     lo = hi - 1
     # when hi exceeds the valid range, both ends clamp to the last sample
-    last = torch.clamp(timeline.count - 1, min=0)
+    last = torch.clamp(count - 1, min=0)
     hi = torch.minimum(hi, last)
-    t_lo = timeline.times[lo]
-    t_hi = timeline.times[hi]
+    t_lo = timeline.times.gather(-1, lo)
+    t_hi = timeline.times.gather(-1, hi)
     denom = torch.where(hi == lo, 1.0, t_hi - t_lo)
     ratio = torch.clamp((t - t_lo) / torch.where(denom == 0, 1.0, denom), 0.0, 1.0)
-    a_lo = timeline.angles[lo]
-    a_hi = timeline.angles[hi]
-    return a_lo + (a_hi - a_lo) * ratio[:, None]
+    a_lo = timeline.angles.gather(-2, lo[..., None].expand(*lo.shape, 3))
+    a_hi = timeline.angles.gather(-2, hi[..., None].expand(*hi.shape, 3))
+    return a_lo + (a_hi - a_lo) * ratio[..., None]
 
 
 def deskew_scan(
@@ -82,15 +152,117 @@ def deskew_scan(
 ) -> torch.Tensor:
     """Rotate every point into the scan-start frame.
 
-    xyz: [N, 3] raw sensor-frame points; rel_times: [N] seconds since scan
-    start; returns deskewed [N, 3].
+    xyz: [..., N, 3] raw sensor-frame points; rel_times: [..., N] seconds
+    since scan start; scan_start_time [...]; returns deskewed [..., N, 3].
     """
-    t_abs = scan_start_time + rel_times
-    angles = interp_rotation(timeline, t_abs)  # [N, 3] euler rpy
-    angles0 = interp_rotation(timeline, scan_start_time.reshape(1))  # [1, 3]
-    R_pt = se3.euler_to_rot(angles)  # [N, 3, 3]
-    R0 = se3.euler_to_rot(angles0[0])  # [3, 3]
-    # p_start = R0^T R_pt p
-    rotated = torch.einsum("nij,nj->ni", R_pt, xyz)
-    out = rotated @ R0  # == R0^T applied to rows
-    return torch.where(mask[:, None], out, xyz)
+    start = scan_start_time[..., None]
+    angles = interp_rotation(timeline, start + rel_times)  # [..., N, 3] euler rpy
+    R_pt = rot_f32(angles)  # [..., N, 3, 3]
+    R0 = rot_f32(interp_rotation(timeline, start))  # [..., 1, 3, 3]
+    # p_start = R0^T R_pt p, row by row
+    rotated = torch.stack([dot3(R_pt[..., r, :], xyz) for r in range(3)], -1)
+    out = torch.stack([dot3(R0[..., :, c], rotated) for c in range(3)], -1)
+    return torch.where(mask[..., None], out, xyz)
+
+
+def deskew_plain(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
+    """Plain PyTorch version of :func:`deskew` (same arguments), in the
+    kernel's order of operations."""
+    return deskew_scan(xyz, rel_t, mask, scan_start, integrate_gyro(dk_times, dk_gyr, dk_mask))
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+ARGS = ("xyz", "rel_t", "mask", "scan_start", "dk_times", "dk_gyr", "dk_mask")
+
+
+def _launch(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
+    """The kernel on every lane: the arguments as :func:`deskew` takes them."""
+    dev = xyz.device
+    if xyz.dim() != 3 or dk_times.dim() != 2:
+        raise ValueError(f"deskew: xyz {tuple(xyz.shape)}, dk_times {tuple(dk_times.shape)}: "
+                         "[B, N, 3] points and a [B, K] window")
+    B, N = xyz.shape[:2]
+    K = dk_times.shape[1]
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"deskew: a window of {K} samples (1 to {MAX_K})")
+    want = dict(xyz=(B, N, 3), rel_t=(B, N), mask=(B, N), scan_start=(B,), dk_times=(B, K),
+                dk_gyr=(B, K, 3), dk_mask=(B, K))
+    checked = []
+    for name, t in zip(ARGS, (xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)):
+        dtype = torch.bool if name in ("mask", "dk_mask") else torch.float32
+        if t.dtype != dtype or tuple(t.shape) != want[name] or t.device != dev:
+            raise ValueError(f"deskew: {name} {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {dtype} {want[name]} on {dev}")
+        checked.append(t.contiguous())
+    out = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    if B == 0 or N == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.liorf_deskew(*(t.data_ptr() for t in checked), out.data_ptr(), N, K, B,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deskew: CUDA launch failed with error {err}")
+    deskew.launches += 1
+    return out
+
+
+@torch.library.custom_op("liorf_tpu_torch::deskew", mutates_args=())
+def _deskew_op(xyz: torch.Tensor, rel_t: torch.Tensor, mask: torch.Tensor,
+               scan_start: torch.Tensor, dk_times: torch.Tensor, dk_gyr: torch.Tensor,
+               dk_mask: torch.Tensor) -> torch.Tensor:
+    # The op on any device but CUDA is the plain version (the CPU path and
+    # the tests reach the vmap rule through it).
+    return deskew_plain(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
+
+
+@_deskew_op.register_kernel("cuda")
+def _deskew_cuda(*args):
+    return _launch(*args)
+
+
+@_deskew_op.register_vmap
+def _deskew_vmap(info, in_dims, *args):
+    """Lanes of a vmap fold into the op's own [B] axis: one launch."""
+    n = info.batch_size
+    out = _deskew_op(*(_fold_lanes(t, d, n) for t, d in zip(args, in_dims)))
+    return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+def deskew(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
+    """The deskewed points of every lane, [B, N, 3]: xyz [B, N, 3], rel_t
+    [B, N] (seconds since the scan's start), mask [B, N] (bool), scan_start
+    [B], the gyro window dk_times [B, K], dk_gyr [B, K, 3], dk_mask [B, K]
+    (bool). Masked-out points come back as they are. One call on the card
+    for every lane (a vmapped call's lanes included)."""
+    dev = xyz.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"deskew: unsupported device {dev}")
+    return _deskew_op(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
+
+
+deskew.launches = 0
+
+
+def deskew_frame(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
+    """One scan deskewed: xyz [N, 3], rel_t [N], mask [N], scan_start [],
+    dk_times [K], dk_gyr [K, 3], dk_mask [K] -> [N, 3]; :func:`deskew` on
+    one lane. ``deskew_frame.calls`` counts the calls (a vmapped call once)."""
+    deskew_frame.calls += 1
+    out = deskew(xyz[None], rel_t[None], mask[None], scan_start.reshape(1), dk_times[None],
+                 dk_gyr[None], dk_mask[None])
+    return out[0]
+
+
+deskew_frame.calls = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"deskew": deskew.launches}
+
+
+def reset_launch_counts() -> None:
+    deskew.launches = 0

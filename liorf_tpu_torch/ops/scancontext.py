@@ -9,15 +9,42 @@ once (the reference prunes to ~10% of shifts via the sector key,
 ``Scancontext.cpp:116-148`` — evaluating all shifts is strictly more
 thorough).
 
+The descriptor is one hand-written kernel (``csrc/scancontext.cu``), not a
+TPU kernel: the JAX package jits ``make_descriptor``
+(``liorf_tpu/ops/scancontext.py:34-53``) into its frame program; op by op on
+the card it was ~15 eager launches, ~0.8 ms of host time a call, for a dozen
+operations a point. What bounds the kernel is the points' bytes (13 a point)
+and ``atan2f``; one cluster of thread blocks a lane reduces into shared
+bins by an integer atomic max (exact, so in any order the same bits) and
+merges them through distributed shared memory, in one launch for every lane.
+
+* :func:`make_descriptor` — one scan's descriptor (no lane axis), what the
+  pipelines call; under ``torch.func.vmap`` the lanes are one launch.
+* :func:`descriptors` — every lane's, [B, N, 3] + mask [B, N] -> [B, 20, 60].
+* :func:`make_descriptor_plain` — :func:`descriptors` in torch ops, in the
+  kernel's order: every operation rounded on its own, a quotient IEEE's (by a
+  tensor: torch multiplies by a Python divisor's reciprocal on the card),
+  ``atan2`` the card's ``atan2f`` (torch's atan2 there), degrees torch's
+  ``rad2deg``. A bin that a NaN height reaches reads 0 (torch's ``amax``
+  keeps the NaN, and a non-finite bin is 0), as one that +inf reaches.
+
+Dispatch by the tensor's device and nothing else: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises.
+
 Constants follow the reference (``Scancontext.h:80-99``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from ..core.build import build_cuda_library
+from .segment_sum import _fold_lanes
 
 NUM_RING = 20
 NUM_SECTOR = 60
@@ -28,33 +55,136 @@ NUM_CANDIDATES = 3
 SC_DIST_THRES = 0.3
 SECTOR_ANGLE = 360.0 / NUM_SECTOR
 
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scancontext.cu"
 
-def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """[N, 3] + mask -> [20, 60] polar max-height descriptor.
+_lib = None
+build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
 
-    Matches ``makeScancontext`` (Scancontext.cpp:151-195): z is offset by the
-    lidar height, bins take the max z, empty bins are 0.
-    """
-    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2] + LIDAR_HEIGHT
+
+def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (once per source content) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.liorf_scancontext.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+    lib.liorf_scancontext.restype = ci
+    _lib = lib
+    return lib
+
+
+BINS = NUM_RING * NUM_SECTOR + 1  # a lane's bins and its dump slot
+
+
+def descriptor_bins(xyz: torch.Tensor, mask: torch.Tensor):
+    """Each point's slot and height for :func:`make_descriptor_plain`'s
+    scatter-max, flat over the lanes of xyz [B, N, 3] and mask [B, N]: lane
+    b's bin (ring, sector) at b * BINS + ring * 60 + sector, and a rejected
+    point (masked out, or beyond 80 m) in its lane's dump slot b * BINS + 1200
+    with height -inf (``liorf_tpu/ops/scancontext.py:49``)."""
+    B = xyz.shape[0]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2] + LIDAR_HEIGHT
     r = torch.sqrt(x * x + y * y)
     theta = torch.rad2deg(torch.atan2(y, x))
     theta = torch.where(theta < 0, theta + 360.0, theta)
 
-    ring = torch.clamp(torch.ceil(r / MAX_RADIUS * NUM_RING), 1, NUM_RING).to(torch.int64) - 1
-    sector = torch.clamp(torch.ceil(theta / 360.0 * NUM_SECTOR), 1, NUM_SECTOR).to(torch.int64) - 1
+    radius, circle = r.new_full((), MAX_RADIUS), r.new_full((), 360.0)
+    ring = torch.clamp(torch.ceil(r / radius * NUM_RING), 1, NUM_RING).to(torch.int64) - 1
+    sector = torch.clamp(torch.ceil(theta / circle * NUM_SECTOR), 1, NUM_SECTOR).to(torch.int64) - 1
 
     ok = mask & (r <= MAX_RADIUS)
-    # rejected points go to a dump slot that is sliced off (scancontext.py:49)
-    flat = torch.where(ok, ring * NUM_SECTOR + sector, NUM_RING * NUM_SECTOR)
-    desc = torch.full(
-        (NUM_RING * NUM_SECTOR + 1,), -torch.inf, dtype=torch.float32, device=xyz.device
-    )
-    desc = desc.scatter_reduce(  # out of place: also runs under torch.func.vmap
-        0, flat, torch.where(ok, z, -torch.inf).to(torch.float32),
-        reduce="amax", include_self=True,
-    )
-    desc = desc[:-1].reshape(NUM_RING, NUM_SECTOR)
+    lane = torch.arange(B, device=xyz.device)[:, None] * BINS
+    flat = lane + torch.where(ok, ring * NUM_SECTOR + sector, BINS - 1)
+    return flat.reshape(-1), torch.where(ok, z, -torch.inf).to(torch.float32).reshape(-1)
+
+
+def make_descriptor_plain(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, N, 3] + mask [B, N] -> [B, 20, 60] polar max-height descriptors.
+
+    Matches ``makeScancontext`` (Scancontext.cpp:151-195): z is offset by the
+    lidar height, bins take the max z, empty bins are 0.
+    """
+    B = xyz.shape[0]
+    flat, height = descriptor_bins(xyz, mask)
+    desc = torch.full((B * BINS,), -torch.inf, dtype=torch.float32, device=xyz.device)
+    desc = desc.scatter_reduce(0, flat, height, reduce="amax", include_self=True)
+    desc = desc.reshape(B, BINS)[:, :-1].reshape(B, NUM_RING, NUM_SECTOR)
     return torch.where(torch.isfinite(desc), desc, 0.0)
+
+
+def _launch(xyz, mask):
+    """The kernel on every lane: the arguments as :func:`descriptors` takes them."""
+    dev = xyz.device
+    if xyz.dim() != 3 or xyz.shape[2] != 3 or xyz.dtype != torch.float32:
+        raise ValueError(f"descriptors: xyz {xyz.dtype} {tuple(xyz.shape)}, expected float32 "
+                         "[B, N, 3]")
+    B, N = xyz.shape[:2]
+    if mask.dtype != torch.bool or tuple(mask.shape) != (B, N) or mask.device != dev:
+        raise ValueError(f"descriptors: mask {mask.dtype} {tuple(mask.shape)} on {mask.device}, "
+                         f"expected bool {(B, N)} on {dev}")
+    xyz, mask = xyz.contiguous(), mask.contiguous()
+    out = torch.empty((B, NUM_RING, NUM_SECTOR), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.liorf_scancontext(xyz.data_ptr(), mask.data_ptr(), out.data_ptr(), N, B,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"descriptors: CUDA launch failed with error {err}")
+    make_descriptor.launches += 1
+    return out
+
+
+@torch.library.custom_op("liorf_tpu_torch::scancontext", mutates_args=())
+def _descriptor_op(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    # The op on any device but CUDA is the plain version (the CPU path and
+    # the tests reach the vmap rule through it).
+    return make_descriptor_plain(xyz, mask)
+
+
+@_descriptor_op.register_kernel("cuda")
+def _descriptor_cuda(xyz, mask):
+    return _launch(xyz, mask)
+
+
+@_descriptor_op.register_vmap
+def _descriptor_vmap(info, in_dims, xyz, mask):
+    """Lanes of a vmap fold into the op's own [B] axis: one launch."""
+    n = info.batch_size
+    out = _descriptor_op(*(_fold_lanes(t, d, n) for t, d in zip((xyz, mask), in_dims)))
+    return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+def descriptors(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The descriptor of every lane: xyz [B, N, 3] + mask [B, N] (bool) ->
+    [B, 20, 60]. One call on the card for every lane."""
+    dev = xyz.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"descriptors: unsupported device {dev}")
+    return _descriptor_op(xyz, mask)
+
+
+def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[N, 3] + mask -> [20, 60] polar max-height descriptor: :func:`descriptors`
+    on one lane. ``make_descriptor.calls`` counts the calls (a vmapped call
+    once), ``make_descriptor.launches`` the kernel's launches."""
+    make_descriptor.calls += 1
+    return descriptors(xyz[None], mask[None])[0]
+
+
+make_descriptor.calls = 0
+make_descriptor.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {"make_descriptor": make_descriptor.launches}
+
+
+def reset_launch_counts() -> None:
+    make_descriptor.launches = 0
 
 
 def ring_key(desc: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from ..core.voxel import voxel_downsample_xyz
 from ..imu import fusion as imu_fusion
 from ..imu import preintegration as preint
 from ..ops import scancontext
-from ..ops.deskew import deskew_scan, integrate_gyro
+from ..ops.deskew import deskew_frame
 from ..ops.knn import SpatialHashGrid
 from ..ops.scan_match import ScanMatchParams, scan_to_map, scan_to_map_lanes
 
@@ -155,8 +155,7 @@ def _frame_front(
     IMU preintegration guess. Reads nothing back (runs under vmap)."""
     # --- front-end: deskew + downsample (imageProjection) ---
     if params.deskew:
-        tl = integrate_gyro(dk_times, dk_gyr, dk_mask)
-        deskewed = deskew_scan(xyz, rel_t, mask, scan_start, tl)
+        deskewed = deskew_frame(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
     else:
         deskewed = xyz
     ds_xyz, ds_mask = voxel_downsample_xyz(deskewed, mask, params.leaf, params.scan_cap)
@@ -369,8 +368,7 @@ def bootstrap_step(
 ):
     """First frame: deskew + downsample + descriptor + filter init."""
     if params.deskew:
-        tl = integrate_gyro(dk_times, dk_gyr, dk_mask)
-        deskewed = deskew_scan(xyz, rel_t, mask, scan_start, tl)
+        deskewed = deskew_frame(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
     else:
         deskewed = xyz
     ds_xyz, ds_mask = voxel_downsample_xyz(deskewed, mask, params.leaf, params.scan_cap)

@@ -56,7 +56,7 @@ from ..graph import pose_graph as pg
 from ..imu import fusion as imu_fusion
 from ..mapping.keyframes import assemble_local_map, subsample_to_cap
 from ..ops import knn, scancontext
-from ..ops.deskew import deskew_scan, integrate_gyro
+from ..ops.deskew import deskew_frame
 from ..ops.icp import ICPParams, icp_point2point, icp_point2point_lanes
 from .config import SlamConfig
 from .frame_step import FrameParams, frame_core, frame_core_lanes
@@ -1088,8 +1088,7 @@ def _bootstrap_impl(
     b = dict(dtype=torch.bool, device=dev)
 
     if fp.deskew:
-        tl = integrate_gyro(dk_times, dk_gyr, dk_mask)
-        deskewed = deskew_scan(xyz, rel_t, mask, scan_start, tl)
+        deskewed = deskew_frame(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
     else:
         deskewed = xyz
     ds_xyz, ds_mask = voxel_downsample_xyz(deskewed, mask, fp.leaf, fp.scan_cap)

@@ -363,3 +363,129 @@ def test_preintegrate_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):  # an empty window
         pop.preintegrate(*(a[:, :0] if a.dim() > 1 and i < 4 else a for i, a in enumerate(args)),
                          *PREINT_NOISE)
+
+
+# ---------------------------------------------------------------------------
+# the frame's front end: deskew (csrc/deskew.cu) and the ScanContext
+# descriptor (csrc/scancontext.cu)
+# ---------------------------------------------------------------------------
+
+def _deskew_lanes(seed, lanes, K, N, dev):
+    """Seeded scans and gyro windows: samples 5 ms apart from 0.3 s, a masked
+    tail and a masked sample inside, points timed before, inside and after
+    the timeline, 10 % of them masked out; lane 0's window is empty when
+    there are several lanes."""
+    rng = np.random.default_rng(seed)
+    times = (0.3 + 0.005 * np.arange(K, dtype=np.float32))[None].repeat(lanes, 0)
+    gyr = rng.normal(0, 0.5, (lanes, K, 3)).astype(np.float32)
+    imask = np.arange(K)[None] < max(1, K - K // 8)
+    imask = imask.repeat(lanes, 0)
+    imask[:, K // 2] = K < 3
+    if lanes > 1:
+        imask[0] = False
+    xyz = rng.uniform(-60, 60, (lanes, N, 3)).astype(np.float32)
+    rel = rng.uniform(-0.02, 0.005 * K + 0.02, (lanes, N)).astype(np.float32)
+    mask = rng.uniform(size=(lanes, N)) > 0.1
+    start = np.full(lanes, 0.3 + 0.0025 * K, np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (xyz, rel, mask, start, times, gyr, imask)]
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("K, N", [(1, 1000), (13, 4097), (64, 32768), (256, 2500), (2048, 300)])
+def test_deskew_kernel_vs_plain(dev, K, N, lanes):
+    """Bit for bit against the plain version on the card, one launch for all
+    lanes; a second launch repeats; each lane equals its own launch."""
+    from liorf_tpu_torch.ops import deskew as dk
+
+    args = _deskew_lanes(K + N + lanes, lanes, K, N, dev)
+    want = dk.deskew_plain(*args)
+    before = dk.deskew.launches
+    got = dk.deskew(*args)
+    again = dk.deskew(*args)
+    assert dk.deskew.launches == before + 2
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(got, again)
+    for b in range(lanes):
+        assert torch.equal(got[b:b + 1], dk.deskew(*(a[b:b + 1] for a in args))), b
+
+
+def test_deskew_on_every_card(dev):
+    """The kernel's dynamic shared memory is an opt-in of each device's
+    context: the same bits from every card, as the plain version's."""
+    from liorf_tpu_torch.ops import deskew as dk
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    host = _deskew_lanes(3, 3, 256, 5000, "cpu")
+    first = None
+    for d in range(torch.cuda.device_count()):
+        args = [a.to(torch.device("cuda", d)) for a in host]
+        got = dk.deskew(*args)
+        assert torch.equal(got, dk.deskew_plain(*args)), d
+        first = got.cpu() if first is None else first
+        assert torch.equal(got.cpu(), first), d
+
+
+def test_deskew_raises_on_what_the_kernel_does_not_take(dev):
+    from liorf_tpu_torch.ops import deskew as dk
+
+    args = _deskew_lanes(0, 2, 16, 100, dev)
+    bad = {0: args[0].double(), 2: args[2].float(), 1: args[1][:, :50], 3: args[3][:1],
+           4: args[4].cpu(), 6: args[6][:, :8]}
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            dk.deskew(*args[:i], t, *args[i + 1:])
+    long = _deskew_lanes(0, 1, dk.MAX_K + 1, 100, dev)
+    with pytest.raises(ValueError):
+        dk.deskew(*long)
+
+
+def _clouds(seed, lanes, N, dev):
+    """Points out to 90 m with heights -2..6 m, 10 % masked out, a NaN, a +inf
+    and a -inf height masked in, a point at the origin and one on a ring's
+    edge."""
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-90, 90, (lanes, N, 3)).astype(np.float32)
+    xyz[..., 2] = rng.uniform(-2, 6, (lanes, N))
+    mask = rng.uniform(size=(lanes, N)) > 0.1
+    if N >= 5:
+        xyz[:, :5] = [[3, 1, np.nan], [20, 5, np.inf], [40, -3, -np.inf], [0, 0, 1], [8, 0, 2]]
+        mask[:, :5] = True
+    return torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("N", [1, 1000, 32768, 40001])
+def test_descriptor_kernel_vs_plain(dev, N, lanes):
+    """Bit for bit against the plain version on the card (a max is exact, so
+    the atomics' order does not show), one launch for all lanes; repeats;
+    each lane equals its own launch."""
+    from liorf_tpu_torch.ops import scancontext as sc
+
+    xyz, mask = _clouds(N + lanes, lanes, N, dev)
+    want = sc.make_descriptor_plain(xyz, mask)
+    before = sc.make_descriptor.launches
+    got = sc.descriptors(xyz, mask)
+    again = sc.descriptors(xyz, mask)
+    assert sc.make_descriptor.launches == before + 2
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(got, again)
+    for b in range(lanes):
+        assert torch.equal(got[b:b + 1], sc.descriptors(xyz[b:b + 1], mask[b:b + 1])), b
+    one = torch.func.vmap(sc.make_descriptor)(xyz, mask)
+    assert torch.equal(one, got)
+
+
+def test_descriptor_on_every_card(dev):
+    from liorf_tpu_torch.ops import scancontext as sc
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    host = _clouds(5, 3, 20000, "cpu")
+    first = None
+    for d in range(torch.cuda.device_count()):
+        xyz, mask = (a.to(torch.device("cuda", d)) for a in host)
+        got = sc.descriptors(xyz, mask)
+        assert torch.equal(got, sc.make_descriptor_plain(xyz, mask)), d
+        first = got.cpu() if first is None else first
+        assert torch.equal(got.cpu(), first), d
