@@ -65,13 +65,17 @@ no CPU fallback: without a CUDA device the script exits with code 5.
 Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
-             [,profile][,profile_resident][,pcg_profile][,edge_floor][,repair_cost]
+             [,profile][,profile_resident][,pcg_profile][,fusion_profile][,edge_floor]
+             [,repair_cost]
                       not run by default: "profile" traces 8 warm frames with
                       torch.profiler (device-busy share, kernel time by name,
                       host operators by their own time), "profile_resident"
                       the same through the resident pipeline (one a process);
                       "pcg_profile" times the PCG kernel's phases by clock
-                      cycles (a profiling build of csrc/pcg.cu);
+                      cycles (a profiling build of csrc/pcg.cu),
+                      "fusion_profile" the fusion kernel's on the main
+                      path's last launch (with main_path; a profiling
+                      build of csrc/fusion.cu);
                       "edge_floor" holds a factor's linearization bits over
                       256 to 4096 edge slots; "repair_cost" times
                       resident_path here and in the --parent checkout, in turns
@@ -2187,12 +2191,15 @@ def bench_pcg(args, iters: int, damping: float) -> dict:
         max_abs_err=float((out.cpu() - cpu).abs().max()),
         equal_to_cpu_plain=bool(torch.equal(out.cpu(), cpu)),
         repeats=bool(torch.equal(out, again)),
+        cluster=pcg.CLUSTER,
+        layout=int(pcg.load_library().liorf_pcg_layout(K, E, G, pcg.CLUSTER)),
         cluster_1_equal_8=bool(torch.equal(out, c1)),
         lanes_equal_one_lane_launches=bool(torch.equal(out, alone)),
         op_by_op_max_abs_diff=float((out - x_old).abs().max()),
         max_abs_x=float(out.abs().max()),
         **kernel_ms(kernel),
-        cluster_1_ms=cuda_ms(lambda: pcg._launch(*args, iters, damping, cluster=1), reps=10, batch=5),
+        # the kernel's own time on the card, apart from the wrapper's host time
+        device_ms=device_only_ms(kernel),
         plain_ms=cuda_ms(lambda: pcg.pcg_solve_plain(*args, iters, damping), reps=3, warm=1),
         op_by_op_ms=cuda_ms(old, reps=3, warm=1),
         op_by_op_call="pose_graph._pcg op by op (torch.sum dots), vmapped over the lanes",
@@ -3201,6 +3208,43 @@ def phase_icp_align(cases: dict, label: str) -> dict:
     return res
 
 
+FUSION_PHASES = ("setup_whitening", "build_system", "qr", "back_substitution_retracts", "h",
+                 "lu", "inverse_b_schur", "cholesky_outputs")
+
+
+def phase_fusion_profile(args, label: str) -> None:
+    """Not in the default run. The fusion kernel rebuilt with
+    -DLIORF_FUSION_PROFILE on the last launch a path gave it: clock cycles
+    block 0's first thread spends in each phase (summed over the GN
+    iterations), their shares, and the profiling build's device time; its
+    outputs held bit for bit against the plain version."""
+    import ctypes
+
+    fstep._lib = None
+    try:
+        lib = fstep.load_library(("-DLIORF_FUSION_PROFILE",))
+        lib.liorf_fusion_profile.argtypes = [ctypes.c_void_p]
+        lib.liorf_fusion_profile.restype = ctypes.c_int
+        out = fstep._launch(*args)
+        plain = fstep.fusion_step_plain(*args)
+        check(all(same_bits(o, p) for o, p in zip(out, plain)),
+              "fusion_profile: the profiling build differs from the plain version")
+        ms = device_only_ms(lambda: fstep._launch(*args))
+        fstep._launch(*args)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * len(FUSION_PHASES))()
+        check(lib.liorf_fusion_profile(ctypes.addressof(buf)) == 0, "reading the profile failed")
+    finally:
+        fstep._lib = None  # the next user builds the library without the profile
+    cycles = {name: buf[j] for j, name in enumerate(FUSION_PHASES)}
+    total = sum(cycles.values())
+    emit("fusion_profile", path=label, lanes=int(args[0].shape[0]), gn_iters=int(args[-1]),
+         cycles=cycles, total_cycles=total,
+         share={k: v / total for k, v in cycles.items()}, device_ms=ms,
+         note="cycles of block 0's thread 0 in the last launch, each phase closed by a block "
+              "barrier (the profiling build; its times are the plain build's only roughly)")
+
+
 PCG_PHASES = ("tree_rz", "p_own", "edges", "gps_prior", "sync1", "node_sums", "sync2",
               "tree_pap", "x_r", "precond", "sync3")
 
@@ -3225,47 +3269,106 @@ def random_graph(K: int, n: int, E: int, G: int, seed: int):
     return graph._replace(**{k: v.to(DEV) for k, v in graph._asdict().items()})
 
 
-def phase_pcg_profile() -> None:
-    """Not in the default run. The PCG kernel rebuilt with
-    -DLIORF_PCG_PROFILE: clock cycles block 0's first thread spends in each
-    phase of an iteration (summed, divided by the iterations), on random
-    graphs at the resident default's slots (full and window solves) and at
-    the multistream operating point's, at clusters of 1 and 8, with the
-    vectors in shared memory and in device memory."""
+# the PCG's shapes: the main path's window solve, the resident full solve,
+# the 8-lane multistream tick (label, lanes, node slots, used nodes, edge
+# and GPS slots, iterations)
+PCG_SHAPES = (("main window", 1, 256, 224, 256, 16, 32),
+              ("resident full solve", 1, 1024, 900, 1152, 256, 64),
+              ("multistream tick", 8, 128, 100, 144, 16, 16))
+
+
+def pcg_shape_args(lanes: int, K: int, n: int, E: int, G: int) -> list:
+    """pcg_solve's arguments for the first GN step of ``lanes`` random graphs
+    (random_graph, seeds 3, 4, ...), stacked on a lane axis."""
+    lane_args = []
+    for b in range(lanes):
+        graph = random_graph(K, n, E, G, seed=3 + b)
+        rhs, diag, t = pg._build_normal_terms(graph, graph.node_mask)
+        keys, perm = t.plan.sorted_rows()
+        lane_args.append((t.Ji, t.Jj, t.Jg, t.Jp, t.e_i, t.e_j, t.g_i, t.p_i, keys, perm,
+                          pg._block_jacobi(diag, 1e-4), rhs))
+    return [torch.stack(v) for v in zip(*lane_args)]
+
+
+PCG_CLUSTERS = (1, 2, 4, 8)  # the cluster sizes a launch may take
+# how z and p reach a factor's endpoints: replicated in every block (the
+# kernel), or read from their owner's block (a development build)
+PCG_EXCHANGES = (("replicated", ()), ("remote_reads", ("-DLIORF_PCG_REMOTE_P",)))
+
+
+def phase_pcg_profile(captured=None) -> None:
+    """Not in the default run. The PCG kernel at its three shapes
+    (PCG_SHAPES): first every cluster size (on chip where the lane fits,
+    else device memory), timed back to back and held bit for bit against
+    the default launch (the table behind pcg.CLUSTER); then, at the default
+    cluster, z and p replicated in every block (the kernel) against read at
+    a factor's endpoints from their owner's block (-DLIORF_PCG_REMOTE_P):
+    each timed in its plain build and held bit for bit against the default
+    launch, then rebuilt with -DLIORF_PCG_PROFILE: clock cycles block 0's
+    first thread spends in each phase of an iteration (summed, divided by
+    the iterations). ``captured``: the main path's own launches
+    (capture_kernel_args), held and profiled beside the random graphs."""
     import ctypes
 
-    pcg._lib = None
-    lib = pcg.load_library(("-DLIORF_PCG_PROFILE",))
-    lib.liorf_pcg_profile.argtypes = [ctypes.c_void_p]
-    out = []
-    for K, n, E, G, iters, free_from in ((1024, 900, 1152, 256, 64, 0), (1024, 900, 1152, 256, 16, 880),
-                                         (128, 100, 144, 16, 16, 0)):
-        graph = random_graph(K, n, E, G, seed=3)
-        free = graph.node_mask & (torch.arange(K, device=DEV) >= free_from)
-        rhs, diag, t = pg._build_normal_terms(graph, free)
-        keys, perm = t.plan.sorted_rows()
-        args = [a[None] for a in (t.Ji, t.Jj, t.Jg, t.Jp, t.e_i, t.e_j, t.g_i, t.p_i, keys, perm,
-                                  pg._block_jacobi(diag, 1e-4), rhs)]
-        for cluster in (1, 8):
-            for shared in (True, False):
-                def call():
-                    return pcg._launch(*args, iters, 1e-4, cluster=cluster, shared=shared)
+    lib = pcg.load_library()
+    cases = [(label, pcg_shape_args(lanes, K, n, E, G), iters, 1e-4)
+             for label, lanes, K, n, E, G, iters in PCG_SHAPES]
+    cases += [(f"main path {key} (its own arguments)", *case)
+              for key, case in sorted((captured or {}).items())]
+    refs = [pcg._launch(*args, iters, damping) for _, args, iters, damping in cases]
+    table = []
+    for (label, args, iters, damping), ref in zip(cases, refs):
+        B, K, _ = args[11].shape
+        E, G = args[0].shape[1], args[2].shape[1]
+        for cluster in PCG_CLUSTERS:
+            def call():
+                return pcg._launch(*args, iters, damping, cluster=cluster)
 
-                row = dict(nodes=K, edges=E, gps=G, iters=iters, free_from=free_from,
-                           cluster=cluster, shared=shared and bool(
-                               lib.liorf_pcg_fits_shared(K, E, G, cluster)),
-                           ms=cuda_ms(call, reps=10, batch=5))
-                call()
+            row = dict(shape=label, lanes=B, nodes=K, edges=E, gps=G, iters=iters,
+                       cluster=cluster, layout=int(lib.liorf_pcg_layout(K, E, G, cluster)),
+                       shared_bytes=int(lib.liorf_pcg_shared_bytes(K, E, G, cluster)),
+                       default=cluster == pcg.CLUSTER,
+                       equal_to_default=bool(torch.equal(call(), ref)),
+                       ms=cuda_ms(call, reps=10, batch=5))
+            check(row["equal_to_default"], f"pcg_profile: {row} differs from the default launch")
+            table.append(row)
+    out = []
+    try:
+        for exchange, flags in PCG_EXCHANGES:
+            pcg._lib = None
+            pcg.load_library(flags)
+            ms = {}
+            for (label, args, iters, damping), ref in zip(cases, refs):
+                def call():
+                    return pcg._launch(*args, iters, damping)
+
+                check(torch.equal(call(), ref), f"pcg_profile: {exchange} differs from the kernel "
+                      f"on {label}")
+                ms[label] = cuda_ms(call, reps=10, batch=5)
+            pcg._lib = None
+            lib = pcg.load_library(flags + ("-DLIORF_PCG_PROFILE",))
+            lib.liorf_pcg_profile.argtypes = [ctypes.c_void_p]
+            for (label, args, iters, damping), ref in zip(cases, refs):
+                B, K, _ = args[11].shape
+                E, G = args[0].shape[1], args[2].shape[1]
+                check(torch.equal(pcg._launch(*args, iters, damping), ref),
+                      f"pcg_profile: the profiling build ({exchange}) differs on {label}")
                 torch.cuda.synchronize()
                 buf = (ctypes.c_longlong * 16)()
                 check(lib.liorf_pcg_profile(ctypes.addressof(buf)) == 0, "reading the profile failed")
-                row["cycles_per_iteration"] = {name: buf[j] / iters for j, name in enumerate(PCG_PHASES)}
-                row["prologue_cycles"] = buf[11]
-                out.append(row)
-    pcg._lib = None  # the next user builds the library without the profile
-    emit("pcg_profile", rows=out, note="shared False: the device-memory layout of lanes "
-         "too large for shared memory; cycles of block 0's thread 0 in the row's last launch "
-         "(the profiling build; its times are the plain build's only roughly)")
+                cycles = {name: buf[j] / iters for j, name in enumerate(PCG_PHASES)}
+                out.append(dict(shape=label, lanes=B, nodes=K, edges=E, gps=G, iters=iters,
+                                cluster=pcg.CLUSTER,
+                                layout=int(lib.liorf_pcg_layout(K, E, G, pcg.CLUSTER)),
+                                exchange=exchange, ms=ms[label], cycles_per_iteration=cycles,
+                                cycles_per_iteration_total=sum(cycles.values()),
+                                prologue_cycles=buf[11]))
+    finally:
+        pcg._lib = None  # the next user builds the kernel's own library
+    emit("pcg_profile", clusters=table, rows=out,
+         note="clusters: the kernel's build, back to back (layout 1 on chip, 0 device memory); "
+              "rows: ms of each exchange's plain build, back to back, and cycles of block 0's "
+              "thread 0 in its profiling build's last launch")
 
 
 def phase_segment_sum() -> dict:
@@ -4112,14 +4215,15 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
     vr_lanes = pcg_lanes = lin_lanes = fus_lanes = sg_lanes = ia_lanes = pre_lanes = None
-    dsk_lanes = sc_lanes = None
+    dsk_lanes = sc_lanes = pcg_main_args = None
     res_loop_run, new_counts = None, {}
     if "main_path" in phases:
         cases = {}
         with capture_kernel_args(cases):
             pipe, main_counts = phase_main_path()
-        pcg_main = pcg_cases(cases)
+        pcg_main = pcg_main_args = pcg_cases(cases)
         lin_main = linearize_case(cases)
+        fus_case = fusion_case(cases)
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
             kern["voxel_reduce"] = phase_voxel_reduce(
@@ -4127,7 +4231,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             kern["segment_sum"] = phase_segment_sum()
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
             kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
-            kern["fusion_step"] = phase_fusion(fusion_case(cases), "main_path")
+            kern["fusion_step"] = phase_fusion(fus_case, "main_path")
             kern["preintegrate"] = phase_preintegrate(preintegrate_case(cases), "main_path")
             kern["preintegrate_k256"] = phase_preintegrate(
                 preint_seeded_case(), f"seeded K={PREINT_K256[0]} window")
@@ -4139,7 +4243,9 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                     f"seeded K={K} ({n_valid} valid), 4 lanes, lane 0's window empty")
             kern["scancontext"] = phase_descriptor(front_case(cases, "make_descriptor"),
                                                    "main_path")
-        del lin_main, cases
+        if "fusion_profile" in phases:
+            phase_fusion_profile(fus_case, "main_path")
+        del lin_main, fus_case, cases
         resident = None
         if "resident_path" in phases:
             res_cases = {}
@@ -4174,7 +4280,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     if "profile_resident" in phases:
         phase_profile(resident=True)
     if "pcg_profile" in phases:
-        phase_pcg_profile()
+        phase_pcg_profile(pcg_main_args)
     if "edge_floor" in phases:
         phase_edge_floor()
     if "repair_cost" in phases:
@@ -4297,15 +4403,17 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         lanes8={k: {f: v[f] for f in vox_fields} for k, v in vr_lanes.items()}))
     # the PCG row: the main path's last launch shape (its window solves)
     pcg_main = max(kern["pcg_solve"].values(), key=lambda r: r["shape"]["iters"])
-    pcg_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "cluster_1_ms", "plain_ms",
-                  "op_by_op_ms", "bound_ms", "bound_by", "flops", "max_abs_err")
+    pcg_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "cluster",
+                  "layout", "plain_ms", "op_by_op_ms", "bound_ms", "bound_by",
+                  "flops", "max_abs_err")
     kernels.append(row(
         "pcg_solve",
         "none (not a TPU kernel): the op-by-op PCG of liorf_tpu_torch/graph/pose_graph.py "
         "(pose_graph._pcg; the JAX package's lax.scan at liorf_tpu/graph/pose_graph.py:220-253), "
         "with the fixed-order dot (fixed_dot) and the matvec's segment sum folded in",
         main_counts["pcg_solve"], r=pcg_main, source=PCG_SOURCE, shape=pcg_main["shape"],
-        op_by_op_ms=pcg_main["op_by_op_ms"], cluster_1_ms=pcg_main["cluster_1_ms"],
+        op_by_op_ms=pcg_main["op_by_op_ms"], device_ms=pcg_main["device_ms"],
+        cluster=pcg_main["cluster"],
         launches_by_path=by_path("pcg_solve"), gn_steps_by_path=by_path("pose_graph_gn_steps"),
         resident_full={k: {f: v[f] for f in pcg_fields}
                        for k, v in kern["pcg_solve_resident_full"].items()},

@@ -20,16 +20,21 @@
 //   gn_iters GN iterations: the residual and its 36 x 30 Jacobian in closed
 //     form (jacfwd's own derivative: so3_log's branch by branch from
 //     so3_log.cuh, so3_exp's at the bias-corrected rotation), the column
-//     scale, a Householder QR of [J / d | r] (one thread a column), back
-//     substitution on R + 1e-7 I, both retracts;
+//     scale, a Householder QR of [J / d | r] (a warp a column), back
+//     substitution on R + 1e-7 I (a warp a row), both retracts;
 //   the marginalization, in float64 (in float32 it loses the information's
 //     velocity block to ~1 %): H = J^T J, its Jacobi scaling, LU with partial
 //     pivoting of [A | B], C - B^T A^-1 B, symmetrized, its Cholesky factor
 //     (NaN on failure), W = chol(S)^T d_j rounded to float; then the
 //     divergence flag.
 //
-// J (36 x 31 with r), H and the factorizations live in shared memory; each
-// long sum is one thread's halving tree (tree_sum) over terms it reads there.
+// J (36 x 31 with r), H and the factorizations live in shared memory. A sum
+// on a dependent chain (a QR column's dot, a substitution's row, a Cholesky
+// entry, the whitening's triangular inverse) is one warp's halving tree
+// (warp_tree: the tree's pairing is the shuffle-down order, so one warp
+// gives tree_sum's bits with no serial chain and no array); the LU's pivot is
+// a warp's arg-max. A sum of which hundreds are independent (H, the Schur
+// complement, the system's whitened rows) stays one thread's tree_sum.
 //
 // The order contract (ops/fusion_step.py::fusion_step_plain spells it in
 // torch ops; on the card the two agree bit for bit): every product, sum,
@@ -42,10 +47,14 @@
 // takes them. No atomics: every order is fixed.
 //
 // What bounds it: neither bytes (~1.9 KB a lane) nor operations (~0.4 MFLOP
-// a lane) but latency: ~350 block barriers and the dependent chains between
-// them (a QR column step, the back substitution's 30 rows, the 15 steps of
-// the LU and of the Cholesky factor). One lane is one block on one SM; the
-// lanes of a vmapped call run side by side.
+// a lane) but latency: the dependent chains (a QR column step, the back
+// substitution's 30 rows, the 15 steps of the LU and of the Cholesky factor)
+// and the block barriers between them. The QR keeps each column in one
+// warp's registers; each step is one barrier: the owner of column k + 1
+// reflects it and forms its reflector at once (into the next of three
+// buffers) while the other warps reflect the later columns. One lane is one
+// block of 16 warps on one SM; the lanes of a vmapped call run side by side. chip_smoke.py's fusion_profile phase times each phase by
+// clock cycles (a build with -DLIORF_FUSION_PROFILE).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,7 +65,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRows = 36;  // residual rows: prior 15, IMU 9, bias 6, lidar 6
 constexpr int kTan = 30;   // tangents: state i 15, state j 15
 constexpr int kCols = 31;  // J and r
@@ -92,6 +103,53 @@ __device__ __forceinline__ auto tree_sum(F f) -> decltype(f(0)) {
   }
 }
 
+#ifdef LIORF_FUSION_PROFILE
+// Development only (built with -DLIORF_FUSION_PROFILE): clock cycles thread 0
+// of block 0 spends in each phase (set-up and whitening, build_system, the
+// QR, back substitution and retracts, H, LU, A^-1 B and the Schur
+// complement, the Cholesky factor and the outputs), summed over the GN
+// iterations; each stamp follows a block barrier. The last entry holds the
+// previous stamp.
+constexpr int kProfPhases = 8;
+__device__ long long g_prof[kProfPhases + 1];
+__device__ __forceinline__ void prof(int n) {
+  if (threadIdx.x == 0 && blockIdx.x == 0) {
+    const long long now = clock64();
+    if (n >= 0) g_prof[n] += now - g_prof[kProfPhases];
+    g_prof[kProfPhases] = now;
+  }
+}
+__device__ __forceinline__ void prof_start() {
+  if (threadIdx.x == 0 && blockIdx.x == 0)
+    for (int j = 0; j < kProfPhases; ++j) g_prof[j] = 0;
+  prof(-1);
+}
+#else
+__device__ __forceinline__ void prof(int) {}
+__device__ __forceinline__ void prof_start() {}
+#endif
+
+// The same halving tree over f(0..N-1) (N <= 64) by one warp, every lane's
+// result: lane l holds element l (and, for P = 64, element l + 32 added to
+// it: the tree's first level), then the shuffle-down levels h = P/2 ... 1
+// pair element i with i + h exactly as tree_sum does. No serial chain, no
+// array: the same rounded additions of the same operands.
+template <int N, class F>
+__device__ __forceinline__ auto warp_tree(F f, int lane) -> decltype(f(0)) {
+  using T = decltype(f(0));
+  constexpr int P = pow2ceil(N);
+  static_assert(P <= 64, "a warp's tree holds at most 64 terms");
+  T v;
+  if constexpr (P == 64) {
+    v = add(f(lane), lane + 32 < N ? f(lane + 32) : T(0));
+  } else {
+    v = lane < N ? f(lane) : T(0);
+  }
+#pragma unroll
+  for (int h = (P < 64 ? P : 32) / 2; h >= 1; h >>= 1) v = add(v, __shfl_down_sync(kFull, v, h));
+  return __shfl_sync(kFull, v, 0);
+}
+
 // torch.clamp(x, min=lo): NaN stays NaN
 template <class T>
 __device__ __forceinline__ T clamp_min(T x, T lo) { return x < lo ? lo : x; }
@@ -124,8 +182,8 @@ struct Shared {
   float raw[9][kCols];   // the IMU rows before whitening (r in column 30)
   float A[kRows][kCols];  // J | r, then the QR in place
   float d[kTan];
-  float hv[kRows];  // the Householder vector
-  float beta, tau;
+  float hv[3][kRows];  // the Householder vectors of three successive columns
+  float tau[3];
   float y[kTan];
   // the marginalization, in float64
   double H[kTan][kTan];
@@ -134,7 +192,7 @@ struct Shared {
   double X[15][15];
   double S[15][15];
   double L[15][15];
-  int piv, fail;
+  int fail;
 };
 
 __device__ __forceinline__ void load(float* dst, const float* src, int n, int tid) {
@@ -199,7 +257,7 @@ __device__ __forceinline__ float gravity_at(const Args& a, int m) {
 }
 
 // The IMU prediction of state j from the prior mean (preintegration.py::predict).
-__device__ void predict(const Args& a, Shared& s) {
+__device__ __forceinline__ void predict(const Args& a, Shared& s) {
   const State& P = s.prior;
   float w[3], dRc[3][3], dvc[3], dpc[3], t1[3], t2[3];
   Exp e;
@@ -219,26 +277,27 @@ __device__ void predict(const Args& a, Shared& s) {
 }
 
 // The block's lower Cholesky factor of M (N x N, its lower triangle read) into
-// L (zeroed, *fail = 0 and synced by the caller), column by column; each
-// entry's sum over the earlier columns a halving tree. *fail is set where a
-// pivot is not > 0.
+// L (zeroed, *fail = 0 and synced by the caller), column by column, a warp an
+// entry of the column; each entry's sum over the earlier columns a halving
+// tree (warp_tree). *fail is set where a pivot is not > 0.
 template <int N, class T>
-__device__ void cholesky(const T* M, T* L, int* fail) {
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void cholesky(const T* M, T* L, int* fail) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  static_assert(N <= kWarps, "a warp an entry of a column");
   for (int j = 0; j < N; ++j) {
-    const int i = j + tid;
+    const int i = j + warp;
     T sij = T(0);
     if (i < N) {
-      sij = sub(M[i * N + j], tree_sum<N>([&](int k) {
+      sij = sub(M[i * N + j], warp_tree<N>([&](int k) {
                   return k < j ? mul(L[i * N + k], L[j * N + k]) : T(0);
-                }));
-      if (i == j) {
+                }, lane));
+      if (i == j && lane == 0) {
         if (!(sij > T(0))) *fail = 1;
         L[j * N + j] = root(sij);
       }
     }
     __syncthreads();
-    if (i < N && i > j) L[i * N + j] = dvd(sij, L[j * N + j]);
+    if (i < N && i > j && lane == 0) L[i * N + j] = dvd(sij, L[j * N + j]);
     __syncthreads();
   }
 }
@@ -254,22 +313,25 @@ __device__ __forceinline__ void log_dir(const float Q[3][3], const float dQ[3][3
 }
 
 // The residual rows and their Jacobian at (si, sj) into s.A: three barriers.
-__device__ void build_system(const Args& a, Shared& s) {
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void build_system(const Args& a, Shared& s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const State &I = s.si, &J = s.sj, &P = s.prior;
-  // 1. the rotation derivatives, one thread a direction; the IMU's linear rows
-  if (tid < 3) {  // prior: log at PR^T Ri along (PR^T Ri) hat(e_k)
+  // 1. the rotation derivatives, one thread a direction, each kind of
+  // direction on a warp of its own (so the kinds run side by side, not one
+  // after the other in one warp); the IMU's linear rows
+  if (warp == 0 && lane < 3) {  // prior: log at PR^T Ri along (PR^T Ri) hat(e_k)
+    const int k = lane;
     float Q[3][3], dQ[3][3], w[3], dw[3];
     mtm(P.R, I.R, Q);
-    q_hat(Q, tid, dQ);
+    q_hat(Q, k, dQ);
     log_dir(Q, dQ, w, dw);
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
-      s.dlp[m][tid] = dw[m];
-      if (tid == 0) s.lpv[m] = w[m];
+      s.dlp[m][k] = dw[m];
+      if (k == 0) s.lpv[m] = w[m];
     }
-  } else if (tid < 12) {  // IMU rotation row: theta_i, theta_j, bg_i
-    const int job = (tid - 3) / 3, k = (tid - 3) % 3;
+  } else if (warp >= 1 && warp <= 3 && lane < 3) {  // IMU rotation row: theta_i, theta_j, bg_i
+    const int job = warp - 1, k = lane;
     float w[3], dRc[3][3], dvc[3], dpc[3], M[3][3], E[3][3], dE[3][3], X[3][3], lw[3], dw[3];
     Exp e;
     corrected(s, I.ba, I.bg, w, e, dRc, dvc, dpc);
@@ -292,10 +354,10 @@ __device__ void build_system(const Args& a, Shared& s) {
 #pragma unroll
     for (int m = 0; m < 3; ++m) {
       s.raw[m][col] = dw[m];
-      if (tid == 3) s.raw[m][kTan] = lw[m];
+      if (job == 0 && k == 0) s.raw[m][kTan] = lw[m];
     }
-  } else if (tid < 15) {  // lidar: log at lR^T Rj along (lR^T Rj) hat(e_k)
-    const int k = tid - 12;
+  } else if (warp == 4 && lane < 3) {  // lidar: log at lR^T Rj along (lR^T Rj) hat(e_k)
+    const int k = lane;
     float Q[3][3], dQ[3][3], w[3], dw[3];
     mtm(s.lR, J.R, Q);
     q_hat(Q, k, dQ);
@@ -305,7 +367,7 @@ __device__ void build_system(const Args& a, Shared& s) {
       s.dll[m][k] = dw[m];
       if (k == 0) s.llv[m] = w[m];
     }
-  } else if (tid == 15) {  // IMU velocity and position rows' values
+  } else if (warp == 5 && lane == 0) {  // IMU velocity and position rows' values
     float w[3], dRc[3][3], dvc[3], dpc[3], uv[3], up[3];
     Exp e;
     corrected(s, I.ba, I.bg, w, e, dRc, dvc, dpc);
@@ -394,6 +456,7 @@ __device__ void build_system(const Args& a, Shared& s) {
     s.A[15 + r][c] = tree_sum<9>([&](int m) { return mul(s.imuW[r][m], s.raw[m][c]); });
   }
   __syncthreads();
+  prof(1);
 }
 
 __device__ __forceinline__ void retract(State& st, const float* dx) {
@@ -411,67 +474,146 @@ __device__ __forceinline__ void retract(State& st, const float* dx) {
   }
 }
 
-// One GN iteration on the system in s.A: column scale, Householder QR of
-// [J / d | r], back substitution, both retracts.
-__device__ void gn_step(Shared& s) {
-  const int tid = threadIdx.x;
-  if (tid < kTan)
-    s.d[tid] = __fsqrt_rn(
-        clamp_min(tree_sum<kRows>([&](int m) { return mul(s.A[m][tid], s.A[m][tid]); }), 1e-16f));
-  __syncthreads();
-  for (int e = tid; e < kRows * kTan; e += kThreads) {
-    const int m = e / kTan, c = e % kTan;
-    s.A[m][c] = dvd(s.A[m][c], s.d[c]);
+// The QR keeps each column in its warp's registers from the column scale to
+// the back substitution: column j belongs to warp j % kWarps, lane l holds
+// its rows l and l + 32 (the latter zero past row 35).
+constexpr int kOwn = (kCols + kWarps - 1) / kWarps;  // columns a warp holds
+using Column = float[2];
+
+// The halving tree over the 36 rows of f(row, value of the row in c).
+template <class F>
+__device__ __forceinline__ float column_tree(const Column& c, F f, int lane) {
+  return warp_tree<kRows>([&](int i) { return f(i, i < 32 ? c[0] : c[1]); }, lane);
+}
+
+// Householder reflector of column k (its owner; the column final on rows
+// >= k): LAPACK's beta, tau and v (ops/fusion_step.py::householder_solve)
+// into hv[buf] and tau[buf]; then R[k][k] = beta in the column.
+__device__ __forceinline__ void reflector(Shared& s, Column& c, int k, int buf, int lane) {
+  const float xn2 = column_tree(c, [&](int i, float x) { return i > k ? mul(x, x) : 0.0f; }, lane);
+  const float alpha = __shfl_sync(kFull, k < 32 ? c[0] : c[1], k & 31);
+  const bool nz = xn2 != 0.0f;
+  const float norm = __fsqrt_rn(add(mul(alpha, alpha), xn2));
+  const float beta = nz ? (alpha >= 0.0f ? -norm : norm) : alpha;
+  const float tau = nz ? dvd(sub(beta, alpha), beta) : 0.0f;
+  const float den = sub(alpha, beta);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = lane + 32 * h;
+    if (i < kRows) s.hv[buf][i] = i > k ? (nz ? dvd(c[h], den) : 0.0f) : (i == k ? 1.0f : 0.0f);
   }
+  if (lane == 0) s.tau[buf] = tau;
+  if (k < 32) {
+    if (lane == k) c[0] = beta;
+  } else if (lane == k - 32) {
+    c[1] = beta;
+  }
+}
+
+// Step k on a later column: w = v^T a_j (the halving tree over all 36
+// rows), a_j -= tau w v on rows k.. (v's rows h0, h1 of this lane).
+__device__ __forceinline__ void reflect(Column& c, int k, float h0, float h1, float tau, int lane) {
+  const float t = mul(tau, column_tree(c, [&](int i, float x) { return mul(i < 32 ? h0 : h1, x); }, lane));
+  if (lane >= k) c[0] = sub(c[0], mul(t, h0));
+  if (lane + 32 < kRows && lane + 32 >= k) c[1] = sub(c[1], mul(t, h1));
+}
+
+// Step k's reflector (buffer k % 3) on a later column, read from shared memory.
+__device__ __forceinline__ void reflect_step(const Shared& s, Column& c, int k, int lane) {
+  const int b = k % 3;
+  reflect(c, k, s.hv[b][lane], lane + 32 < kRows ? s.hv[b][lane + 32] : 0.0f, s.tau[b], lane);
+}
+
+// One GN iteration on the system in s.A: column scale, Householder QR of
+// [J / d | r], back substitution, both retracts. Each step k, the owner of
+// column k + 1 reflects it and forms its reflector at once (into the next of
+// three buffers) and leaves its other later column to the next step, where
+// it takes reflectors k and k + 1 in turn; the other warps reflect the later
+// columns: one block barrier a step, and the step's longest warp one
+// reflection and one reflector.
+__device__ __forceinline__ void gn_step(Shared& s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  Column a[kOwn];
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int j = warp + o * kWarps;
+    a[o][0] = a[o][1] = 0.0f;
+    if (j < kCols) {
+      a[o][0] = s.A[lane][j];
+      if (lane + 32 < kRows) a[o][1] = s.A[lane + 32][j];
+    }
+    if (j < kTan) {  // the column scale
+      const float d = __fsqrt_rn(
+          clamp_min(column_tree(a[o], [&](int, float x) { return mul(x, x); }, lane), 1e-16f));
+      a[o][0] = dvd(a[o][0], d);
+      a[o][1] = dvd(a[o][1], d);
+      if (lane == 0) s.d[j] = d;
+    }
+  }
+  if (warp == 0) reflector(s, a[0], 0, 0, lane);
   __syncthreads();
   for (int k = 0; k < kTan; ++k) {
-    // the reflector: each of the first 36 threads the same scalars, its own v_i
-    if (tid < kRows) {
-      const float alpha = s.A[k][k];
-      const float xn2 = tree_sum<kRows>([&](int i) { return i > k ? mul(s.A[i][k], s.A[i][k]) : 0.0f; });
-      const bool nz = xn2 != 0.0f;
-      const float norm = __fsqrt_rn(add(mul(alpha, alpha), xn2));
-      const float beta = nz ? (alpha >= 0.0f ? -norm : norm) : alpha;
-      const float tau = nz ? dvd(sub(beta, alpha), beta) : 0.0f;
-      const float den = sub(alpha, beta);
-      const int i = tid;
-      s.hv[i] = i > k ? (nz ? dvd(s.A[i][k], den) : 0.0f) : (i == k ? 1.0f : 0.0f);
-      if (tid == 0) {
-        s.beta = beta;
-        s.tau = tau;
+    const bool lookahead = warp == (k + 1) % kWarps;  // owns column k + 1
+    const bool owes = k >= 1 && warp == k % kWarps;   // left reflector k - 1 for now
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o) {
+      if (warp + o * kWarps == k + 1) {
+        reflect_step(s, a[o], k, lane);
+        if (k + 1 < kTan) reflector(s, a[o], k + 1, (k + 1) % 3, lane);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kOwn; ++o) {
+      const int j = warp + o * kWarps;
+      if (j > k + 1 && j < kCols && !lookahead) {
+        if (owes) reflect_step(s, a[o], k - 1, lane);
+        reflect_step(s, a[o], k, lane);
       }
     }
     __syncthreads();
-    // one thread a later column (and r): w = v^T a_j, a_j -= tau w v
-    const int j = k + 1 + tid;
+  }
+#pragma unroll
+  for (int o = 0; o < kOwn; ++o) {
+    const int j = warp + o * kWarps;
     if (j < kCols) {
-      const float t = mul(s.tau, tree_sum<kRows>([&](int i) { return mul(s.hv[i], s.A[i][j]); }));
-      for (int i = k; i < kRows; ++i) s.A[i][j] = sub(s.A[i][j], mul(t, s.hv[i]));
+      s.A[lane][j] = a[o][0];
+      if (lane + 32 < kRows) s.A[lane + 32][j] = a[o][1];
     }
-    if (tid == kThreads - 1) s.A[k][k] = s.beta;
-    __syncthreads();
   }
-  if (tid == 0) {
+  __syncthreads();
+  prof(2);
+  if (warp == 0) {  // back substitution: row k's sum one warp tree; lane j holds y_j
+    float yl = 0.0f;
     for (int k = kTan - 1; k >= 0; --k) {
-      const float acc = tree_sum<kTan>([&](int j) { return j > k ? mul(s.A[k][j], s.y[j]) : 0.0f; });
-      s.y[k] = dvd(sub(-s.A[k][kTan], acc), add(s.A[k][k], 1e-7f));
+      const float acc = warp_tree<kTan>([&](int j) { return j > k ? mul(s.A[k][j], yl) : 0.0f; }, lane);
+      const float yk = dvd(sub(-s.A[k][kTan], acc), add(s.A[k][k], 1e-7f));
+      if (lane == k) yl = yk;
     }
-    for (int k = 0; k < kTan; ++k) s.y[k] = dvd(s.y[k], s.d[k]);
+    if (lane < kTan) s.y[lane] = dvd(yl, s.d[lane]);
+    __syncwarp();
+    if (lane == 0) retract(s.si, s.y);
+    if (lane == 1) retract(s.sj, s.y + 15);
   }
   __syncthreads();
-  if (tid == 0) retract(s.si, s.y);
-  if (tid == 1) retract(s.sj, s.y + 15);
-  __syncthreads();
+  prof(3);
 }
 
 // The square-root information of state j once state i is marginalized out of
 // H = J^T J (s.A), and the divergence flag; written to the lane's outputs. In
 // float64 from J to W (ops/fusion_step.py::marginal_sqrt_info says why).
-__device__ void marginalize(const Args& a, Shared& s, long long b) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < kTan * kTan; e += kThreads) {
-    const int r = e / kTan, c = e % kTan;
-    s.H[r][c] = tree_sum<kRows>([&](int m) { return mul((double)s.A[m][r], (double)s.A[m][c]); });
+__device__ __forceinline__ void marginalize(const Args& a, Shared& s, long long b) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // H = J^T J: a thread an entry of its upper triangle (465: one round),
+  // mirrored (the products commute exactly, so H[c][r]'s tree is H[r][c]'s)
+  for (int e = tid; e < kTan * (kTan + 1) / 2; e += kThreads) {
+    int r = 0, c = e;
+    while (c >= kTan - r) {
+      c -= kTan - r;
+      ++r;
+    }
+    c += r;
+    const double h = tree_sum<kRows>([&](int m) { return mul((double)s.A[m][r], (double)s.A[m][c]); });
+    s.H[r][c] = s.H[c][r] = h;
   }
   __syncthreads();
   if (tid < kTan) s.dh[tid] = root(clamp_min(s.H[tid][tid], 1e-12));
@@ -484,26 +626,34 @@ __device__ void marginalize(const Args& a, Shared& s, long long b) {
   if (tid < 225) s.L[tid / 15][tid % 15] = 0.0;
   if (tid == 0) s.fail = 0;
   __syncthreads();
+  prof(4);
   // LU with partial pivoting of [A | B]: the first largest |pivot| (NaN first)
   for (int k = 0; k < 15; ++k) {
-    if (tid == 0) {
-      int best = k;
-      double bv = fabs(s.Mx[k][k]);
-      for (int i = k + 1; i < 15; ++i) {
-        const double x = fabs(s.Mx[i][k]);
-        if (!isnan(bv) && (isnan(x) || x > bv)) {
-          bv = x;
-          best = i;
+    if (warp == 0) {  // the first NaN |pivot| at or below k, else the first largest
+      int best = k + lane;
+      int ok = best < 15;
+      double bv = ok ? fabs(s.Mx[best][k]) : 0.0;
+#pragma unroll
+      for (int h = 8; h >= 1; h >>= 1) {
+        const double x = __shfl_down_sync(kFull, bv, h);
+        const int i = __shfl_down_sync(kFull, best, h);
+        const int other = __shfl_down_sync(kFull, ok, h);
+        if (other) {
+          const bool take = !ok || (isnan(x) ? (!isnan(bv) || i < best)
+                                             : (!isnan(bv) && (x > bv || (x == bv && i < best))));
+          if (take) {
+            bv = x;
+            best = i;
+            ok = 1;
+          }
         }
       }
-      s.piv = best;
-    }
-    __syncthreads();
-    const int pv = s.piv;
-    if (pv != k && tid < kTan) {
-      const double t = s.Mx[k][tid];
-      s.Mx[k][tid] = s.Mx[pv][tid];
-      s.Mx[pv][tid] = t;
+      const int pv = __shfl_sync(kFull, best, 0);
+      if (pv != k && lane < kTan) {  // the same warp swaps the rows
+        const double t = s.Mx[k][lane];
+        s.Mx[k][lane] = s.Mx[pv][lane];
+        s.Mx[pv][lane] = t;
+      }
     }
     __syncthreads();
     for (int e = tid; e < 15 * kTan; e += kThreads) {
@@ -512,12 +662,16 @@ __device__ void marginalize(const Args& a, Shared& s, long long b) {
     }
     __syncthreads();
   }
-  if (tid < 15) {  // back substitution, one thread a column of A^-1 B
-    const int c = tid;
+  prof(5);
+  if (warp < 15) {  // back substitution, a warp a column of A^-1 B; lane m holds X[m][c]
+    const int c = warp;
+    double xl = 0.0;
     for (int k = 14; k >= 0; --k) {
-      const double acc = tree_sum<15>([&](int m) { return m > k ? mul(s.Mx[k][m], s.X[m][c]) : 0.0; });
-      s.X[k][c] = dvd(sub(s.Mx[k][15 + c], acc), s.Mx[k][k]);
+      const double acc = warp_tree<15>([&](int m) { return m > k ? mul(s.Mx[k][m], xl) : 0.0; }, lane);
+      const double xk = dvd(sub(s.Mx[k][15 + c], acc), s.Mx[k][k]);
+      if (lane == k) xl = xk;
     }
+    if (lane < 15) s.X[lane][c] = xl;
   }
   __syncthreads();
   if (tid < 225) {
@@ -531,6 +685,7 @@ __device__ void marginalize(const Args& a, Shared& s, long long b) {
     s.X[r][c] = add(mul(0.5, add(s.S[r][c], s.S[c][r])), r == c ? 1e-7 : 0.0);
   }
   __syncthreads();
+  prof(6);
   cholesky<15>(&s.X[0][0], &s.L[0][0], &s.fail);
   bool bad = false;
   if (tid < 225) {  // W = chol(S)^T d_j, rounded to float once
@@ -541,6 +696,7 @@ __device__ void marginalize(const Args& a, Shared& s, long long b) {
     bad = !isfinite(w);
   }
   bad = __syncthreads_or(bad);
+  prof(7);
   if (tid == 0) {
     const State& J = s.sj;
     const float nv = __fsqrt_rn(sum3(mul(J.v[0], J.v[0]), mul(J.v[1], J.v[1]), mul(J.v[2], J.v[2])));
@@ -561,6 +717,7 @@ __global__ void __launch_bounds__(kThreads, 1) fusion_kernel(Args a) {
   __shared__ Shared s;
   const int tid = threadIdx.x;
   const long long b = blockIdx.x;
+  prof_start();
   // the lane's inputs
   load(&s.prior.R[0][0], a.R + b * 9, 9, tid);
   load(s.prior.p, a.p + b * 3, 3, tid);
@@ -601,29 +758,40 @@ __global__ void __launch_bounds__(kThreads, 1) fusion_kernel(Args a) {
   cholesky<9>(&s.imuW[0][0], &s.L9[0][0], &s.fail);
   if (s.fail && tid < 81) s.L9[tid / 9][tid % 9] = __int_as_float(0x7fc00000);
   __syncthreads();
-  if (tid < 9) {  // forward substitution, one thread a column of the identity
-    const int c = tid;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (warp < 9) {  // forward substitution, a warp a column of the identity; lane m holds X[m][c]
+    const int c = warp;
+    float xl = 0.0f;
     for (int i = 0; i < 9; ++i) {
-      const float acc = tree_sum<9>([&](int m) { return m < i ? mul(s.L9[i][m], s.imuW[m][c]) : 0.0f; });
-      s.imuW[i][c] = dvd(sub(i == c ? 1.0f : 0.0f, acc), s.L9[i][i]);
+      const float acc = warp_tree<9>([&](int m) { return m < i ? mul(s.L9[i][m], xl) : 0.0f; }, lane);
+      const float xi = dvd(sub(i == c ? 1.0f : 0.0f, acc), s.L9[i][i]);
+      if (lane == i) xl = xi;
     }
+    if (lane < 9) s.imuW[lane][c] = xl;
   }
-  if (tid == 0) {
+  if (tid == kThreads - 32) {  // the last warp
     s.si = s.prior;
     predict(a, s);
   }
   __syncthreads();
-  for (int it = 0; it < a.gn_iters; ++it) {
+  prof(0);
+  for (int it = 0;; ++it) {  // gn_iters steps, then the system the marginalization reads
     build_system(a, s);
+    if (it == a.gn_iters) break;
     gn_step(s);
   }
-  build_system(a, s);
   marginalize(a, s, b);
 }
 
 }  // namespace
 
 extern "C" {
+
+#ifdef LIORF_FUSION_PROFILE
+int liorf_fusion_profile(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * kProfPhases);
+}
+#endif
 
 // One fusion correction for each of `lanes` lanes on `stream`. Pointers are
 // contiguous device arrays with a leading lane axis, in the order of Args

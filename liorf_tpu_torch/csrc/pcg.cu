@@ -45,20 +45,23 @@
 //     blockDim a multiple of 32 every warp holds exactly one chunk, whose
 //     ordered sum is 32 shuffles. The owner of a node sums its matvec rows,
 //     updates x, r, z, p there, and writes its chunk sums;
-//   * every block reduces all chunk sums by the same tree (one warp: each
-//     lane an aligned run, then 5 shuffle levels), so each holds the same
-//     scalars without a second exchange.
-// Where the vectors live: when the lane fits in a block's shared memory
-// (about 100 KB at the resident default, 1024 node slots, clusters of 8),
-// z, p and the chunk sums are replicated in every block of the cluster (the
-// owner writes each element to all of them through distributed shared
-// memory, cluster.map_shared_rank), so every read of them is local, and
-// each block's own x, r, Ap and node indices sit in its own shared memory;
-// else (a grown ring) one copy of each lives in device memory and is read
-// through L2 (__ldcg, never a stale L1 line). The same code runs either
-// way, through generic pointers, and gives the same bits. The matvec's rows
-// always go through device memory (L2). The factors and the preconditioner
-// are read-only for the launch (__ldg): a block's share stays in its L1.
+//   * every warp of every block reduces all chunk sums by the same tree
+//     (each lane an aligned run, then 5 shuffle levels), so each holds the
+//     same scalars without a second exchange.
+// Where a lane's arrays live (one kernel instantiation a layout): on chip
+// where the lane fits a block's shared memory (the main window, the
+// resident full solve at clusters of 8), z, p and the chunk sums are
+// replicated in every block of the cluster (the owner writes each element to
+// all of them through distributed shared memory, cluster.map_shared_rank),
+// so every read of them is local; each block's own x, r, Ap, node indices and
+// preconditioner blocks, its factors' Jacobians and nodes, loaded once a
+// launch, and its nodes' matvec rows sit in its own shared memory: a
+// factor's owner stores J^T y into the node owner's row buffer through
+// distributed shared memory, at the slot the owner gave it when it compacted
+// its rows. Else (a grown ring) one copy of each vector lives in device
+// memory and is read through L2 (__ldcg, never a stale L1 line), the factors
+// are read through L1 (__ldg) and the rows go through device memory. Both
+// layouts give the same bits.
 // A factor row whose Jacobian is all zero (an unused ring slot, a masked or
 // frozen factor) adds an exact +0.0 to its node (a sum from +0.0 is never
 // -0.0), so once a launch each node's sorted rows are compacted to those
@@ -67,8 +70,13 @@
 // name node 0, no longer make node 0's walk thousands of rows long. Zero
 // factors are skipped in the factor phase as well. (With non-finite inputs
 // a zero row would add NaN; the solve never sees them.)
+// A node with no nonzero row and a zero right-hand side (an unused slot, a
+// frozen node) stays +0.0 in x, r, z, p and Ap, and its chunks add +0.0 to
+// both dots, so on chip a warp skips a chunk with no live node after the
+// start.
 // Per iteration three cluster barriers: after the factors (the matvec's
-// rows), after the node sums (<p, Ap>), after the preconditioner (<r, z>).
+// rows), after the node sums (<p, Ap>), after the preconditioner (<r, z>);
+// each warp reduces the dots' chunk sums itself, with no block barrier.
 // The next direction p is made where it is read: a factor's owner forms
 // z + beta p at its endpoints from z and the previous p (double-buffered),
 // the same rounded operations as the node's owner, so no fourth barrier.
@@ -77,10 +85,13 @@
 // a solve at the resident default's arguments, well under a microsecond at
 // the card's rates) but the chain of dependent phases an iteration: three
 // cluster barriers, the factor phase (each lane forms both endpoints'
-// directions and two 6x6 products), the node sums' L2 reads, and the
-// replication of z and p (8 remote stores an element). chip_smoke.py's
-// pcg_profile phase times each phase by clock cycles (a build with
-// -DLIORF_PCG_PROFILE).
+// directions and two 6x6 products), the node sums, the two dots' trees and
+// the replication of z and p (8 remote stores an element). chip_smoke.py's
+// pcg_profile phase times every cluster size, then each phase by clock
+// cycles (a build with -DLIORF_PCG_PROFILE), with z and p replicated and,
+// in a build with -DLIORF_PCG_REMOTE_P, read at a factor's endpoints from
+// their owner's shared memory instead; clusters of 8 were the fastest or
+// tied at every size it measured (ops/pcg.py::CLUSTER).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,9 +105,10 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 32;        // fixed_dot's chunk (ops/segment_sum.py)
 constexpr int kNodeQuantum = 16;  // 16 nodes = 96 elements = 3 chunks
+constexpr int kLiveChunks = 512;  // a block's chunks whose liveness it keeps
 constexpr unsigned kFull = 0xffffffffu;
 // A block's shared memory (232448 bytes on an H100) less room for the
-// kernel's static shared memory.
+// kernel's static shared memory (the chunks' liveness, kLiveChunks bytes).
 constexpr long long kMaxDynamicShared = 232448 - 1024;
 
 struct Args {
@@ -117,8 +129,12 @@ struct Args {
   int32_t* iscratch;  // [B, iscratch_ints(K, E, G)]
   int K, E, G, iters;
   float damping;
-  int shared;         // the lane's vectors in shared memory (shared_layout)
 };
+
+// Where a lane's arrays live (lane_layout): everything in shared memory (the
+// vectors, the block's factors, their nodes and the matvec's rows), or
+// nothing (device memory).
+constexpr int kDeviceMemory = 0, kOnChip = 1;
 
 __host__ __device__ inline long long chunks_of(long long K) { return (6 * K + kChunk - 1) / kChunk; }
 
@@ -152,9 +168,14 @@ __host__ __device__ inline long long node_block(long long K, int C) {
 // replicated in every block of the cluster, z [6K], p [2][6K] and the chunk
 // sums of both dots [nch each]; the block's own x, r, Ap [6 Kb each]; its
 // nodes' first sorted rows [Kb + 1] and counts [Kb], its compacted rows
-// [M], its factors' flags [2 Eb + Gb + 1].
+// [M], its factors' flags [2 Eb + Gb + 1]; its factors' Jacobians (Ji [Eb][36], Jj [Eb][36], Jg [Gb][18],
+// the prior's [36]), their nodes (i [Eb], j [Eb], GPS [Gb]), where each of
+// their rows goes [2 Eb + Gb + 1] (8 x its place in its node owner's row
+// buffer + that block's rank; -1: a zero row), the row buffer of its own
+// nodes' compacted rows [6 M] and its nodes' preconditioner blocks [36 Kb].
 struct Layout {
-  long long z, p0, p1, cs_pap, cs_rz, x, r, ap, first, count, crow, nzf, words;
+  long long z, p0, p1, cs_pap, cs_rz, x, r, ap, first, count, crow, nzf;
+  long long jac, fnode, fdest, rows, minv, words;
 };
 
 __host__ __device__ inline Layout shared_layout(long long K, long long E, long long G, int C) {
@@ -173,9 +194,34 @@ __host__ __device__ inline Layout shared_layout(long long K, long long E, long l
   l.count = l.first + Kb + 1;
   l.crow = l.count + Kb;
   l.nzf = l.crow + 2 * E + G + 1;
-  l.words = l.nzf + 2 * Eb + Gb + 1;
+  l.jac = (l.nzf + 2 * Eb + Gb + 1 + 3) & ~3LL;
+  l.fnode = l.jac + 72 * Eb + 18 * Gb + 36;
+  l.fdest = l.fnode + 2 * Eb + Gb;
+  l.rows = l.fdest + 2 * Eb + Gb + 1;
+  l.minv = l.rows + 6 * (2 * E + G + 1);
+  l.words = l.minv + 36 * Kb;
   return l;
 }
+
+// On chip where the lane's shared memory fits a block, else device memory.
+inline int lane_layout(long long K, long long E, long long G, int C) {
+  return shared_layout(K, E, G, C).words * 4 <= kMaxDynamicShared ? kOnChip : kDeviceMemory;
+}
+
+// A block's dynamic shared memory in bytes (0 in device memory).
+inline long long shared_bytes(long long K, long long E, long long G, int C) {
+  return lane_layout(K, E, G, C) == kOnChip ? 4 * shared_layout(K, E, G, C).words : 0;
+}
+
+#ifdef LIORF_PCG_REMOTE_P
+// Development only (built with -DLIORF_PCG_REMOTE_P): on chip, z and p are
+// written only to their owner's block and read at a factor's endpoints from
+// there through distributed shared memory, in place of their replication
+// (the same values, so the same bits).
+constexpr bool kRemoteP = true;
+#else
+constexpr bool kRemoteP = false;
+#endif
 
 // A read-only index (int64_t is long here; __ldg takes long long).
 __device__ __forceinline__ long long ld_index(const int64_t* p) {
@@ -264,16 +310,11 @@ __device__ float chunk_tree(const float* cs, long long nch, long long P, int lan
   return top;
 }
 
-// The tree's result in every thread of the block.
-__device__ __forceinline__ float block_dot(const float* cs, long long nch, long long P,
-                                           bool sh, float* s_scalar) {
+// The tree's result in every thread of the block: each warp reduces the
+// chunk sums itself (the same tree, so the same bits), with no barrier.
+__device__ __forceinline__ float block_dot(const float* cs, long long nch, long long P, bool sh) {
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x < 32) {
-    const float t = chunk_tree(cs, nch, P, lane, sh);
-    if (lane == 0) *s_scalar = t;
-  }
-  __syncthreads();
-  return *s_scalar;
+  return __shfl_sync(kFull, chunk_tree(cs, nch, P, lane, sh), 0);
 }
 
 #ifdef LIORF_PCG_PROFILE
@@ -292,6 +333,8 @@ __device__ long long g_prof[16];
   } while (0)
 #endif
 
+// One instantiation a layout: each carries only its own loads and stores.
+template <int kLayout>
 __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
   extern __shared__ __align__(16) float pcg_smem[];
 #ifdef LIORF_PCG_PROFILE
@@ -308,7 +351,7 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
   const long long n6 = 6LL * K;
   const long long nch = chunks_of(K);
   const long long P = pow2_at_least(nch);
-  const bool sh = a.shared != 0;
+  constexpr bool chip = kLayout == kOnChip, remote = chip && kRemoteP;
 
   // this lane's arrays
   const float* Ji = a.Ji + b * E * 36;
@@ -340,20 +383,23 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
   // the first sorted row of its first node
   const int s0 = lower_bound(keys, M, k0);
 
-  // Where things live. In device memory always: the matvec's rows and every
-  // plan row's flag. In shared memory when the lane fits (sh): z, p and the
-  // chunk sums replicated in every block (written to all of them through
-  // distributed shared memory, so every read is local), and the block's own
-  // vectors and indices; else one copy of each in device memory, read
-  // through L2. Own arrays are indexed from the block's first element /
-  // node / sorted row.
+  // Where things live. In device memory always: every plan row's flag. On
+  // chip: z, p and the chunk sums replicated in every block (written to all
+  // of them through distributed shared memory, so every read is local), the
+  // block's own vectors and indices, its factors (their Jacobians, nodes and
+  // row destinations) and its nodes' rows; else one copy of each vector in
+  // device memory, read through L2, the factors read through L1 and the
+  // rows through device memory. Own arrays are indexed from the block's
+  // first element / node / sorted row / factor.
   float* gs = a.scratch + b * scratch_floats(K, E, G);
   int32_t* gi32 = a.iscratch + b * iscratch_ints(K, E, G);
   float* rows = gs + 5 * n6 + 2 * nch;
   int32_t* nz = gi32 + 2 * K + 1;
   float *zr, *pr[2], *cs_pap, *cs_rz, *xo, *ro, *apo;
   int32_t *first_o, *count_o, *crow_o, *nz_i, *nz_j, *nz_g;
-  if (sh) {
+  float *jac = nullptr, *rowbuf = nullptr, *minv = nullptr;
+  int32_t *fnode = nullptr, *fdest = nullptr;
+  if (chip) {
     const Layout l = shared_layout(K, E, G, C);
     float* f = pcg_smem;
     int32_t* w = reinterpret_cast<int32_t*>(pcg_smem);
@@ -361,6 +407,8 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
     xo = f + l.x; ro = f + l.r; apo = f + l.ap;
     first_o = w + l.first; count_o = w + l.count; crow_o = w + l.crow;
     nz_i = w + l.nzf; nz_j = nz_i + Eb; nz_g = nz_j + Eb;
+    jac = f + l.jac; fnode = w + l.fnode; fdest = w + l.fdest; rowbuf = f + l.rows;
+    minv = f + l.minv;
   } else {
     zr = gs; pr[0] = gs + n6; pr[1] = gs + 2 * n6; cs_pap = gs + 3 * n6; cs_rz = cs_pap + nch;
     xo = x + e0; ro = cs_rz + nch + e0; apo = cs_rz + nch + n6 + e0;
@@ -368,16 +416,29 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
     nz_i = nz + f0; nz_j = nz + E + f0; nz_g = nz + 2 * E + g0;
   }
   // a read of what other blocks write, and a write every block reads
-  auto ld = [&](const float* q) { return sh ? *q : __ldcg(q); };
+  auto ld = [&](const float* q) { return chip ? *q : __ldcg(q); };
   auto put_all = [&](float* base, long long i, float v) {
-    if (sh) {
+    if (chip) {
       for (int q = 0; q < C; ++q) cluster.map_shared_rank(base, q)[i] = v;
     } else {
       base[i] = v;
     }
   };
-
-  __shared__ float s_scalar;
+  // z or p: to every block, or (remote) to the owner's alone
+  auto put_vec = [&](float* base, long long i, float v) {
+    if (remote) base[i] = v; else put_all(base, i, v);
+  };
+  // element i of z or p at a factor's endpoint (remote: from its owner)
+  auto ld_vec = [&](const float* base, long long i) {
+    if (remote) return *cluster.map_shared_rank(base + i, (int)(i / (6LL * Kb)));
+    return ld(base + i);
+  };
+  // a read of a factor's Jacobian (on chip: the block's own copy)
+  auto ldJ = [&](const float* q) { return chip ? *q : __ldg(q); };
+  // a row of J^T y into its node owner's row buffer (d: fdest's entry)
+  auto put_row = [&](int d, int q, float v) {
+    if (d >= 0) cluster.map_shared_rank(rowbuf, d & 7)[(d >> 3) * 6 + q] = v;
+  };
 
   // --- start: x = 0, r = rhs, each node's first sorted row, each factor
   // row's flag (a nonzero Jacobian)
@@ -386,27 +447,51 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
     ro[i - e0] = __ldg(rhs + i);
   }
   for (int k = k0 + tid; k <= k1; k += kThreads) first_o[k - k0] = lower_bound(keys, M, k);
-  for (int e = f0 + tid; e < f1; e += kThreads) {
-    bool ni = false, nj = false;
-    for (int j = 0; j < 36; ++j) {
-      ni |= __ldg(Ji + (long long)e * 36 + j) != 0.0f;
-      nj |= __ldg(Jj + (long long)e * 36 + j) != 0.0f;
+  if (chip) {  // the block's factors, once a launch
+    const int ne = f1 - f0, ng = g1 - g0;
+    for (int j = tid; j < ne * 36; j += kThreads) {
+      jac[j] = __ldg(Ji + (long long)f0 * 36 + j);
+      jac[Eb * 36 + j] = __ldg(Jj + (long long)f0 * 36 + j);
     }
-    nz[e] = nz_i[e - f0] = ni;
-    nz[E + e] = nz_j[e - f0] = nj;
+    for (int j = tid; j < ng * 18; j += kThreads) jac[72 * Eb + j] = __ldg(Jg + (long long)g0 * 18 + j);
+    if (n_prior && tid < 36) jac[72 * Eb + 18 * Gb + tid] = __ldg(Jp + tid);
+    for (int e = tid; e < ne; e += kThreads) {
+      fnode[e] = (int)ld_index(ei + f0 + e);
+      fnode[Eb + e] = (int)ld_index(ej + f0 + e);
+    }
+    for (int g = tid; g < ng; g += kThreads) fnode[2 * Eb + g] = (int)ld_index(gi + g0 + g);
+    for (int j = tid; j < 2 * Eb + Gb + 1; j += kThreads) fdest[j] = -1;
+    for (int j = tid; j < (k1 - k0) * 36; j += kThreads) minv[j] = __ldg(Minv + (long long)k0 * 36 + j);
   }
-  for (int g = g0 + tid; g < g1; g += kThreads) {
-    bool n = false;
-    for (int j = 0; j < 18; ++j) n |= __ldg(Jg + (long long)g * 18 + j) != 0.0f;
-    nz[2 * E + g] = nz_g[g - g0] = n;
+  // a factor's flags, a warp a factor: its Jacobian's n entries read at once
+  auto nonzero = [&](const float* J, int n) {
+    return __any_sync(kFull, (lane < n && __ldg(J + lane) != 0.0f) ||
+                                 (lane + 32 < n && __ldg(J + lane + 32) != 0.0f));
+  };
+  for (int e = f0 + warp; e < f1; e += kWarps) {
+    const bool ni = nonzero(Ji + (long long)e * 36, 36), nj = nonzero(Jj + (long long)e * 36, 36);
+    if (lane == 0) {
+      nz[e] = nz_i[e - f0] = ni;
+      nz[E + e] = nz_j[e - f0] = nj;
+    }
   }
-  if (n_prior && tid == 0) {
-    bool n = false;
-    for (int j = 0; j < 36; ++j) n |= __ldg(Jp + j) != 0.0f;
-    nz[2 * E + G] = n;
+  for (int g = g0 + warp; g < g1; g += kWarps) {
+    const bool n = nonzero(Jg + (long long)g * 18, 18);
+    if (lane == 0) nz[2 * E + g] = nz_g[g - g0] = n;
+  }
+  if (n_prior && warp == 0) {
+    const bool n = nonzero(Jp, 36);
+    if (lane == 0) nz[2 * E + G] = n;
+  }
+  // the replicated p and <p, Ap>'s chunk sums start at +0.0: an element or a
+  // chunk that never changes (below) is never written again
+  if (chip) {
+    for (long long i = tid; i < n6; i += kThreads) pr[0][i] = pr[1][i] = 0.0f;
+    for (long long i = tid; i < nch; i += kThreads) cs_pap[i] = 0.0f;
   }
   cluster.sync();
-  // each node's nonzero rows in sorted order, a warp a node
+  // each node's nonzero rows in sorted order, a warp a node; on chip each
+  // kept row's place in this block's row buffer goes to its factor's owner
   for (int k = k0 + warp; k < k1; k += kWarps) {
     const int lo = first_o[k - k0], hi = first_o[k - k0 + 1];
     int n = 0;
@@ -415,32 +500,70 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
       const int row = s < hi ? (int)ld_index(perm + s) : 0;
       const bool keep = s < hi && __ldcg(nz + row) != 0;
       const unsigned ballot = __ballot_sync(kFull, keep);
-      if (keep) crow_o[lo - s0 + n + __popc(ballot & ((1u << lane) - 1u))] = row;
+      if (keep) {
+        const int at = lo - s0 + n + __popc(ballot & ((1u << lane) - 1u));
+        crow_o[at] = row;
+        if (chip) {  // the factor's owner and the row's slot among its rows
+          int q = 0, slot = 2 * Eb + Gb;  // the prior: block 0
+          if (row < E) {
+            q = row / Eb; slot = row - q * Eb;
+          } else if (row < 2 * E) {
+            q = (row - E) / Eb; slot = Eb + row - E - q * Eb;
+          } else if (row < 2 * E + G) {
+            q = (row - 2 * E) / Gb; slot = 2 * Eb + row - 2 * E - q * Gb;
+          }
+          cluster.map_shared_rank(fdest, q)[slot] = at * 8 + rank;
+        }
+      }
       n += __popc(ballot);
     }
     if (lane == 0) count_o[k - k0] = n;
   }
   __syncthreads();
-
-  auto precondition = [&]() {  // z = Minv r on this block's nodes, <r, z>'s chunks
+  // A node with no nonzero row and a zero right-hand side keeps x, r, z, p
+  // and Ap at +0.0 through every iteration (each update adds a +-0.0 to a
+  // +0.0), and a chunk of such nodes adds +0.0 to both dots: so a chunk
+  // (a warp's 32 elements) with no live node is skipped after the start,
+  // its values left as the start made them (an unused ring slot, a frozen
+  // node). Kept on chip.
+  __shared__ unsigned char s_live[kLiveChunks];
+  const bool skip = chip && (c1 - c0) / kChunk <= kLiveChunks;
+  if (skip)
     for (long long i = c0 + tid; i < c1; i += kThreads) {
+      bool live = false;
+      if (i < e1) {
+        const long long k = i / 6;
+        live = count_o[k - k0] > 0;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) live |= ro[6 * k + c - e0] != 0.0f;
+      }
+      const unsigned any = __ballot_sync(kFull, live);
+      if (lane == 0) s_live[(i - c0) / kChunk] = any != 0;
+    }
+  __syncthreads();
+  // a warp's chunk of this block's elements that can be skipped
+  auto dead = [&](long long i) { return skip && !s_live[(i - c0) / kChunk]; };
+
+  auto precondition = [&](bool skipping) {  // z = Minv r on this block's nodes, <r, z>'s chunks
+    for (long long i = c0 + tid; i < c1; i += kThreads) {
+      if (skipping && dead(i)) continue;
       float prod = 0.0f;
       if (i < n6) {
         const long long k = i / 6;
         const int c = (int)(i - 6 * k);
-        const float* Mk = Minv + k * 36 + c * 6;
+        const float* Mk = chip ? minv + (k - k0) * 36 + c * 6 : Minv + k * 36 + c * 6;
         const float* rk = ro + 6 * k - e0;
         float acc = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 6; ++j) acc = __fadd_rn(acc, __fmul_rn(__ldg(Mk + j), rk[j]));
-        put_all(zr, i, acc);
+        for (int j = 0; j < 6; ++j) acc = __fadd_rn(acc, __fmul_rn(ldJ(Mk + j), rk[j]));
+        put_vec(zr, i, acc);
         prod = __fmul_rn(ro[i - e0], acc);
       }
       const float s = chunk_sum(prod);
       if (lane == 0) put_all(cs_rz, i / kChunk, s);
     }
   };
-  precondition();
+  precondition(false);
   cluster.sync();
   PROF(11);
 
@@ -450,14 +573,14 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
     float* p = pr[it & 1];
     const float* p_prev = pr[(it + 1) & 1];
     // element i of this iteration's direction, made from z and the previous
-    // p exactly as the node's owner makes it
-    auto direction = [&](long long i) {
-      const float zi = ld(zr + i);
-      return it0 ? zi : __fadd_rn(zi, __fmul_rn(beta, ld(p_prev + i)));
+    // p exactly as the node's owner makes it (own: one of this block's)
+    auto direction = [&](long long i, bool own = false) {
+      const float zi = own ? ld(zr + i) : ld_vec(zr, i);
+      return it0 ? zi : __fadd_rn(zi, __fmul_rn(beta, own ? ld(p_prev + i) : ld_vec(p_prev, i)));
     };
 
     // --- phase 1: rz' and beta; p on this block's nodes; the matvec's rows
-    const float t = block_dot(cs_rz, nch, P, sh, &s_scalar);
+    const float t = block_dot(cs_rz, nch, P, chip);
     PROF(0);
     if (it0) {
       rz = t;
@@ -465,7 +588,8 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
       beta = fabsf(rz) > 1e-20f ? __fdiv_rn(t, rz) : 0.0f;
       rz = t;
     }
-    for (long long i = e0 + tid; i < e1; i += kThreads) put_all(p, i, direction(i));
+    for (long long i = e0 + tid; i < e1; i += kThreads)
+      if (!dead(i)) put_vec(p, i, direction(i, true));
     PROF(1);
 
     const int grp = lane >> 3, q = lane & 7;
@@ -473,22 +597,25 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
     for (int base = f0 + warp * 4; base < f1; base += kWarps * 4) {
       const int e = base + grp;
       const bool valid = e < f1 && (nz_i[e - f0] | nz_j[e - f0]);
+      const int el = valid ? e - f0 : 0;
       float y = 0.0f;
-      const float* Je_i = Ji + (long long)(valid ? e : f0) * 36;
-      const float* Je_j = Jj + (long long)(valid ? e : f0) * 36;
+      const float* Je_i = chip ? jac + el * 36 : Ji + (long long)(f0 + el) * 36;
+      const float* Je_j = chip ? jac + (Eb + el) * 36 : Jj + (long long)(f0 + el) * 36;
+      long long ni = 0, nj = 0;
       if (valid && q < 6) {
-        const long long ni = ld_index(ei + e) * 6, nj = ld_index(ej + e) * 6;
+        ni = chip ? fnode[el] : ld_index(ei + e);
+        nj = chip ? fnode[Eb + el] : ld_index(ej + e);
         float pi_[6], pj_[6];
 #pragma unroll
         for (int c = 0; c < 6; ++c) {
-          pi_[c] = direction(ni + c);
-          pj_[c] = direction(nj + c);
+          pi_[c] = direction(ni * 6 + c);
+          pj_[c] = direction(nj * 6 + c);
         }
         float yi = 0.0f, yj = 0.0f;
 #pragma unroll
-        for (int c = 0; c < 6; ++c) yi = __fadd_rn(yi, __fmul_rn(__ldg(Je_i + q * 6 + c), pi_[c]));
+        for (int c = 0; c < 6; ++c) yi = __fadd_rn(yi, __fmul_rn(ldJ(Je_i + q * 6 + c), pi_[c]));
 #pragma unroll
-        for (int c = 0; c < 6; ++c) yj = __fadd_rn(yj, __fmul_rn(__ldg(Je_j + q * 6 + c), pj_[c]));
+        for (int c = 0; c < 6; ++c) yj = __fadd_rn(yj, __fmul_rn(ldJ(Je_j + q * 6 + c), pj_[c]));
         y = __fadd_rn(yi, yj);
       }
       float yr[6];
@@ -497,25 +624,32 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
       if (valid && q < 6) {
         float ci = 0.0f, cj = 0.0f;
 #pragma unroll
-        for (int s = 0; s < 6; ++s) ci = __fadd_rn(ci, __fmul_rn(__ldg(Je_i + s * 6 + q), yr[s]));
+        for (int s = 0; s < 6; ++s) ci = __fadd_rn(ci, __fmul_rn(ldJ(Je_i + s * 6 + q), yr[s]));
 #pragma unroll
-        for (int s = 0; s < 6; ++s) cj = __fadd_rn(cj, __fmul_rn(__ldg(Je_j + s * 6 + q), yr[s]));
-        rows[(long long)e * 6 + q] = ci;
-        rows[(long long)(E + e) * 6 + q] = cj;
+        for (int s = 0; s < 6; ++s) cj = __fadd_rn(cj, __fmul_rn(ldJ(Je_j + s * 6 + q), yr[s]));
+        if (chip) {  // into the node owners' row buffers (a zero row has no slot)
+          put_row(fdest[el], q, ci);
+          put_row(fdest[Eb + el], q, cj);
+        } else {
+          rows[(long long)e * 6 + q] = ci;
+          rows[(long long)(E + e) * 6 + q] = cj;
+        }
       }
     }
     PROF(2);
-    // GPS factors: y = Jg p (3 rows); row 2E + g is Jg^T y
-    for (int base = g0 + warp * 4; base < g1; base += kWarps * 4) {
+    // GPS factors: y = Jg p (3 rows); row 2E + g is Jg^T y (from the last
+    // warp down, so a block's few GPS slots and its edges take other warps)
+    for (int base = g0 + (kWarps - 1 - warp) * 4; base < g1; base += kWarps * 4) {
       const int g = base + grp;
       const bool valid = g < g1 && nz_g[g - g0];
-      const float* Jq = Jg + (long long)(valid ? g : g0) * 18;
+      const int gl = valid ? g - g0 : 0;
+      const float* Jq = chip ? jac + 72 * Eb + gl * 18 : Jg + (long long)(g0 + gl) * 18;
+      const long long ng = valid ? (chip ? fnode[2 * Eb + gl] : ld_index(gi + g)) : 0;
       float y = 0.0f;
       if (valid && q < 3) {
-        const long long ng = ld_index(gi + g) * 6;
 #pragma unroll
         for (int c = 0; c < 6; ++c)
-          y = __fadd_rn(y, __fmul_rn(__ldg(Jq + q * 6 + c), direction(ng + c)));
+          y = __fadd_rn(y, __fmul_rn(ldJ(Jq + q * 6 + c), direction(ng * 6 + c)));
       }
       float yr[3];
 #pragma unroll
@@ -523,18 +657,23 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
       if (valid && q < 6) {
         float cgv = 0.0f;
 #pragma unroll
-        for (int s = 0; s < 3; ++s) cgv = __fadd_rn(cgv, __fmul_rn(__ldg(Jq + s * 6 + q), yr[s]));
-        rows[(long long)(2 * E + g) * 6 + q] = cgv;
+        for (int s = 0; s < 3; ++s) cgv = __fadd_rn(cgv, __fmul_rn(ldJ(Jq + s * 6 + q), yr[s]));
+        if (chip) {
+          put_row(fdest[2 * Eb + gl], q, cgv);
+        } else {
+          rows[(long long)(2 * E + g) * 6 + q] = cgv;
+        }
       }
     }
-    // the prior: y = Jp p; row 2E + G is Jp^T y (block 0's first warp)
-    if (n_prior && warp == 0) {
+    // the prior: y = Jp p; row 2E + G is Jp^T y (block 0's middle warp)
+    if (n_prior && warp == kWarps / 2) {
+      const float* Jq = chip ? jac + 72 * Eb + 18 * Gb : Jp;
       float y = 0.0f;
       if (grp == 0 && q < 6) {
         const long long np = pnode * 6;
 #pragma unroll
         for (int c = 0; c < 6; ++c)
-          y = __fadd_rn(y, __fmul_rn(__ldg(Jp + q * 6 + c), direction(np + c)));
+          y = __fadd_rn(y, __fmul_rn(ldJ(Jq + q * 6 + c), direction(np + c)));
       }
       float yr[6];
 #pragma unroll
@@ -542,8 +681,12 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
       if (grp == 0 && q < 6) {
         float cpv = 0.0f;
 #pragma unroll
-        for (int s = 0; s < 6; ++s) cpv = __fadd_rn(cpv, __fmul_rn(__ldg(Jp + s * 6 + q), yr[s]));
-        rows[(long long)(2 * E + G) * 6 + q] = cpv;
+        for (int s = 0; s < 6; ++s) cpv = __fadd_rn(cpv, __fmul_rn(ldJ(Jq + s * 6 + q), yr[s]));
+        if (chip) {
+          put_row(fdest[2 * Eb + Gb], q, cpv);
+        } else {
+          rows[(long long)(2 * E + G) * 6 + q] = cpv;
+        }
       }
     }
     PROF(3);
@@ -552,6 +695,7 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
 
     // --- phase 2: Ap = (sum of the node's rows) + damping p; <p, Ap>'s chunks
     for (long long i = c0 + tid; i < c1; i += kThreads) {
+      if (dead(i)) continue;
       float prod = 0.0f;
       if (i < n6) {
         const long long k = i / 6;
@@ -562,7 +706,9 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
           float v[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            v[u] = s1 + u < hi ? __ldcg(rows + (long long)crow_o[s1 + u] * 6 + c) : 0.0f;
+            v[u] = s1 + u >= hi ? 0.0f
+                   : chip ? rowbuf[(s1 + u) * 6 + c]
+                          : __ldcg(rows + (long long)crow_o[s1 + u] * 6 + c);
 #pragma unroll
           for (int u = 0; u < 4; ++u)
             if (s1 + u < hi) acc = __fadd_rn(acc, v[u]);
@@ -580,21 +726,22 @@ __global__ void __launch_bounds__(kThreads) pcg_kernel(Args a) {
     PROF(6);
 
     // --- phase 3: alpha; x, r on this block's nodes; z = Minv r; <r, z>'s chunks
-    const float denom = block_dot(cs_pap, nch, P, sh, &s_scalar);
+    const float denom = block_dot(cs_pap, nch, P, chip);
     PROF(7);
     const float alpha = fabsf(denom) > 1e-20f ? __fdiv_rn(rz, denom) : 0.0f;
     for (long long i = e0 + tid; i < e1; i += kThreads) {
+      if (dead(i)) continue;
       xo[i - e0] = __fadd_rn(xo[i - e0], __fmul_rn(alpha, p[i]));
       ro[i - e0] = __fsub_rn(ro[i - e0], __fmul_rn(alpha, apo[i - e0]));
     }
     __syncthreads();
     PROF(8);
-    precondition();
+    precondition(true);
     PROF(9);
     cluster.sync();
     PROF(10);
   }
-  if (sh)
+  if (chip)
     for (long long i = e0 + tid; i < e1; i += kThreads) x[i] = xo[i - e0];
 #ifdef LIORF_PCG_PROFILE
   if (blockIdx.x == 0 && tid == 0)
@@ -625,14 +772,14 @@ long long liorf_pcg_iscratch_ints(long long K, long long E, long long G) {
 // Every lane's PCG in one launch: one cluster of `cluster` blocks (1 to 8)
 // a lane. Pointers are contiguous device arrays as in Args; scratch [lanes,
 // liorf_pcg_scratch_floats(K, E, G)] f32, iscratch [lanes,
-// liorf_pcg_iscratch_ints(K, E, G)] i32. With `shared` the lane's vectors
-// live in shared memory when they fit in a block's (else, or without it, in
-// scratch); the result is the same bits either way.
+// liorf_pcg_iscratch_ints(K, E, G)] i32. The lane runs on chip where it
+// fits a block's shared memory, else in device memory; the result is the
+// same bits in both layouts.
 int liorf_pcg_solve(const void* Ji, const void* Jj, const void* Jg, const void* Jp,
                     const void* ei, const void* ej, const void* gi, const void* pi,
                     const void* keys, const void* perm, const void* Minv, const void* rhs,
                     void* x, void* scratch, void* iscratch, int lanes, int K, int E, int G,
-                    int iters, float damping, int cluster, int shared, void* stream) {
+                    int iters, float damping, int cluster, void* stream) {
   if (lanes == 0 || K == 0) return 0;
   if (cluster < 1 || cluster > 8) return (int)cudaErrorInvalidValue;
   Args a;
@@ -645,17 +792,18 @@ int liorf_pcg_solve(const void* Ji, const void* Jj, const void* Jg, const void* 
   a.x = (float*)x; a.scratch = (float*)scratch; a.iscratch = (int32_t*)iscratch;
   a.K = K; a.E = E; a.G = G; a.iters = iters; a.damping = damping;
 
-  const long long bytes = shared_layout(K, E, G, cluster).words * 4;
-  a.shared = shared && bytes <= kMaxDynamicShared;
-  if (a.shared) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const long long bytes = shared_bytes(K, E, G, cluster);
+  void (*kernel)(Args) =
+      lane_layout(K, E, G, cluster) == kOnChip ? pcg_kernel<kOnChip> : pcg_kernel<kDeviceMemory>;
+  if (bytes > 0) {  // the opt-in is per device context: set it on every call
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(lanes * cluster));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = a.shared ? (size_t)bytes : 0;
+  cfg.dynamicSmemBytes = (size_t)bytes;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -664,14 +812,19 @@ int liorf_pcg_solve(const void* Ji, const void* Jj, const void* Jg, const void* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, pcg_kernel, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Whether a launch at these sizes keeps the lane in shared memory.
-int liorf_pcg_fits_shared(long long K, long long E, long long G, int cluster) {
-  return shared_layout(K, E, G, cluster).words * 4 <= kMaxDynamicShared;
+// The layout a launch at these sizes takes (1 on chip, 0 device memory),
+// and its dynamic shared memory in bytes.
+int liorf_pcg_layout(long long K, long long E, long long G, int cluster) {
+  return lane_layout(K, E, G, cluster);
+}
+
+long long liorf_pcg_shared_bytes(long long K, long long E, long long G, int cluster) {
+  return shared_bytes(K, E, G, cluster);
 }
 
 }  // extern "C"

@@ -34,7 +34,14 @@ from .segment_sum import _fold_lanes, fixed_dot_plain, segment_sum_plain
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pcg.cu"
 
-CLUSTER = 8  # blocks a lane: the portable cluster size
+# Blocks a lane: 8, the portable cluster size. chip_smoke.py's pcg_profile
+# times 1, 2, 4 and 8 at the main window, the resident full solve, the
+# 8-lane tick and the main path's own window (PERF.md §6): 8 was the
+# fastest or tied at every one, so no rule by size picks another.
+CLUSTER = 8
+# where a lane's arrays live (csrc/pcg.cu::lane_layout): on chip where they
+# fit a block's shared memory, else device memory
+DEVICE_MEMORY, ON_CHIP = 0, 1
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one was needed
@@ -48,14 +55,16 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
     lib = ctypes.CDLL(str(so))
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.liorf_pcg_solve.argtypes = [vp] * 15 + [ci] * 5 + [ctypes.c_float, ci, ci, vp]
+    lib.liorf_pcg_solve.argtypes = [vp] * 15 + [ci] * 5 + [ctypes.c_float, ci, vp]
     lib.liorf_pcg_solve.restype = ci
     lib.liorf_pcg_scratch_floats.argtypes = [cll, cll, cll]
     lib.liorf_pcg_scratch_floats.restype = cll
     lib.liorf_pcg_iscratch_ints.argtypes = [cll, cll, cll]
     lib.liorf_pcg_iscratch_ints.restype = cll
-    lib.liorf_pcg_fits_shared.argtypes = [cll, cll, cll, ci]
-    lib.liorf_pcg_fits_shared.restype = ci
+    lib.liorf_pcg_layout.argtypes = [cll, cll, cll, ci]
+    lib.liorf_pcg_layout.restype = ci
+    lib.liorf_pcg_shared_bytes.argtypes = [cll, cll, cll, ci]
+    lib.liorf_pcg_shared_bytes.restype = cll
     _lib = lib
     return lib
 
@@ -122,7 +131,9 @@ _INDEX = ("e_i", "e_j", "g_i", "p_i", "keys", "perm")
 
 
 def _launch(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, keys, perm, Minv, rhs, iters: int,
-            damping: float, cluster: int = CLUSTER, shared: bool = True) -> torch.Tensor:
+            damping: float, cluster: int = CLUSTER) -> torch.Tensor:
+    """The kernel on every lane. ``cluster`` (blocks a lane, 1 to 8)
+    changes no bit."""
     dev = rhs.device
     B, K, _ = rhs.shape
     E, G = Ji.shape[1], Jg.shape[1]
@@ -147,7 +158,7 @@ def _launch(Ji, Jj, Jg, Jp, e_i, e_j, g_i, p_i, keys, perm, Minv, rhs, iters: in
     with torch.cuda.device(dev):
         err = lib.liorf_pcg_solve(
             *(t.data_ptr() for t in args.values()), x.data_ptr(), scratch.data_ptr(),
-            iscratch.data_ptr(), B, K, E, G, iters, damping, cluster, int(shared),
+            iscratch.data_ptr(), B, K, E, G, iters, damping, cluster,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -3,7 +3,10 @@ closed-form Jacobian against ``jacfwd``'s (``imu/fusion.py::jacfwd_system``)
 in each branch of ``so3_log`` and ``so3_exp``, its plain version against the
 JAX package's ``fusion_step``, the ``jacfwd`` oracle and a float64 run, its
 vmap rule; and on the card (marker ``gpu``) the kernel against the plain
-version and eight lanes in one launch. Without JAX on the card:
+version bit for bit: at 0, 1 and 4 GN iterations, with a covariance that is
+not positive definite, with 1, 8 and 33 lanes in one launch, and on a lane
+of mixed magnitudes whose sums round otherwise in another order. Without JAX
+on the card:
 
     python -m pytest tests/test_torch_fusion_step.py -m gpu -q --noconftest
 """
@@ -370,3 +373,71 @@ def test_eight_lanes_in_one_launch(dev):
     bad[ARG_COV] = -bad[ARG_COV]
     out = fs.fusion_step(*bad, *_consts())
     assert bool(out[-1].all()) and torch.isnan(out[5]).all()
+
+
+def _held(got, want):
+    return all(_same(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gn_iters", [0, 1, 4])
+def test_kernel_is_its_plain_version_at_each_iteration_count(dev, gn_iters):
+    """No GN iteration (the marginalization alone), one, and the default
+    four: bit for bit against the plain version on the card."""
+    args = [t.to(dev) for t in _lane_inputs(6, degenerate=gn_iters == 1)]
+    consts = (*_consts()[:-1], gn_iters)
+    assert _held(fs.fusion_step(*args, *consts), fs.fusion_step_plain(*args, *consts))
+
+
+@pytest.mark.gpu
+def test_not_positive_definite_on_the_card(dev):
+    """A covariance that is not positive definite: NaN whitening through
+    every later step on the card, the divergence flag set, as the plain
+    version has them."""
+    args = [t.to(dev) for t in _lane_inputs(4)]
+    args[ARG_COV] = -args[ARG_COV]
+    got = fs.fusion_step(*args, *_consts())
+    assert bool(got[-1][0]) and torch.isnan(got[5]).all()
+    assert _held(got, fs.fusion_step_plain(*args, *_consts()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 8, 33])
+def test_lanes_in_one_launch_are_the_plain_version(dev, lanes):
+    """1, 8 and 33 lanes (more than a warp's worth of blocks) in one launch,
+    every third degenerate: bit for bit against the plain version's own lane
+    axis on the card."""
+    stacked = _stack([[t.to(dev) for t in _lane_inputs(s, degenerate=s % 3 == 0)]
+                      for s in range(lanes)])
+    before = fs.fusion_step.launches
+    got = fs.fusion_step(*stacked, *_consts())
+    assert fs.fusion_step.launches == before + 1
+    assert _held(got, fs.fusion_step_plain(*stacked, *_consts()))
+
+
+def _sequential_sum(x, dim):
+    """Left to right from the first term: an order other than tree_sum's."""
+    dim = dim % x.dim()
+    acc = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        acc = acc + x.select(dim, i)
+    return acc
+
+
+@pytest.mark.gpu
+def test_mixed_magnitudes_hold_the_summation_order(dev, monkeypatch):
+    """A lane whose prior information rows and window covariance span six
+    and four orders of magnitude, so that its sums round differently in
+    another order (the plain version with left-to-right sums gives other
+    bits): the kernel is still the plain version bit for bit."""
+    rng = np.random.default_rng(11)
+    args = _lane_inputs(11)
+    W = fs.ARGS.index("W")
+    args[W] = args[W] * torch.from_numpy(10.0 ** rng.uniform(-3, 3, (1, 15, 1))).float()
+    D = torch.from_numpy(10.0 ** rng.uniform(-2, 2, (1, 9, 1))).float()
+    args[ARG_COV] = D * args[ARG_COV] * D.transpose(1, 2)
+    args = [t.to(dev) for t in args]
+    want = fs.fusion_step_plain(*args, *_consts())
+    assert _held(fs.fusion_step(*args, *_consts()), want)
+    monkeypatch.setattr(fs, "tree_sum", _sequential_sum)
+    assert not _held(fs.fusion_step_plain(*args, *_consts()), want)

@@ -2,8 +2,10 @@
 against the JAX package's ``_pcg`` and the port's op-by-op ``_pcg`` on the
 same normal equations, unmoved by zero padding of nodes and edges, its
 vmap rule, its guards; and on the card (marker ``gpu``) the kernel against
-the plain version bit for bit, at every cluster size, with 8 lanes in one
-launch and with zero slots around the graph. Without JAX on the card:
+the plain version bit for bit, at every cluster size (on chip where the lane
+fits, else in device memory) with frozen nodes or none, on chip at the
+default cluster, in the device-memory layout of a grown ring, with 8 lanes
+in one launch and with zero slots around the graph. Without JAX on the card:
 
     python -m pytest tests/test_torch_pcg.py -m gpu -q --noconftest
 """
@@ -219,14 +221,53 @@ def test_kernel_is_its_plain_version(dev, K):
     assert torch.equal(got, again)
 
 
+# the main path's window solve and the resident full solve (nodes, used
+# nodes, edge and GPS slots), and the first node left free when some are
+# frozen (the solve's window)
+SHAPES = {"window": (256, 224, 256, 16), "resident_full": (1024, 900, 1152, 256)}
+FREE_FROM = {"window": 200, "resident_full": 880}
+CLUSTERS = (1, 2, 4, 8)  # the cluster sizes a launch may take
+
+
 @pytest.mark.gpu
-def test_cluster_size_changes_no_bit(dev):
-    """Clusters of 1, 2 and 8 blocks, the vectors in shared memory or in
-    device memory: the same bits."""
-    args = [a[None] for a in _on(_args(_random_graph(1024, 900, 1152, 256, seed=3)), dev)]
-    outs = [pcg._launch(*args, 64, DAMPING, cluster=c, shared=sh)[0]
-            for c in (1, 2, 8) for sh in (True, False)]
-    assert all(torch.equal(outs[0], o) for o in outs[1:])
+@pytest.mark.parametrize("frozen", [False, True], ids=["all_free", "frozen"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_cluster_size_changes_no_bit(dev, shape, frozen):
+    """Clusters of 1, 2, 4 and 8 blocks (the window on chip at every size,
+    the resident full solve in device memory below 8) and the default
+    launch, with every used node free or those below FREE_FROM frozen
+    (zero rows and right-hand sides, the chunks the kernel skips): the
+    plain version's bits."""
+    args = _args(_random_graph(*SHAPES[shape], seed=3), FREE_FROM[shape] if frozen else 0)
+    want = _one(args, 64)
+    lane = [a[None] for a in _on(args, dev)]
+    outs = [pcg._launch(*lane, 64, DAMPING, cluster=c)[0] for c in CLUSTERS]
+    outs.append(pcg._launch(*lane, 64, DAMPING)[0])
+    assert all(torch.equal(o.cpu(), want) for o in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_default_cluster_keeps_the_lane_on_chip(dev, shape):
+    """The default cluster holds the main window and the resident full solve
+    on chip."""
+    K, _, E, G = SHAPES[shape]
+    assert pcg.load_library().liorf_pcg_layout(K, E, G, pcg.CLUSTER) == pcg.ON_CHIP
+
+
+@pytest.mark.gpu
+def test_device_memory_layout_of_a_grown_ring(dev):
+    """A ring past what any cluster holds on chip (4096 node slots) takes the
+    device-memory layout and keeps the plain version's bits, at the default
+    cluster and at one block."""
+    args = _args(_random_graph(4096, 3584, 4611, 1024, seed=9))
+    K, E, G = 4096, 4611, 1024
+    lib = pcg.load_library()
+    assert all(lib.liorf_pcg_layout(K, E, G, c) == pcg.DEVICE_MEMORY for c in CLUSTERS)
+    got = _one(_on(args, dev), 32, pcg.pcg_solve)
+    one_block = pcg._launch(*(a[None] for a in _on(args, dev)), 32, DAMPING, cluster=1)[0]
+    want = _one(args, 32)
+    assert torch.equal(got.cpu(), want) and torch.equal(one_block.cpu(), want)
 
 
 @pytest.mark.gpu
