@@ -44,9 +44,9 @@ multistream path (the preintegration also on a seeded K = 256 window); the deske
 and the descriptor on the last launch of the main path, the resident path and
 the 8-lane multistream path (the deskew also on a seeded K = 256 case); the segment
 sum on a seeded plan of the dist phase's graph; both k-NN kernels with a
-lane axis at N = 8 in the kernels phase; the scan matcher's two kernels on
-the last launches of the main path, the resident path and the 8-lane
-multistream path, ICP's alignment kernel on the last launch of the resident
+lane axis at N = 8 in the kernels phase; the scan matcher's two kernels (one
+kernel launch a call) on the last launches of the main path, the resident path
+and the 8-lane multistream path, ICP's alignment kernel on the last launch of the resident
 loop path and the multistream loop course. A single-device path launches no
 segment sum, one voxel_reduce a voxel filter call, one fusion_step a fusion
 call, one preintegrate a preintegration call, one deskew a deskew call and one
@@ -65,7 +65,8 @@ no CPU fallback: without a CUDA device the script exits with code 5.
 Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
-             [,profile][,profile_resident][,pcg_profile][,fusion_profile][,edge_floor]
+             [,profile][,profile_resident][,pcg_profile][,fusion_profile][,scan_gn_profile]
+             [,scan_gn_parent][,edge_floor]
              [,repair_cost]
                       not run by default: "profile" traces 8 warm frames with
                       torch.profiler (device-busy share, kernel time by name,
@@ -75,11 +76,16 @@ Options (for shorter runs while developing):
                       cycles (a profiling build of csrc/pcg.cu),
                       "fusion_profile" the fusion kernel's on the main
                       path's last launch (with main_path; a profiling
-                      build of csrc/fusion.cu);
+                      build of csrc/fusion.cu), "scan_gn_profile" the scan
+                      matcher's on its last linearization and first and
+                      later updates (with main_path; a profiling build of
+                      csrc/scan_gn.cu, with ptxas' and the SASS's sizes);
                       "edge_floor" holds a factor's linearization bits over
                       256 to 4096 edge slots; "repair_cost" times
                       resident_path here and in the --parent checkout, in turns
-    --parent DIR      the checkout repair_cost compares with
+    --parent DIR      the checkout repair_cost and scan_gn_parent (with main_path:
+                      the scan matcher's calls of DIR on this tree's arguments,
+                      bit for bit and timed in turns) compare with
     --ptxas           print ptxas' register / shared-memory report
 """
 
@@ -1015,7 +1021,13 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
         "deskew_kernel": lambda: deskew_frame(raw, rel_t, raw_mask, scan_start, dk_times, gyr,
                                               dk_mask),
         "descriptor_kernel": lambda: scancontext.make_descriptor(raw, raw_mask),
+        "linearize_kernel": lambda: sgn.scan_linearize(pose[None], world[None], mask[None],
+                                                       norm_q[None], d2[None], idx[None],
+                                                       grid.xyz[None], fp.match),
+        "update_kernel": lambda: sgn.scan_update(st0, H, g, cnt, world[None], fp.match,
+                                                 first=True),
     }
+    d2, idx = knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket)
     launched, attempts = device_kernels(lambda: [fn() for fn in one_kernel.values()])
     emit("split", keyframes=pipe.store.count, ms=out, one_call_each_device_kernels=launched,
          one_call_each_of=list(one_kernel), profiler_attempts=attempts, solve_parts_ms=parts,
@@ -1025,8 +1037,8 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
           f"the pose graph solve waits for the card: {dict(solve_syncs)}")
     check(len(launched) == len(one_kernel) and all(
         any(k in e["name"] and e["calls"] == 1 for e in launched) for k in one_kernel),
-        f"one knn_grid, one deskew and one make_descriptor call must be one launch each of "
-        f"{list(one_kernel)}, got {launched}")
+        f"one knn_grid, one deskew, one make_descriptor, one scan_linearize and one "
+        f"scan_update call must be one launch each of {list(one_kernel)}, got {launched}")
 
 
 def device_kernels(fn) -> tuple[list, int]:
@@ -3033,7 +3045,10 @@ def bench_scan_linearize(args) -> dict:
     def kernel():
         return sgn._launch_linearize(*args)
 
-    out, again = kernel(), kernel()
+    k0 = sgn.kernel_launches()
+    out = kernel()
+    per_call = sgn.kernel_launches() - k0
+    again = kernel()
     plain = sgn.scan_linearize_plain(*args)
     alone = [sgn._launch_linearize(*(t[b:b + 1] for t in args[:7]), *args[7:]) for b in range(B)]
     d2, idx = args[4], args[5]
@@ -3043,7 +3058,7 @@ def bench_scan_linearize(args) -> dict:
     S = scatter_matrices(args)
     return dict(
         shape=dict(lanes=B, points=N, grid=M), lanes=B, fits=fits, selected=sel,
-        max_abs_err=max_abs_err(out, plain),
+        kernel_launches_per_call=per_call, max_abs_err=max_abs_err(out, plain),
         equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
         repeats=all(same_bits(o, a) for o, a in zip(out, again)),
         lanes_equal_one_lane_launches=all(
@@ -3072,16 +3087,21 @@ def bench_scan_update(args) -> dict:
     def kernel():
         return sgn._launch_update(*args)
 
-    out, again = flat(kernel()), flat(kernel())
+    k0 = sgn.kernel_launches()
+    out = flat(kernel())
+    per_call = sgn.kernel_launches() - k0
+    again = flat(kernel())
     plain = flat(sgn.scan_update_plain(*args))
     alone = [flat(sgn._launch_update(sgn.GNState(*(t[b:b + 1] for t in state)), H[b:b + 1],
                                      g[b:b + 1], cnt[b:b + 1], scan[b:b + 1], params, first))
              for b in range(B)]
     lane_outs = range(len(out) - 1)  # the all-done flag is the lanes' together
     A = H + torch.eye(6, device=H.device) * 1e-6
+    Hd = H.double()
+    solve_ms = cuda_ms(lambda: torch.linalg.solve(A, g), reps=5, warm=1)
     return dict(
         shape=dict(lanes=B, points=N, first=bool(first)), lanes=B,
-        max_abs_err=max_abs_err(out, plain),
+        kernel_launches_per_call=per_call, max_abs_err=max_abs_err(out, plain),
         equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
         repeats=all(same_bits(o, a) for o, a in zip(out, again)),
         lanes_equal_one_lane_launches=all(
@@ -3089,8 +3109,10 @@ def bench_scan_update(args) -> dict:
         finite=bool(torch.isfinite(out[0]).all()),
         **kernel_ms(kernel), device_ms=device_only_ms(kernel),
         plain_ms=cuda_ms(lambda: sgn.scan_update_plain(*args), reps=5, warm=1),
-        library_ms=cuda_ms(lambda: torch.linalg.solve(A, g), reps=5, warm=1),
-        library_call=f"torch.linalg.solve of [{B}, 6, 6] float32",
+        library_ms=(cuda_ms(lambda: torch.linalg.eigh(Hd), reps=5, warm=1) if first else solve_ms),
+        library_call=(f"torch.linalg.eigh of the [{B}, 6, 6] float64 systems" if first
+                      else f"torch.linalg.solve of [{B}, 6, 6] float32"),
+        solve_ms=solve_ms, solve_call=f"torch.linalg.solve of [{B}, 6, 6] float32",
         **bound(nbytes((*state, H, g, cnt, scan)) + nbytes(out),
                 MOVE_OPS * B * N, B * (UPDATE_FIRST_OPS if first else UPDATE_OPS)),
     )
@@ -3111,10 +3133,14 @@ def bench_transform(args) -> dict:
     def old_route():
         return xyz @ se3.euler_to_rot(pose[:, :3]).transpose(-1, -2) + pose[:, None, 3:]
 
-    out, again, plain = kernel(), kernel(), sgn.transform_plain(*args)
+    k0 = sgn.kernel_launches()
+    out = kernel()
+    per_call = sgn.kernel_launches() - k0
+    again, plain = kernel(), sgn.transform_plain(*args)
     alone = torch.cat([sgn._launch_transform(pose[b:b + 1], xyz[b:b + 1]) for b in range(B)])
     return dict(
-        shape=dict(lanes=B, points=N), lanes=B, max_abs_err=max_abs_err([out], [plain]),
+        shape=dict(lanes=B, points=N), lanes=B, kernel_launches_per_call=per_call,
+        max_abs_err=max_abs_err([out], [plain]),
         equal_to_plain=same_bits(out, plain), repeats=same_bits(out, again),
         lanes_equal_one_lane_launches=same_bits(out, alone),
         old_route_max_abs_diff=float((out - old_route()).abs().max()),
@@ -3141,13 +3167,16 @@ def phase_scan_gn(cases: dict, label: str) -> dict:
         res["scan_update"] = bench_scan_update(cases.pop("scan_update"))
     emit("kernels_scan_gn", path=label, **res,
          tolerance="bit for bit against the plain versions on the card (NaN where it is NaN), "
-                   "against a second launch and, lane by lane, against one-lane launches")
+                   "against a second launch and, lane by lane, against one-lane launches; one "
+                   "kernel launch a call")
     for name, r in res.items():
         what = f"{name} on {label} {r['shape']}"
         check(r["equal_to_plain"], f"{what}: differs from its plain version by {r['max_abs_err']}")
         check(r["repeats"], f"{what}: two launches differ")
         check(r["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
         check(r["finite"], f"{what}: not finite")
+        check(r["kernel_launches_per_call"] == 1,
+              f"{what}: {r['kernel_launches_per_call']} kernel launches a call, not one")
     return res
 
 
@@ -3243,6 +3272,167 @@ def phase_fusion_profile(args, label: str) -> None:
          share={k: v / total for k, v in cycles.items()}, device_ms=ms,
          note="cycles of block 0's thread 0 in the last launch, each phase closed by a block "
               "barrier (the profiling build; its times are the plain build's only roughly)")
+
+
+def phase_scan_gn_parent(cases: dict, label: str, parent: str) -> None:
+    """Not in the default run. The scan matcher's two calls of an older
+    checkout (``--parent DIR``, whose csrc/scan_gn.cu has the interface
+    before the arrival counters) built beside this one's and run on the last
+    launches a path gave this one's (capture_kernel_args): each output bit
+    for bit against this tree's, and the device time of both, in turns
+    (parent, this, this, parent)."""
+    import ctypes
+    from pathlib import Path
+
+    src = Path(parent) / SCAN_GN_SOURCE
+    check(src.is_file(), f"scan_gn_parent needs --parent DIR with {SCAN_GN_SOURCE}")
+    so, _ = build.build_cuda_library(src)
+    lib = ctypes.CDLL(str(so))
+    vp, ci, cf, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+    lib.liorf_scan_linearize.argtypes = [vp] * 11 + [cf] * 3 + [ci] * 3 + [vp]
+    lib.liorf_scan_update.argtypes = [vp] * 18 + [cd, cf, cf, ci, ci, ci, ci, vp]
+    stream = lambda: torch.cuda.current_stream(DEV).cuda_stream  # noqa: E731
+
+    def parent_linearize(pose, scan, mask, nq, d2, idx, gxyz, corr, resid, minw):
+        B, N = mask.shape
+        tiles = 1 << (max(1, -(-N // sgn.TILE)) - 1).bit_length()
+        partial = torch.empty((B, tiles, sgn.TERMS), device=DEV)
+        H, g = torch.empty((B, 6, 6), device=DEV), torch.empty((B, 6), device=DEV)
+        count = torch.empty((B,), dtype=torch.int32, device=DEV)
+        check(lib.liorf_scan_linearize(*(t.data_ptr() for t in (pose, scan, mask, nq, d2, idx, gxyz)),
+                                       partial.data_ptr(), H.data_ptr(), g.data_ptr(),
+                                       count.data_ptr(), corr * corr, resid, minw, B, N,
+                                       gxyz.shape[1], stream()) == 0, "parent linearize failed")
+        return H, g, count
+
+    def parent_update(state, H, g, cnt, scan, params, first):
+        B, N = scan.shape[:2]
+        new = sgn.GNState(*(torch.empty_like(t) for t in state))
+        world = torch.empty((B, N, 3), device=DEV)
+        all_done = torch.empty((1,), dtype=torch.bool, device=DEV)
+        ins = (H, g, cnt, state.pose, state.P, state.degenerate, state.done, state.count,
+               state.iters, scan)
+        check(lib.liorf_scan_update(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in new),
+                                    world.data_ptr(), all_done.data_ptr(), float(params.eigen_thresh),
+                                    params.conv_rot_deg, params.conv_trans_cm,
+                                    int(params.min_points), int(bool(first)), B, N, stream()) == 0,
+              "parent update failed")
+        return new, world, all_done
+
+    calls = {"scan_linearize": (parent_linearize, sgn._launch_linearize, lambda o: o),
+             "scan_update_first": (parent_update, sgn._launch_update, flat),
+             "scan_update": (parent_update, sgn._launch_update, flat)}
+    res = {}
+    for name, (old, new, f) in calls.items():
+        if name not in cases:
+            continue
+        args = cases[name]
+        same = all(same_bits(o, p) for o, p in zip(f(new(*args)), f(old(*args))))
+        turns = [("parent", old), ("this", new), ("this", new), ("parent", old)]
+        times = [(who, device_only_ms(lambda fn=fn: fn(*args))) for who, fn in turns]
+        res[name] = dict(equal_to_parent=same, turns=times,
+                         parent_ms=statistics.median(t for w, t in times if w == "parent"),
+                         this_ms=statistics.median(t for w, t in times if w == "this"))
+    emit("scan_gn_parent", path=label, parent=parent, **res,
+         note="device time of one call from an idle device (device_only_ms), in turns")
+    for name, r in res.items():
+        check(r["equal_to_parent"], f"scan_gn_parent: {name} differs from the parent's")
+
+
+SCAN_GN_PROFILE = {  # csrc/scan_gn.cu's profile slots a call, by phase
+    "scan_linearize": dict(prologue=0, loads_and_gathers=1, plane_jacobi=2, row_and_terms=3,
+                           tile_tree=4, tiles_tree=5, tiles_tree_loads=14),
+    "scan_update": dict(jacobi=6, lu=7, substitution=8, p=9, projection_and_step=10, writes=11,
+                        moved_scan=12, all_done=13),
+}
+SCAN_GN_PROFILE_SLOTS = 15
+
+
+def nvcc_report(source: str, flags: tuple[str, ...] = ()) -> dict:
+    """ptxas' registers, stack and spills of every function of ``source``
+    (kernels and the device functions they call) and the SASS instruction
+    count of every kernel, from one nvcc run with -Xptxas -v and cuobjdump
+    -sass on its library."""
+    import re
+
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "report.so")
+        proc = subprocess.run([nvcc, *build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o", so, source],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvcc failed on {source}: {proc.stderr[-2000:]}")
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True).stdout
+    out, name, props = {}, None, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props:
+            out.setdefault(props, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})["sass_instructions"] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            out[name]["sass_instructions"] += 1
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_scan_gn_profile(cases: dict, label: str) -> None:
+    """Not in the default run. The scan matcher's kernels rebuilt with
+    -DLIORF_SCAN_GN_PROFILE on the last launches a path gave them
+    (capture_kernel_args): clock cycles a phase (SCAN_GN_PROFILE) of the
+    profiling thread of the lane's first block, of the linearization, the
+    first and a later update, each held bit for bit against its plain
+    version, and the profiling build's device time; then ptxas' registers
+    and spills and the SASS size of every kernel of the plain build."""
+    import ctypes
+
+    calls = {"scan_linearize": (sgn._launch_linearize, sgn.scan_linearize_plain, "scan_linearize"),
+             "scan_update_first": (sgn._launch_update, sgn.scan_update_plain, "scan_update"),
+             "scan_update": (sgn._launch_update, sgn.scan_update_plain, "scan_update")}
+    res = {}
+    sgn._lib = None
+    try:
+        lib = sgn.load_library(("-DLIORF_SCAN_GN_PROFILE",))
+        lib.liorf_scan_gn_profile.argtypes = [ctypes.c_void_p]
+        lib.liorf_scan_gn_profile.restype = ctypes.c_int
+        for name, (launch, plain, kind) in calls.items():
+            if name not in cases:
+                continue
+            args = cases[name]
+            got, want = launch(*args), plain(*args)
+            flat_got = flat(got) if kind == "scan_update" else got
+            flat_want = flat(want) if kind == "scan_update" else want
+            check(all(same_bits(o, p) for o, p in zip(flat_got, flat_want)),
+                  f"scan_gn_profile: the profiling build's {name} differs from its plain version")
+            ms = device_only_ms(lambda: launch(*args))
+            launch(*args)
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * SCAN_GN_PROFILE_SLOTS)()
+            check(lib.liorf_scan_gn_profile(ctypes.addressof(buf)) == 0, "reading the profile failed")
+            cycles = {ph: buf[j] for ph, j in SCAN_GN_PROFILE[kind].items()}
+            res[name] = dict(cycles=cycles, device_ms=ms)
+    finally:
+        sgn._lib = None  # the next user builds the library without the profile
+    emit("scan_gn_profile", path=label, **res, build=nvcc_report(SCAN_GN_SOURCE),
+         note="cycles of each call's profiling thread in its last launch (the lane's first "
+              "block; the tiles' tree by the last block), each stamp after the phase's results "
+              "are used (the profiling build; its times are the plain build's only roughly)")
 
 
 PCG_PHASES = ("tree_rz", "p_own", "edges", "gps_prior", "sync1", "node_sums", "sync2",
@@ -4189,7 +4379,7 @@ def main() -> None:
                 "repeat,gps_path,growth_path,faults,multistream_path,cli,dist",
     )
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--parent", help="repair_cost: a checkout from before the fixed-order reductions")
+    ap.add_argument("--parent", help="repair_cost, scan_gn_parent: an older checkout to compare with")
     args = ap.parse_args()
     phases = args.phases.split(",")
     full = {
@@ -4224,6 +4414,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         pcg_main = pcg_main_args = pcg_cases(cases)
         lin_main = linearize_case(cases)
         fus_case = fusion_case(cases)
+        sg_case = {k: cases.pop(k) for k in ("scan_linearize", "scan_update_first", "scan_update",
+                                             "transform") if k in cases}
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
             kern["voxel_reduce"] = phase_voxel_reduce(
@@ -4235,7 +4427,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             kern["preintegrate"] = phase_preintegrate(preintegrate_case(cases), "main_path")
             kern["preintegrate_k256"] = phase_preintegrate(
                 preint_seeded_case(), f"seeded K={PREINT_K256[0]} window")
-            kern["scan_gn"] = phase_scan_gn(cases, "main_path")
+            kern["scan_gn"] = phase_scan_gn(dict(sg_case), "main_path")
             kern["deskew"] = phase_deskew(front_case(cases, "deskew"), "main_path")
             for K, n_valid in DESKEW_SEEDED:
                 kern[f"deskew_k{K}"] = phase_deskew(
@@ -4245,7 +4437,11 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                                                    "main_path")
         if "fusion_profile" in phases:
             phase_fusion_profile(fus_case, "main_path")
-        del lin_main, fus_case, cases
+        if "scan_gn_profile" in phases:
+            phase_scan_gn_profile(sg_case, "main_path")
+        if "scan_gn_parent" in phases:
+            phase_scan_gn_parent(sg_case, "main_path", args.parent)
+        del lin_main, fus_case, sg_case, cases
         resident = None
         if "resident_path" in phases:
             res_cases = {}
@@ -4479,6 +4675,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     gn_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
                  "library_ms", "library_call", "bound_ms", "bound_by", "bytes", "flops",
                  "max_abs_err")
+    sg_fields = (*gn_fields, "kernel_launches_per_call")
     gn_replaces = ("none (not a TPU kernel): the eager ops and library solvers of "
                    "liorf_tpu_torch/ops/scan_match.py::_build_system_lanes / scan_to_map_lanes "
                    "and ops/plane_fit.py (the JAX package's XLA at "
@@ -4489,11 +4686,12 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         kernels.append(row(
             name, gn_replaces, main_counts[name], r=r, source=SCAN_GN_SOURCE, shape=r["shape"],
             device_ms=r["device_ms"], library_call=r["library_call"],
+            kernel_launches_per_call=r["kernel_launches_per_call"],
             launches_by_path=by_path(name), k1_launches_by_path=by_path("knn_grid_topk"),
-            first_iteration=({f: sg["scan_update_first"][f] for f in gn_fields}
+            first_iteration=({f: sg["scan_update_first"][f] for f in sg_fields}
                              if name == "scan_update" else None),
-            resident={k: {f: v[f] for f in gn_fields} for k, v in kern["scan_gn_resident"].items()},
-            lanes8={k: {f: v[f] for f in gn_fields} for k, v in sg_lanes.items()}))
+            resident={k: {f: v[f] for f in sg_fields} for k, v in kern["scan_gn_resident"].items()},
+            lanes8={k: {f: v[f] for f in sg_fields} for k, v in sg_lanes.items()}))
     tf = sg["transform"]
     kernels.append(row(
         "transform",
@@ -4501,9 +4699,10 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         "add) of liorf_tpu_torch/ops/scan_match.py and ops/icp.py",
         main_counts["transform"], r=tf, source=SCAN_GN_SOURCE, shape=tf["shape"],
         device_ms=tf["device_ms"], op_by_op_ms=tf["op_by_op_ms"],
+        kernel_launches_per_call=tf["kernel_launches_per_call"],
         launches_by_path=by_path("transform"), scan_to_map_calls_by_path=by_path("scan_to_map_calls"),
-        resident={f: kern["scan_gn_resident"]["transform"][f] for f in gn_fields},
-        lanes8={f: sg_lanes["transform"][f] for f in gn_fields}))
+        resident={f: kern["scan_gn_resident"]["transform"][f] for f in sg_fields},
+        lanes8={f: sg_lanes["transform"][f] for f in sg_fields}))
     # ICP's row: the resident loop path's last launch (one lane); launches
     # from the loop path's run, as K2's
     ia = kern["icp_align"]

@@ -7,7 +7,8 @@ was ~40 eager launches and two library solvers (a batched ``eigh`` of the
 [N, 3, 3] scatter matrices, ``solve`` of the [B, 6, 6] systems, and on the
 first iteration ``eigh`` of them), each making the host wait for the card.
 The kernels (``csrc/scan_gn.cu``) do one GN iteration of every lane in two
-calls, around kernel K1 (the 5-NN search, which stays its own launch):
+calls of one kernel launch each, around kernel K1 (the 5-NN search, which
+stays its own launch):
 
 * :func:`scan_linearize` — (H [B, 6, 6], g [B, 6], count [B]) of the
   point-to-plane system at the lanes' poses: each point's world position,
@@ -16,13 +17,19 @@ calls, around kernel K1 (the 5-NN search, which stays its own launch):
   ``ops/plane_fit.py``), the residual gate and weight, its row of J and its
   share of b, summed over the points in a fixed order.
 * :func:`scan_update` — the GN step of every lane: on the first iteration the
-  6x6 eigen-decomposition of H (Jacobi, float64) and its degeneracy
-  projection, then ``solve(H + 1e-6 I, g)`` (LU with partial pivoting,
-  float64), the projection, the frozen lanes, the convergence test, the
-  moved scan for the next K1 and one "all lanes done" flag, the only value
-  the host reads an iteration.
+  6x6 eigen-decomposition of H (Jacobi, float64: its sweeps' operations in
+  their order, run as a program of waves, ``csrc/jacobi6_waves.cuh``) and
+  its degeneracy projection, then ``solve(H + 1e-6 I, g)`` (LU with partial
+  pivoting, float64), the projection, the frozen lanes, the convergence
+  test, the moved scan for the next K1 and one "all lanes done" flag, the
+  only value the host reads an iteration.
 * :func:`transform` — points moved by their lanes' poses: a match's first K1
   queries (and ICP's first K2 queries).
+
+Each kernel finishes its lanes' work in one launch through arrival counters
+(:func:`arrival_counters`): the last tile of a lane takes the sum over the
+tiles, the last lane writes the all-done flag, and each sets its counter
+back to 0, so no launch clears them.
 
 The order contract (the kernels keep it, this module spells it): every
 operation is rounded on its own; a 3-term product sum is
@@ -73,14 +80,32 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-    lib.liorf_scan_linearize.argtypes = [vp] * 11 + [cf] * 3 + [ci] * 3 + [vp]
+    lib.liorf_scan_linearize.argtypes = [vp] * 12 + [cf] * 3 + [ci] * 3 + [vp]
     lib.liorf_scan_linearize.restype = ci
-    lib.liorf_scan_update.argtypes = [vp] * 18 + [cd, cf, cf, ci, ci, ci, ci, vp]
+    lib.liorf_scan_update.argtypes = [vp] * 19 + [cd, cf, cf, ci, ci, ci, ci, vp]
     lib.liorf_scan_update.restype = ci
     lib.liorf_scan_transform.argtypes = [vp] * 3 + [ci] * 2 + [vp]
     lib.liorf_scan_transform.restype = ci
+    lib.liorf_scan_gn_kernel_launches.argtypes = []
+    lib.liorf_scan_gn_kernel_launches.restype = ctypes.c_longlong
     _lib = lib
     return lib
+
+
+_arrivals: dict = {}
+
+
+def arrival_counters(dev: torch.device, kind: str, n: int) -> torch.Tensor:
+    """At least ``n`` arrival counters of the ``kind`` kernel ("linearize":
+    one a lane, "update": one) on ``dev``. They are 0 between launches: the
+    last tile or lane to arrive sets its counter back, so the tensor is
+    zeroed once, when it is made. Launches of one kind on ``dev`` run one at
+    a time (one stream), as every caller in the package makes them."""
+    t = _arrivals.get((dev, kind))
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 8),), dtype=torch.int32, device=dev)
+        _arrivals[(dev, kind)] = t
+    return t
 
 
 class GNState(NamedTuple):
@@ -383,7 +408,8 @@ def _launch_linearize(pose, scan_xyz, scan_mask, scan_norm_quarter, d2, idx, gri
     with torch.cuda.device(dev):
         err = lib.liorf_scan_linearize(
             *(t.data_ptr() for t in ins), partial.data_ptr(), H.data_ptr(), g.data_ptr(),
-            count.data_ptr(), corr_dist * corr_dist, plane_max_resid, min_weight, B, N, M,
+            count.data_ptr(), arrival_counters(dev, "linearize", B).data_ptr(),
+            corr_dist * corr_dist, plane_max_resid, min_weight, B, N, M,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_linearize: CUDA launch failed with error {err}")
@@ -426,7 +452,8 @@ def _launch_update(state: GNState, H, g, cnt, scan_xyz, params, first: bool):
     with torch.cuda.device(dev):
         err = lib.liorf_scan_update(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in new), world.data_ptr(),
-            all_done.data_ptr(), float(params.eigen_thresh), params.conv_rot_deg,
+            all_done.data_ptr(), arrival_counters(dev, "update", 1).data_ptr(),
+            float(params.eigen_thresh), params.conv_rot_deg,
             params.conv_trans_cm, int(params.min_points), int(bool(first)), B, N,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -436,6 +463,12 @@ def _launch_update(state: GNState, H, g, cnt, scan_xyz, params, first: bool):
 
 
 scan_update.launches = 0
+
+
+def kernel_launches() -> int:
+    """Kernels the library has launched in this process (one a call of each
+    wrapper; the wrappers' ``launches`` count the calls)."""
+    return int(load_library().liorf_scan_gn_kernel_launches())
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,7 +3,8 @@ linearization's plain version against the JAX package's ``_build_system``,
 the update's against JAX's degeneracy analysis and solve, the plane fit's
 sign, the order contract's lane independence; and on the card (marker
 ``gpu``) both kernels against their plain versions, lanes against single
-launches. Without JAX on the card:
+launches, one kernel launch a call at every lane count and point count, the
+arrival counters back at 0 after every call. Without JAX on the card:
 
     python -m pytest tests/test_torch_scan_gn.py -m gpu -q --noconftest
 """
@@ -248,6 +249,168 @@ def test_tiled_sum_order():
     np.testing.assert_allclose(got.numpy(), x.double().sum(1).numpy(), atol=1e-4)
 
 
+_WAVES_HARNESS = r"""
+// Runs csrc/jacobi6_waves.cuh's program on the CPU as the update kernel runs
+// it (a wave's rotations from the state before the wave), on the float64
+// matrices of argv[1]; writes each one's eigenvalues and eigenvectors to
+// argv[2] and the program's ops, waves and slots to stdout.
+#include <cmath>
+#include <cstdio>
+#include <vector>
+#include "jacobi6_waves.cuh"
+using namespace jacobi6;
+constexpr int kSweeps = SWEEPS;
+constexpr int kRot = kPairs * kSweeps;
+constexpr Program kP = build<kSweeps>();
+constexpr int kS = slots(kP, kRot);
+static_assert(kP.n > 0, "program");
+int main(int argc, char** argv) {
+  FILE* in = std::fopen(argv[1], "rb");
+  FILE* out = std::fopen(argv[2], "wb");
+  double H[36];
+  while (std::fread(H, sizeof(double), 36, in) == 36) {
+    double d[6], o[kPairs], C[kS], S[kS], V[6][6];
+    for (int i = 0; i < 6; ++i) {
+      d[i] = H[i * 6 + i];
+      for (int j = i + 1; j < 6; ++j) o[off(i, j)] = i == 0 && j == 1 ? H[1] : H[j * 6 + i];
+      for (int j = 0; j < 6; ++j) V[i][j] = i == j ? 1.0 : 0.0;
+    }
+    for (int i = 0; i < kP.n; ++i) {
+      if (kP.kind[i] == kWave) {
+        double T[3], Cw[3];
+        for (int j = 0; j < kP.count[i]; ++j) {
+          const int k = kP.rot[i][j], p = pair_p(k), q = pair_q(k);
+          const double app = d[p], aqq = d[q], apq = o[off(p, q)];
+          double t = 0.0;
+          if (apq != 0.0) {
+            const double tau = (aqq - app) / (2.0 * apq);
+            const double y = 1.0 / (std::fabs(tau) + std::sqrt(tau * tau + 1.0));
+            t = tau >= 0.0 ? y : -y;
+          }
+          T[j] = t;
+          Cw[j] = 1.0 / std::sqrt(t * t + 1.0);
+        }
+        for (int j = 0; j < kP.count[i]; ++j) {
+          const int k = kP.rot[i][j], p = pair_p(k), q = pair_q(k);
+          const double apq = o[off(p, q)];
+          C[k % kS] = Cw[j];
+          S[k % kS] = T[j] * Cw[j];
+          d[p] = d[p] - T[j] * apq;
+          d[q] = d[q] + T[j] * apq;
+          o[off(p, q)] = 0.0;
+        }
+      } else {
+        const int k = kP.rot[i][0], p = pair_p(k), q = pair_q(k);
+        const double c = C[k % kS], s = S[k % kS];
+        if (kP.kind[i] == kRow) {
+          const int r = kP.row[i];
+          const double x = o[off(r, p)], y = o[off(r, q)];
+          o[off(r, p)] = c * x - s * y;
+          o[off(r, q)] = s * x + c * y;
+        } else {
+          for (int r = 0; r < 6; ++r) {
+            const double vp = V[r][p], vq = V[r][q];
+            V[r][p] = c * vp - s * vq;
+            V[r][q] = s * vp + c * vq;
+          }
+        }
+      }
+    }
+    std::fwrite(d, sizeof(double), 6, out);
+    std::fwrite(V, sizeof(double), 36, out);
+  }
+  int waves = 0;
+  for (int i = 0; i < kP.n; ++i) waves += kP.kind[i] == kWave;
+  std::printf("%d %d %d\n", kP.n, waves, kS);
+  std::fclose(out);
+  return 0;
+}
+"""
+
+
+def _sweeps_ieee(A, sweeps):
+    """gn_common.cuh::jacobi's sweeps, one IEEE float64 operation at a time
+    (numpy scalars): the order ``plane_fit.jacobi_eigh`` spells in tensors."""
+    a, v = A.copy(), np.eye(6)
+    with np.errstate(over="ignore"):  # a tiny a_pq overflows tau to inf, then t = 0
+        return _sweeps(a, v, sweeps)
+
+
+def _sweeps(a, v, sweeps):
+    for _ in range(sweeps):
+        for p in range(5):
+            for q in range(p + 1, 6):
+                apq, t = a[p, q], 0.0
+                if apq != 0.0:
+                    tau = (a[q, q] - a[p, p]) / (2.0 * apq)
+                    t = (1.0 if tau >= 0.0 else -1.0) / (abs(tau) + np.sqrt(tau * tau + 1.0))
+                c = 1.0 / np.sqrt(t * t + 1.0)
+                s = t * c
+                app, aqq = a[p, p] - t * apq, a[q, q] + t * apq
+                for r in range(6):
+                    if r != p and r != q:
+                        arp, arq = a[r, p], a[r, q]
+                        a[r, p] = a[p, r] = c * arp - s * arq
+                        a[r, q] = a[q, r] = s * arp + c * arq
+                a[p, p], a[q, q], a[p, q], a[q, p] = app, aqq, 0.0, 0.0
+                vp, vq = v[:, p].copy(), v[:, q].copy()
+                v[:, p], v[:, q] = c * vp - s * vq, s * vp + c * vq
+    return np.diag(a).copy(), v
+
+
+def test_jacobi_wave_program_is_the_sweeps(tmp_path):
+    """The update kernel runs the first iteration's 6x6 Jacobi as a program
+    of waves (``csrc/jacobi6_waves.cuh``: each task as soon as the last
+    earlier task on its entries has run). Built for the CPU by g++ (no
+    contraction) and run as the kernel runs it, the program gives the
+    sequential sweeps' bits in IEEE float64 (``_sweeps_ieee``) at
+    ``JACOBI6_SWEEPS`` sweeps: the scan matcher's systems, degenerate and
+    diagonal ones, a zero row, scales from 1e-27 to 1e6, and matrices that
+    are not symmetric; the 120 rotations in 51 waves. Against the plain
+    version on the CPU (``plane_fit.jacobi_eigh``, where torch's float64
+    square root is not always the correctly rounded one) within 1e-12 of
+    the largest entry; on the card the kernel and the plain version agree
+    bit for bit (the gpu cases)."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the wave program for the CPU")
+    csrc = Path(scan_gn.__file__).resolve().parent.parent / "csrc"
+    src, exe = tmp_path / "waves.cpp", tmp_path / "waves"
+    src.write_text(_WAVES_HARNESS.replace("SWEEPS;", f"{scan_gn.JACOBI6_SWEEPS};", 1))
+    subprocess.run([gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-I", str(csrc), str(src),
+                    "-o", str(exe)], check=True, capture_output=True)
+    rng = np.random.default_rng(11)
+    mats = [SYSTEMS[k][0] for k in SYSTEMS]
+    for _ in range(40):
+        Q, _ = np.linalg.qr(rng.normal(size=(6, 6)))
+        eig = 10.0 ** rng.uniform(-3, 5, 6) * (rng.uniform(size=6) < 0.85)
+        mats.append(((Q * eig) @ Q.T) * 10.0 ** rng.uniform(-27, 1))
+    mats.append(np.diag([5.0, 3.0, 3.0, 1.0, 0.0, 2.0]))
+    zero_row = mats[5].copy()
+    zero_row[2], zero_row[:, 2] = 0.0, 0.0
+    mats.append(zero_row)
+    H = np.stack(mats)
+    H = ((H + np.swapaxes(H, 1, 2)) / 2).astype(np.float32).astype(np.float64)
+    H = np.concatenate([H, rng.normal(size=(3, 6, 6)).astype(np.float32).astype(np.float64)])
+    (tmp_path / "in.bin").write_bytes(H.tobytes())
+    run = subprocess.run([str(exe), str(tmp_path / "in.bin"), str(tmp_path / "out.bin")],
+                         check=True, capture_output=True, text=True)
+    ops, waves, slots = map(int, run.stdout.split())
+    assert waves == 51 and slots < 15 * scan_gn.JACOBI6_SWEEPS
+    got = np.frombuffer((tmp_path / "out.bin").read_bytes(), np.float64).reshape(len(H), 42)
+    for h, row in zip(H, got):
+        lam, V = _sweeps_ieee(h, scan_gn.JACOBI6_SWEEPS)
+        assert np.array_equal(row[:6], lam) and np.array_equal(row[6:].reshape(6, 6), V)
+    lam, V = plane_fit.jacobi_eigh(torch.as_tensor(H), scan_gn.JACOBI6_SWEEPS)
+    scale = np.abs(H).max(axis=(1, 2))
+    assert (np.abs(got[:, :6] - lam.numpy()).max(1) <= 1e-12 * scale).all()
+    assert (np.abs(got[:, 6:] - V.numpy().reshape(-1, 36)).max(1) <= 1e-9).all()
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu():
     args = _port_inputs(*_world(seed=2, n_scan=300))
     scan_gn.reset_launch_counts()
@@ -348,3 +511,99 @@ def test_wrappers_check_their_arguments(dev):
     st = scan_gn.init_state(args[0])
     with pytest.raises(ValueError):
         scan_gn.scan_update(st, H.transpose(1, 2), g, c, args[1], PARAMS, first=True)
+
+
+def _stack(n_lanes, n_scan, dev, seed=20):
+    """The linearization's arguments of n_lanes seeded lanes of n_scan points."""
+    lanes = [_port_inputs(*_world(seed=seed + s, n_scan=n_scan), device=dev) for s in range(n_lanes)]
+    return tuple(torch.cat(x).contiguous() for x in zip(*lanes))
+
+
+def _check_one_call(dev, args, st, first):
+    """Both calls once against their plain versions, bit for bit; one kernel
+    launch each; the arrival counters 0 after each. The new state."""
+    consts = (PARAMS.corr_dist, PARAMS.plane_max_resid, PARAMS.min_weight)
+    B = args[0].shape[0]
+    k0 = scan_gn.kernel_launches()
+    got = scan_gn.scan_linearize(*args, PARAMS)
+    assert scan_gn.kernel_launches() == k0 + 1
+    for x, y in zip(got, scan_gn.scan_linearize_plain(*args, *consts)):
+        assert _same(x, y)
+    assert not bool(scan_gn.arrival_counters(dev, "linearize", B).any())
+    k0 = scan_gn.kernel_launches()
+    new, world, all_done = scan_gn.scan_update(st, *got, args[1], PARAMS, first=first)
+    assert scan_gn.kernel_launches() == k0 + 1
+    ref = scan_gn.scan_update_plain(st, *got, args[1], PARAMS, first=first)
+    for x, y in zip((*new, world, all_done), (*ref[0], ref[1], ref[2])):
+        assert _same(x, y)
+    assert not bool(scan_gn.arrival_counters(dev, "update", 1).any())
+    return new
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes, n", [(1, 1), (3, 127), (3, 128), (3, 129), (1, 16384),
+                                      (2, 16385), (8, 1500), (33, 300)])
+def test_one_launch_a_call_is_the_plain_version(dev, lanes, n):
+    """Every lane count and point count (one tile, a tile's edge, the main
+    path's 128 tiles, and past them, where the tiles' tree starts in device
+    memory) through a first and two later iterations: each call one kernel
+    launch, bit for bit its plain version (the moved scan and the all-done
+    flag with it)."""
+    args = _stack(lanes, n, dev)
+    st = scan_gn.init_state(args[0])
+    for first in (True, False, False):
+        st = _check_one_call(dev, args, st, first)
+        args = (st.pose.contiguous(), *args[1:])
+
+
+def _systems(dev, names):
+    """The SYSTEMS' (H, g, count) stacked over the lanes, on the card."""
+    H, g, c = zip(*(SYSTEMS[k] for k in names))
+    return (torch.as_tensor(np.stack(H), device=dev), torch.as_tensor(np.stack(g), device=dev),
+            torch.tensor(c, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first", [True, False])
+def test_update_edge_lanes_are_the_plain_version(dev, first):
+    """A degenerate lane, a lane with too few points, a frozen lane and a
+    well-conditioned one in one launch, on the first and a later iteration:
+    bit for bit the plain version, and the all-done flag only once every lane
+    is done."""
+    names = ["degenerate", "too_few_points", "well_conditioned", "well_conditioned"]
+    H, g, c = _systems(dev, names)
+    scan = torch.as_tensor(np.random.default_rng(3).uniform(-20, 20, (4, 700, 3)).astype(np.float32),
+                           device=dev)
+    st = scan_gn.init_state(torch.zeros((4, 6), device=dev))
+    if not first:  # a later iteration carries the first one's projection
+        st = scan_gn.scan_update_plain(st, H, g, c, scan, PARAMS, first=True)[0]
+    st = st._replace(done=torch.tensor([False, False, True, False], device=dev))
+    got = scan_gn.scan_update(st, H, g, c, scan, PARAMS, first=first)
+    ref = scan_gn.scan_update_plain(st, H, g, c, scan, PARAMS, first=first)
+    for x, y in zip((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2])):
+        assert _same(x, y)
+    assert bool(got[0].degenerate[0]) and not bool(got[0].degenerate[3])
+    assert torch.equal(got[0].pose[2], st.pose[2])
+    assert not bool(got[2][0])
+    done = st._replace(done=torch.ones(4, dtype=torch.bool, device=dev))
+    assert bool(scan_gn.scan_update(done, H, g, c, scan, PARAMS, first=first)[2][0])
+
+
+@pytest.mark.gpu
+def test_back_to_back_calls_reset_the_arrival_counters(dev):
+    """Calls of 3, 1, 33 and 3 lanes back to back, the all-done flag
+    alternating: every call's last tile and last lane find the counters at 0
+    (a counter left over would skip H or the flag), bit for bit the plain
+    versions."""
+    st = None
+    for k, lanes in enumerate((3, 1, 33, 3)):
+        args = _stack(lanes, 300, dev, seed=40 + k)
+        st = scan_gn.init_state(args[0])
+        st = st._replace(done=torch.full((lanes,), k % 2 == 1, device=dev))
+        new = _check_one_call(dev, args, st, first=True)
+        flag = scan_gn.scan_update(st, *scan_gn.scan_linearize(*args, PARAMS), args[1], PARAMS,
+                                   first=True)[2]
+        want = scan_gn.scan_update_plain(st, *scan_gn.scan_linearize(*args, PARAMS), args[1],
+                                         PARAMS, first=True)[2]
+        assert torch.equal(flag, want)
+        assert new.done.shape == (lanes,)
