@@ -66,8 +66,8 @@ Options (for shorter runs while developing):
     --phases device,kernels,main_path,resident_path,split,loop_path,resident_loop_path,
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
              [,profile][,profile_resident][,pcg_profile][,fusion_profile][,scan_gn_profile]
-             [,scan_gn_parent][,edge_floor]
-             [,repair_cost]
+             [,scan_gn_parent][,linearize_profile][,preintegrate_profile][,kernels_parent]
+             [,edge_floor][,repair_cost]
                       not run by default: "profile" traces 8 warm frames with
                       torch.profiler (device-busy share, kernel time by name,
                       host operators by their own time), "profile_resident"
@@ -79,13 +79,20 @@ Options (for shorter runs while developing):
                       build of csrc/fusion.cu), "scan_gn_profile" the scan
                       matcher's on its last linearization and first and
                       later updates (with main_path; a profiling build of
-                      csrc/scan_gn.cu, with ptxas' and the SASS's sizes);
-                      "edge_floor" holds a factor's linearization bits over
+                      csrc/scan_gn.cu, with ptxas' and the SASS's sizes),
+                      "linearize_profile" and "preintegrate_profile" the
+                      pose graph's linearization and the IMU
+                      preintegration on their last launches (with
+                      main_path; profiling builds of csrc/linearize.cu and
+                      csrc/preintegrate.cu, with ptxas' and the SASS's
+                      sizes); "edge_floor" holds a factor's linearization bits over
                       256 to 4096 edge slots; "repair_cost" times
                       resident_path here and in the --parent checkout, in turns
-    --parent DIR      the checkout repair_cost and scan_gn_parent (with main_path:
+    --parent DIR      the checkout repair_cost, scan_gn_parent (with main_path:
                       the scan matcher's calls of DIR on this tree's arguments,
-                      bit for bit and timed in turns) compare with
+                      bit for bit and timed in turns) and kernels_parent (with
+                      main_path: DIR's linearize_normal and preintegrate calls
+                      the same way) compare with
     --ptxas           print ptxas' register / shared-memory report
 """
 
@@ -925,11 +932,13 @@ def phase_main_path(n_frames: int = MAIN_FRAMES):
     return pipe, counts
 
 
-def phase_split(pipe: LiorfPipeline, resident=None) -> None:
+def phase_split(pipe: LiorfPipeline, lin_args, resident=None) -> None:
     """Where a frame's time goes: the stages of one frame, each timed alone by
     CUDA events at the main path's shapes, on the pipeline's final state;
     with ``resident`` (phase_resident_path's pipeline and pre-step
-    snapshots) also the resident step's stages."""
+    snapshots) also the resident step's stages. ``lin_args``: the main
+    path's last linearization, one call of it in the trace of one call
+    each."""
     from liorf_tpu_torch.core.voxel import voxel_downsample_xyz
     from liorf_tpu_torch.imu import fusion, preintegration
     from liorf_tpu_torch.ops import scan_match, scancontext
@@ -1026,6 +1035,9 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
                                                        grid.xyz[None], fp.match),
         "update_kernel": lambda: sgn.scan_update(st0, H, g, cnt, world[None], fp.match,
                                                  first=True),
+        "normal_terms_kernel": lambda: lin.linearize_normal(*lin_args),
+        "preintegrate_kernel": lambda: preintegration.preintegrate(acc, gyr, dts, imask, z3, z3,
+                                                                   fp.fusion.imu),
     }
     d2, idx = knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket)
     launched, attempts = device_kernels(lambda: [fn() for fn in one_kernel.values()])
@@ -1037,8 +1049,9 @@ def phase_split(pipe: LiorfPipeline, resident=None) -> None:
           f"the pose graph solve waits for the card: {dict(solve_syncs)}")
     check(len(launched) == len(one_kernel) and all(
         any(k in e["name"] and e["calls"] == 1 for e in launched) for k in one_kernel),
-        f"one knn_grid, one deskew, one make_descriptor, one scan_linearize and one "
-        f"scan_update call must be one launch each of {list(one_kernel)}, got {launched}")
+        f"one knn_grid, one deskew, one make_descriptor, one scan_linearize, one scan_update, "
+        f"one linearize_normal and one preintegrate call must be one launch each of "
+        f"{list(one_kernel)}, got {launched}")
 
 
 def device_kernels(fn) -> tuple[list, int]:
@@ -1996,10 +2009,10 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases["fusion_step"] = args
         return real_fus(*args)
 
-    def spy_pre(*args):
+    def spy_pre(*args, **kw):
         if args[0].shape[0] == lanes:
             cases["preintegrate"] = args
-        return real_pre(*args)
+        return real_pre(*args, **kw)
 
     def spy_dsk(*args):
         if args[0].shape[0] == lanes:
@@ -2309,8 +2322,14 @@ def bench_linearize(args) -> dict:
     def kernel():
         return lin.linearize_normal(*args)
 
-    *out, rows = lin._launch(*args, keep_rows=True)
+    k0 = lin.kernel_launches()
     again = kernel()
+    per_call = lin.kernel_launches() - k0
+    *out, rows = lin._launch(*args, keep_rows=True)
+    k0 = lin.kernel_launches()
+    vmapped = torch.func.vmap(lambda *a: tuple(
+        x[0] for x in lin.linearize_normal(*(t[None] for t in a))))(*args)
+    per_vmapped_call = lin.kernel_launches() - k0
     Ji, Jj, Jg, Jp, rows_p = lin.factor_rows_plain(*args[:18])
     sums = segsum.segment_sum_plain(rows_p.cpu(), args[19].cpu(), args[18].cpu(), K)
     plain = (sums[..., :6], sums[..., 6:].reshape(B, K, 6, 6), Ji.cpu(), Jj.cpu(), Jg.cpu(),
@@ -2342,6 +2361,8 @@ def bench_linearize(args) -> dict:
     res = dict(
         shape=dict(lanes=B, nodes=K, edges=E, gps=G), lanes=B,
         active=dict(between=n_between, gps=n_gps, prior=n_prior, rows=int(nz.sum())),
+        kernel_launches_per_call=per_call, kernel_launches_per_vmapped_call=per_vmapped_call,
+        vmapped_call_equal=all(torch.equal(o, v) for o, v in zip(out, vmapped)),
         max_abs_err=max(float((o.cpu() - p).abs().max()) for o, p in zip(out, plain)),
         equal_to_plain=all(torch.equal(o.cpu(), p) for o, p in zip(out, plain)),
         rows_equal_to_plain=bool(torch.equal(rows, rows_p)),
@@ -2352,8 +2373,9 @@ def bench_linearize(args) -> dict:
             torch.equal(o, torch.cat([x[k] for x in alone])) for k, o in enumerate(out)),
         jacfwd_max_rel_diff=rel, jacfwd_rhs_diff_over_stiffness=rhs_over_stiffness,
         **kernel_ms(kernel),
-        # the two kernels' own time on the card, apart from the wrapper's host time
+        # the kernel's own time on the card, apart from the wrapper's host time
         device_ms=device_only_ms(kernel),
+        host_parts_us=call_host_parts_us(linearize_host_steps(args), lin.linearize_normal, args),
         plain_ms=cuda_ms(lambda: lin.linearize_normal_plain(*args), reps=5, warm=1),
         op_by_op_ms=cuda_ms(jacfwd, reps=5, warm=1),
         op_by_op_call="pose_graph._normal_terms_jacfwd (jacfwd under vmap, masks, SegmentPlan "
@@ -2375,6 +2397,12 @@ def phase_linearize(args, label: str) -> dict:
                    f"the CPU); jacfwd: diag and J blocks within {LINEARIZE_JACFWD_TOL} of their "
                    f"largest entry, rhs within {LINEARIZE_RHS_TOL} of its column's stiffness")
     what = f"linearize_normal on {label} {res['shape']}"
+    check(res["kernel_launches_per_call"] == 1,
+          f"{what}: {res['kernel_launches_per_call']} kernel launches a call, not one")
+    check(res["kernel_launches_per_vmapped_call"] == 1,
+          f"{what}: {res['kernel_launches_per_vmapped_call']} kernel launches a vmapped call, "
+          f"not one")
+    check(res["vmapped_call_equal"], f"{what}: the vmapped call differs from the direct one")
     check(res["rows_equal_to_plain"], f"{what}: phase A's rows differ from the plain version's")
     check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
     check(res["sums_equal_to_cpu_index_add"], f"{what}: node sums differ from the CPU's index_add")
@@ -2752,13 +2780,21 @@ def bench_preintegrate(args) -> dict:
     def kernel():
         return tpop.preintegrate(*args)
 
-    out = tpop._launch(*args)
+    k0 = tpop.kernel_launches()
+    out = kernel()
+    per_call = tpop.kernel_launches() - k0
     again = kernel()
+    k0 = tpop.kernel_launches()
+    vmapped = torch.func.vmap(lambda *a: tuple(
+        x[0] for x in tpop.preintegrate(*(t[None] for t in a), *consts)))(*tensors)
+    per_vmapped_call = tpop.kernel_launches() - k0
     plain = tpop.preintegrate_plain(*args)
     alone = [tpop.preintegrate(*(t[b:b + 1] for t in tensors), *consts) for b in range(B)]
     n_valid = int(tensors[3].sum())
     return dict(
         shape=dict(lanes=B, K=K, valid_samples=n_valid), lanes=B,
+        kernel_launches_per_call=per_call, kernel_launches_per_vmapped_call=per_vmapped_call,
+        vmapped_call_equal=all(same_bits(o, v) for o, v in zip(out, vmapped)),
         max_abs_err=max_abs_err(out, plain),
         equal_to_plain=all(same_bits(o, p) for o, p in zip(out, plain)),
         repeats=all(same_bits(o, a) for o, a in zip(out, again)),
@@ -2769,6 +2805,8 @@ def bench_preintegrate(args) -> dict:
         **kernel_ms(kernel),
         # the kernel's own time on the card, apart from the wrapper's host time
         device_ms=device_only_ms(kernel),
+        host_parts_us=call_host_parts_us(preintegrate_host_steps(args), tpop.preintegrate,
+                                          args),
         plain_ms=cuda_ms(lambda: tpop.preintegrate_plain(*args), reps=5, warm=1),
         library_ms=None,
         **bound(nbytes(tensors[3:]) + n_valid * (12 + 12 + 4) + nbytes(out),
@@ -2786,6 +2824,12 @@ def phase_preintegrate(args, label: str) -> dict:
                    "max|field| (sequential_max_ratio_to_bound <= 1), the kernel within "
                    "(19 n eps32 + 3 e) max|field| (exact_max_ratio_to_bound <= 1)")
     what = f"preintegrate on {label} {res['shape']}"
+    check(res["kernel_launches_per_call"] == 1,
+          f"{what}: {res['kernel_launches_per_call']} kernel launches a call, not one")
+    check(res["kernel_launches_per_vmapped_call"] == 1,
+          f"{what}: {res['kernel_launches_per_vmapped_call']} kernel launches a vmapped call, "
+          f"not one")
+    check(res["vmapped_call_equal"], f"{what}: the vmapped call differs from the direct one")
     check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
     check(res["repeats"], f"{what}: two launches differ")
     check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
@@ -3276,52 +3320,15 @@ def phase_fusion_profile(args, label: str) -> None:
 
 def phase_scan_gn_parent(cases: dict, label: str, parent: str) -> None:
     """Not in the default run. The scan matcher's two calls of an older
-    checkout (``--parent DIR``, whose csrc/scan_gn.cu has the interface
-    before the arrival counters) built beside this one's and run on the last
-    launches a path gave this one's (capture_kernel_args): each output bit
-    for bit against this tree's, and the device time of both, in turns
+    checkout (``--parent DIR``: its ops/scan_gn.py as a module of its own,
+    parent_module, its kernels built from DIR's csrc/scan_gn.cu) run on the
+    last launches a path gave this one's (capture_kernel_args): each output
+    bit for bit against this tree's, and the device time of both, in turns
     (parent, this, this, parent)."""
-    import ctypes
-    from pathlib import Path
-
-    src = Path(parent) / SCAN_GN_SOURCE
-    check(src.is_file(), f"scan_gn_parent needs --parent DIR with {SCAN_GN_SOURCE}")
-    so, _ = build.build_cuda_library(src)
-    lib = ctypes.CDLL(str(so))
-    vp, ci, cf, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-    lib.liorf_scan_linearize.argtypes = [vp] * 11 + [cf] * 3 + [ci] * 3 + [vp]
-    lib.liorf_scan_update.argtypes = [vp] * 18 + [cd, cf, cf, ci, ci, ci, ci, vp]
-    stream = lambda: torch.cuda.current_stream(DEV).cuda_stream  # noqa: E731
-
-    def parent_linearize(pose, scan, mask, nq, d2, idx, gxyz, corr, resid, minw):
-        B, N = mask.shape
-        tiles = 1 << (max(1, -(-N // sgn.TILE)) - 1).bit_length()
-        partial = torch.empty((B, tiles, sgn.TERMS), device=DEV)
-        H, g = torch.empty((B, 6, 6), device=DEV), torch.empty((B, 6), device=DEV)
-        count = torch.empty((B,), dtype=torch.int32, device=DEV)
-        check(lib.liorf_scan_linearize(*(t.data_ptr() for t in (pose, scan, mask, nq, d2, idx, gxyz)),
-                                       partial.data_ptr(), H.data_ptr(), g.data_ptr(),
-                                       count.data_ptr(), corr * corr, resid, minw, B, N,
-                                       gxyz.shape[1], stream()) == 0, "parent linearize failed")
-        return H, g, count
-
-    def parent_update(state, H, g, cnt, scan, params, first):
-        B, N = scan.shape[:2]
-        new = sgn.GNState(*(torch.empty_like(t) for t in state))
-        world = torch.empty((B, N, 3), device=DEV)
-        all_done = torch.empty((1,), dtype=torch.bool, device=DEV)
-        ins = (H, g, cnt, state.pose, state.P, state.degenerate, state.done, state.count,
-               state.iters, scan)
-        check(lib.liorf_scan_update(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in new),
-                                    world.data_ptr(), all_done.data_ptr(), float(params.eigen_thresh),
-                                    params.conv_rot_deg, params.conv_trans_cm,
-                                    int(params.min_points), int(bool(first)), B, N, stream()) == 0,
-              "parent update failed")
-        return new, world, all_done
-
-    calls = {"scan_linearize": (parent_linearize, sgn._launch_linearize, lambda o: o),
-             "scan_update_first": (parent_update, sgn._launch_update, flat),
-             "scan_update": (parent_update, sgn._launch_update, flat)}
+    old = parent_module(parent, "scan_gn")
+    calls = {"scan_linearize": (old._launch_linearize, sgn._launch_linearize, lambda o: o),
+             "scan_update_first": (old._launch_update, sgn._launch_update, flat),
+             "scan_update": (old._launch_update, sgn._launch_update, flat)}
     res = {}
     for name, (old, new, f) in calls.items():
         if name not in cases:
@@ -3433,6 +3440,198 @@ def phase_scan_gn_profile(cases: dict, label: str) -> None:
          note="cycles of each call's profiling thread in its last launch (the lane's first "
               "block; the tiles' tree by the last block), each stamp after the phase's results "
               "are used (the profiling build; its times are the plain build's only roughly)")
+
+
+def host_us(fn, reps: int = 100, rounds: int = 5) -> float:
+    """Host time of one fn() in microseconds: the median over ``rounds`` of
+    ``reps`` calls back to back, the device drained between rounds."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def linearize_host_steps(args) -> dict:
+    """The linearization's host steps on ``args``, each a call of its own,
+    from ops/linearize.py's helpers: the checks, the one allocation with its
+    views, the addresses, the ctypes call with its launch, the direct call."""
+    ins = lin._checked(args)
+    dev = ins[0].device
+    B, K = ins[0].shape[:2]
+    E, G = ins[2].shape[1], ins[9].shape[1]
+    lib = lin.load_library()
+    out = lin._buffer(B, K, E, G, dev, False)  # held: the timed launches write into it
+    ptrs = [t.data_ptr() for t in ins] + out[2]
+    return dict(checks=lambda: lin._checked(args),
+                allocation=lambda: lin._buffer(B, K, E, G, dev, False),
+                addresses=lambda: [t.data_ptr() for t in ins],
+                ctypes_call_and_launch=lambda: (out, lin._run(lib, ptrs, B, K, E, G, dev)),
+                direct=lambda: lin._launch(*args))
+
+
+def preintegrate_host_steps(args) -> dict:
+    """The preintegration's host steps on ``args``, as linearize_host_steps,
+    from ops/preintegrate.py's helpers."""
+    tensors, noise = args[:6], args[6:]
+    ins = tpop._checked(*tensors)
+    B, K = tensors[2].shape
+    dev = tensors[0].device
+    lib = tpop.load_library()
+    out = tpop._outputs(B, dev, False)  # held: the timed launches write into it
+    ptrs = [t.data_ptr() for t in ins] + out[1]
+    return dict(checks=lambda: tpop._checked(*tensors),
+                allocation=lambda: tpop._outputs(B, dev, False),
+                addresses=lambda: [t.data_ptr() for t in ins],
+                ctypes_call_and_launch=lambda: (out, tpop._run(lib, ptrs, *noise, K, B, dev)),
+                direct=lambda: tpop._launch(*args))
+
+
+def call_host_parts_us(steps: dict, public, args) -> dict:
+    """A wrapper's host time on these arguments split into its ``steps``
+    (linearize_host_steps, preintegrate_host_steps), beside the public
+    call's; ``dispatch`` is the public call less the direct launch (what the
+    custom op's dispatch adds)."""
+    parts = {k: host_us(f) for k, f in steps.items()}
+    parts["public_call"] = host_us(lambda: public(*args))
+    parts["dispatch"] = parts["public_call"] - parts["direct"]
+    return parts
+
+
+def phase_kernel_profile(phase, mod, source, define, reader, slots, spans, launch, reference,
+                         label) -> None:
+    """Not in the default run. A kernel rebuilt with ``define`` (a profiling
+    build) on the launch a path gave it: clock cycles a phase (``slots``:
+    name -> slot of the library's ``reader``), spans by the global timer in
+    ns (``spans``: name -> (first slot, last slot)), held bit for bit against
+    ``reference()``, the profiling build's device time, then ptxas' and the
+    SASS's sizes of the plain build."""
+    import ctypes
+
+    mod._lib = None
+    try:
+        lib = mod.load_library((define,))
+        read = getattr(lib, reader)
+        read.argtypes = [ctypes.c_void_p]
+        read.restype = ctypes.c_int
+        got, want = launch(), reference()
+        check(all(same_bits(o.cpu(), p.cpu()) for o, p in zip(got, want)),
+              f"{phase}: the profiling build differs from its plain version")
+        ms = device_only_ms(launch)
+        n = 1 + max([*slots.values(), *(j for pair in spans.values() for j in pair)])
+        buf = (ctypes.c_longlong * n)()
+        torch.cuda.synchronize()
+        check(read(ctypes.addressof(buf)) == 0, "reading the profile failed")  # resets it
+        launch()
+        torch.cuda.synchronize()
+        check(read(ctypes.addressof(buf)) == 0, "reading the profile failed")
+    finally:
+        mod._lib = None  # the next user builds the library without the profile
+    emit(phase, path=label, cycles={k: buf[j] for k, j in slots.items()},
+         spans_ns={k: buf[b] - buf[a] for k, (a, b) in spans.items()}, device_ms=ms,
+         build=nvcc_report(source),
+         note="cycles of the profiling thread in the last launch, each lap taken after the "
+              "phase's results are used; spans by %globaltimer (the profiling build; its times "
+              "are the plain build's only roughly)")
+
+
+# csrc/linearize.cu's and csrc/preintegrate.cu's profile slots, by phase
+LINEARIZE_PROFILE = dict(factor_loads_p_q_u=0, log_value=1, direction_and_shuffles=2, weights=3,
+                         both_j_stored=4, both_rows_sums=5, later_factor_slots=6,
+                         key_warp_pass_and_copy=7, cluster_barrier=8, flag_bits=9,
+                         node0_walk_and_sums=10)
+LINEARIZE_SPANS = dict(launch=(11, 12))
+PREINT_PROFILE = dict(window_end_and_first_rotations=0, later_rotations=1, prefix_and_inputs=2,
+                      leaf_segments=3,
+                      level_1=4, level_2=5, level_3=6, level_4=7, level_5=8, level_6=9,
+                      window_compose=10, outputs=11)
+PREINT_SPANS = dict(launch=(12, 13))
+
+
+def linearize_reference(args) -> tuple:
+    """The plain linearization of ``args`` on a CPU copy's order: phase A on
+    the card, the node sums in the plan's order on the CPU."""
+    B, K = args[0].shape[:2]
+    Ji, Jj, Jg, Jp, rows_p = lin.factor_rows_plain(*args[:18])
+    sums = segsum.segment_sum_plain(rows_p.cpu(), args[19].cpu(), args[18].cpu(), K)
+    return (sums[..., :6], sums[..., 6:].reshape(B, K, 6, 6), Ji.cpu(), Jj.cpu(), Jg.cpu(),
+            Jp.cpu())
+
+
+def phase_linearize_profile(args, label: str) -> None:
+    """Not in the default run: the linearization's cycles a phase on the
+    main path's last launch (a profiling build of csrc/linearize.cu)."""
+    phase_kernel_profile("linearize_profile", lin, LINEARIZE_SOURCE, "-DLIORF_LINEARIZE_PROFILE",
+                         "liorf_linearize_profile", LINEARIZE_PROFILE, LINEARIZE_SPANS,
+                         lambda: lin._launch(*args), lambda: linearize_reference(args), label)
+
+
+def phase_preintegrate_profile(args, label: str) -> None:
+    """Not in the default run: the preintegration's cycles a phase on the
+    main path's last launch (a profiling build of csrc/preintegrate.cu)."""
+    phase_kernel_profile("preintegrate_profile", tpop, PREINT_SOURCE,
+                         "-DLIORF_PREINTEGRATE_PROFILE", "liorf_preintegrate_profile",
+                         PREINT_PROFILE, PREINT_SPANS, lambda: tpop._launch(*args),
+                         lambda: tpop.preintegrate_plain(*args), label)
+
+
+_PARENT_MODULES = {}
+
+
+def parent_module(parent: str, name: str):
+    """``ops/<name>.py`` of an older checkout (``--parent DIR``) as a module
+    of its own (once a process): its custom op renamed (one name registers
+    once a process), its relative imports resolved in this tree's package,
+    its kernel built from DIR's csrc/."""
+    import types
+    from pathlib import Path
+
+    if (parent, name) in _PARENT_MODULES:
+        return _PARENT_MODULES[parent, name]
+    path = Path(parent) / "liorf_tpu_torch" / "ops" / f"{name}.py"
+    check(path.is_file(), f"the parent phases need --parent DIR with {path}")
+    mod = types.ModuleType(f"liorf_parent_{name}")
+    mod.__file__, mod.__package__ = str(path), "liorf_tpu_torch.ops"
+    src = path.read_text().replace("liorf_tpu_torch::", "liorf_parent::")
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    _PARENT_MODULES[parent, name] = mod
+    return mod
+
+
+def phase_kernels_parent(cases: dict, parent: str) -> None:
+    """Not in the default run. The linearization's and the preintegration's
+    public calls of an older checkout (``--parent DIR``) beside this tree's,
+    on the arguments of ``cases`` (name -> (ops module name, label, args)):
+    every output against this tree's (bit for bit; the signs of zeros apart),
+    then device time and the call back to back and from an idle device, in
+    turns (parent, this, this, parent)."""
+    res = {}
+    for name, (mod_name, label, args) in cases.items():
+        old = getattr(parent_module(parent, mod_name), mod_name if mod_name != "linearize"
+                      else "linearize_normal")
+        new = lin.linearize_normal if mod_name == "linearize" else tpop.preintegrate
+        got, want = new(*args), old(*args)
+        turns = []
+        for who, fn in (("parent", old), ("this", new), ("this", new), ("parent", old)):
+            f = (lambda fn=fn: fn(*args))
+            turns.append(dict(who=who, device_ms=device_only_ms(f), **kernel_ms(f)))
+        res[name] = dict(
+            path=label, equal_to_parent=all(same_bits(x, y) for x, y in zip(got, want)),
+            zero_signs_equal=all(bool((torch.signbit(x) == torch.signbit(y)).all())
+                                 for x, y in zip(got, want) if x.is_floating_point()),
+            turns=turns,
+            **{f"{who}_{k}": statistics.median(t[k] for t in turns if t["who"] == who)
+               for who in ("parent", "this") for k in ("device_ms", "ms", "ms_single_call")})
+    emit("kernels_parent", parent=parent, **res,
+         note="device_ms: device_only_ms; ms: 20 calls back to back; ms_single_call: one call "
+              "from an idle device; the medians of each side's two turns")
+    for name, r in res.items():
+        check(r["equal_to_parent"], f"kernels_parent: {name} differs from the parent's")
 
 
 PCG_PHASES = ("tree_rz", "p_own", "edges", "gps_prior", "sync1", "node_sums", "sync2",
@@ -4379,7 +4578,8 @@ def main() -> None:
                 "repeat,gps_path,growth_path,faults,multistream_path,cli,dist",
     )
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--parent", help="repair_cost, scan_gn_parent: an older checkout to compare with")
+    ap.add_argument("--parent", help="repair_cost, scan_gn_parent, kernels_parent: an older "
+                                     "checkout to compare with")
     args = ap.parse_args()
     phases = args.phases.split(",")
     full = {
@@ -4412,7 +4612,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         with capture_kernel_args(cases):
             pipe, main_counts = phase_main_path()
         pcg_main = pcg_main_args = pcg_cases(cases)
-        lin_main = linearize_case(cases)
+        lin_main = split_lin = linearize_case(cases)
+        pre_main = cases["preintegrate"]
         fus_case = fusion_case(cases)
         sg_case = {k: cases.pop(k) for k in ("scan_linearize", "scan_update_first", "scan_update",
                                              "transform") if k in cases}
@@ -4441,7 +4642,17 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             phase_scan_gn_profile(sg_case, "main_path")
         if "scan_gn_parent" in phases:
             phase_scan_gn_parent(sg_case, "main_path", args.parent)
-        del lin_main, fus_case, sg_case, cases
+        if "linearize_profile" in phases:
+            phase_linearize_profile(lin_main, "main_path")
+        if "preintegrate_profile" in phases:
+            phase_preintegrate_profile(pre_main, "main_path")
+        if "kernels_parent" in phases:
+            phase_kernels_parent({
+                "linearize_normal": ("linearize", "main_path", lin_main),
+                "preintegrate": ("preintegrate", "main_path", pre_main),
+                "preintegrate_k256": ("preintegrate", "seeded K=256 window",
+                                      preint_seeded_case())}, args.parent)
+        del lin_main, pre_main, fus_case, sg_case, cases
         resident = None
         if "resident_path" in phases:
             res_cases = {}
@@ -4465,12 +4676,15 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                     tres._solve_graph_resident(rp.state, rp.params, True)
                 kern["pcg_solve_resident_full"] = phase_pcg(pcg_cases(res_cases),
                                                             "resident_path full solve")
+                lin_full = linearize_case(res_cases)
                 kern["linearize_normal_resident_full"] = phase_linearize(
-                    linearize_case(res_cases), "resident_path full solve")
+                    lin_full, "resident_path full solve")
+                if "linearize_profile" in phases:
+                    phase_linearize_profile(lin_full, "resident_path full solve")
                 del rp, res_cases
         if "split" in phases:
-            phase_split(pipe, resident)
-        del pipe, resident
+            phase_split(pipe, split_lin, resident)
+        del pipe, resident, split_lin
     if "profile" in phases:
         phase_profile()
     if "profile_resident" in phases:
@@ -4617,7 +4831,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     # the linearization row: the main path's last launch (a window solve's)
     lin_fields = ("shape", "active", "ms", "ms_cold_l2", "ms_single_call", "device_ms",
                   "plain_ms", "op_by_op_ms", "bound_ms", "bound_by", "flops", "max_abs_err",
-                  "jacfwd_max_rel_diff", "jacfwd_rhs_diff_over_stiffness")
+                  "jacfwd_max_rel_diff", "jacfwd_rhs_diff_over_stiffness",
+                  "kernel_launches_per_call", "host_parts_us")
     lin_main = kern["linearize_normal"]
     kernels.append(row(
         "linearize_normal",
@@ -4627,6 +4842,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         main_counts["linearize_normal"], r=lin_main, source=LINEARIZE_SOURCE,
         shape=lin_main["shape"], op_by_op_ms=lin_main["op_by_op_ms"],
         device_ms=lin_main["device_ms"],
+        kernel_launches_per_call=lin_main["kernel_launches_per_call"],
+        host_parts_us=lin_main["host_parts_us"],
         jacfwd_max_rel_diff=lin_main["jacfwd_max_rel_diff"],
         jacfwd_rhs_diff_over_stiffness=lin_main["jacfwd_rhs_diff_over_stiffness"],
         launches_by_path=by_path("linearize_normal"),
@@ -4654,7 +4871,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     # the preintegration row: the main path's last launch (one lane)
     pre_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
                   "library_ms", "bound_ms", "bound_by", "bytes", "flops", "max_abs_err",
-                  "sequential_max_ratio_to_bound", "exact_max_ratio_to_bound")
+                  "sequential_max_ratio_to_bound", "exact_max_ratio_to_bound",
+                  "kernel_launches_per_call", "host_parts_us")
     pre_main = kern["preintegrate"]
     kernels.append(row(
         "preintegrate",
@@ -4664,6 +4882,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         "liorf_tpu/imu/preintegration.py:56-162)",
         main_counts["preintegrate"], r=pre_main, source=PREINT_SOURCE, shape=pre_main["shape"],
         device_ms=pre_main["device_ms"],
+        kernel_launches_per_call=pre_main["kernel_launches_per_call"],
+        host_parts_us=pre_main["host_parts_us"],
         sequential_max_ratio_to_bound=pre_main["sequential_max_ratio_to_bound"],
         exact_max_ratio_to_bound=pre_main["exact_max_ratio_to_bound"],
         launches_by_path=by_path("preintegrate"),

@@ -11,6 +11,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 # One flag set for every kernel source: Hopper's sm_90a, a shared library
 # with a plain C interface (bound with ctypes, no PyTorch headers).
 NVCC_FLAGS = (
@@ -69,3 +71,9 @@ def build_cuda_library(source: Path, extra_flags: tuple[str, ...] = ()) -> tuple
         print(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so, seconds
+
+
+def raw_stream(index: int) -> int:
+    """The address of the current CUDA stream of device ``index``, as a
+    kernel's plain C interface takes it (without building a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)

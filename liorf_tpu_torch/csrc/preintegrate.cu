@@ -11,22 +11,31 @@
 // product. Op by op on the card that was a log-depth tree of batched eager
 // products, a few hundred launches and 8-12 ms of host time a frame. Here one
 // thread block a lane runs all of it, over the window in tiles of kTile
-// samples:
+// samples, and only as far as the lane's last valid sample:
 //
-//   the leaves: one thread a sample, a = acc - ba, w = gyr - bg, dt = mask ?
-//     dts : 0, so3_exp(w dt) and Jr(w dt) (so3_exp.cuh);
-//   the rotations' inclusive prefix over the tile, log2(kTile) rounds of
-//     Hillis-Steele doubling, and the exclusive prefix pre_R = C (the
-//     rotation carried from the tiles before) times it;
+//   the window's end: a ballot of the mask a warp finds the last valid
+//     sample (slot 0 when none is); its tile is the last one run, and there
+//     the tree covers the power of two of slots that reaches it (the cover);
+//     samples past it are left out, not composed in as identity segments;
+//   the leaves' rotations: one thread a sample, a = acc - ba, w = gyr - bg,
+//     dt = mask ? dts : 0, so3_exp(w dt) and Jr(w dt) (so3_exp.cuh);
+//   the rotations' inclusive prefix over the tile, Hillis-Steele doubling:
+//     on one warp's registers by shuffles when the tile's tree covers 32
+//     slots or fewer (no barrier), else over the two warps' shared memory
+//     behind a barrier of those 64 threads; the exclusive prefix pre_R = C
+//     (the rotation carried from the tiles before) times it;
 //   the leaf segments (dv, dp, the five bias Jacobians, the 9 x 9 A and Q =
-//     B N B^T + q_int, one thread each), then the tile's pairwise tree:
-//     log2(kTile) levels, neighbours composed in order (imu/preintegration.py's
-//     formulas; Q' = (A_b Q_a) A_b^T + Q_b), every entry of a level's composes
-//     one item spread over the block's threads;
+//     B N B^T + q_int), each leaf's fields in four parts on four threads;
+//   the tile's pairwise tree: a level's composes of neighbours in order
+//     (imu/preintegration.py's formulas; Q' = (A_b Q_a) A_b^T + Q_b), every
+//     entry of a level's composes one item over the block's threads;
 //   the tile's segment composed onto the window's, and C carried on.
 //
-// A masked sample, and a sample past K in the last tile, is the identity
-// segment (dt = 0: A = I, Q = 0), which composes exactly.
+// A masked sample before the window's end, and a sample past K inside the
+// cover, is the identity segment (dt = 0: A = I, Q = 0). Composing a segment
+// with it keeps every value but not always the sign of a zero (and x 0 of an
+// infinite x is NaN), so the slots past the cover are not composed at all:
+// the plain version (ops/preintegrate.py::window_cut) leaves out the same.
 //
 // The order contract (ops/preintegrate.py::preintegrate_plain spells it in
 // torch ops; on the card the two agree bit for bit): every product, sum,
@@ -34,13 +43,18 @@
 // __fdiv_rn / __fsqrt_rn: nvcc would contract to FMAs); a 3-term product sum
 // is (a0 b0 + a1 b1) + a2 b2; a 9 x 9 product's entry is its 9 terms summed
 // in order, left to right; sin and cos are taken in double and rounded to
-// float. No atomics: every order is fixed.
+// float. No atomics on values: every order is fixed.
 //
 // What bounds it: neither bytes (~12 B a sample) nor operations (~5 kFLOP a
-// sample) but latency: ~20 block barriers a tile and the dependent chain of
-// a compose (a 9 x 9 product feeding the next). The window's segments live
-// in shared memory (one tile of 64 leaves, ~57 KB, and the half-size buffer
-// the tree's first level writes into); one lane is one block on one SM, and
+// sample) but latency: the dependent chain of the prefix and of each tree
+// level's composes (a 9 x 9 product feeding the next), and the barriers
+// between them. Its design shortens both: the work stops at the window's end
+// (on the main path 10 valid samples of 64 slots: a tree of 16 leaves, four
+// levels, in place of 64 and six), the prefix of a short window runs on one
+// warp with no barrier, and the leaves' fields are spread over four threads
+// a leaf. The window's segments live in shared memory (one tile of 64
+// leaves, ~57 KB, the half-size buffer the tree's first level writes into,
+// the leaves' inputs); one lane is one block of 512 threads on one SM, and
 // the lanes of a vmapped call run side by side.
 
 #include <cuda_runtime.h>
@@ -51,8 +65,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;  // a block's threads
 constexpr int kTile = 64;  // samples a tile: the tree's leaves (a power of two)
+constexpr unsigned kFull = 0xffffffffu;
 
 // A segment: 223 floats in this order
 constexpr int oR = 0;      // dR [3][3]
@@ -70,11 +85,17 @@ constexpr int kSeg = 223;
 constexpr int kM = kSeg;   // a compose's phase-1 items: every field but Q, then A_b Q_a
 constexpr int kHalf = kTile / 2;
 
+// A leaf's inputs, written by its sample's thread: Rinc, Jr, the exclusive
+// prefix P (each 3 x 3 row-major), a = acc - ba, dt
+constexpr int iR = 0, iJ = 9, iP = 18, iA = 27, iDt = 30, kIn = 31;
+constexpr int kLeafParts = 4;  // threads a leaf: fields 0-60, A, Q's block rows 0-1, Q's row 2
+
 // the dynamic shared memory, in floats
 constexpr int sX = 0;                      // kTile segments (the leaves, the tree)
 constexpr int sY = sX + kTile * kSeg;      // kHalf segments (the tree's other half)
 constexpr int sM = sY + kHalf * kSeg;      // kHalf x 81: A_b Q_a of each compose
-constexpr int sI0 = sM + kHalf * 81;       // kTile x 9: the prefix, two buffers
+constexpr int sIn = sM + kHalf * 81;       // kTile x kIn: the leaves' inputs
+constexpr int sI0 = sIn + kTile * kIn;     // kTile x 9: a full tile's prefix, two buffers
 constexpr int sI1 = sI0 + kTile * 9;
 constexpr int sC = sI1 + kTile * 9;        // 9: the rotation carried from tile to tile
 constexpr int sAcc = sC + 9;               // the window's segment
@@ -90,6 +111,64 @@ struct Args {
   float sg2, sa2, si2;
   int K;
 };
+
+#ifdef LIORF_PREINTEGRATE_PROFILE
+// Development only (built with -DLIORF_PREINTEGRATE_PROFILE): clock cycles a
+// phase of lane 0's thread 0 (summed over the tiles), each lap taken after
+// the phase's results are used; slots 0-3 the window's end with the first
+// tile's rotations, the later tiles' rotations, the prefix with the leaves'
+// inputs, the leaf segments; 4-9 the
+// tree's levels from the leaves up; 10 the window's compose, 11 the outputs;
+// 12-13 the launch's span by the global timer (ns).
+constexpr int kProfSlots = 14;
+__device__ long long g_prof[kProfSlots] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                          0x7fffffffffffffffLL, 0};
+__device__ volatile float g_sink;
+__device__ __forceinline__ long long gtimer() {
+  long long t = 0;
+#ifdef __CUDA_ARCH__
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+#endif
+  return t;
+}
+__device__ __forceinline__ long long stamp() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+struct Laps {
+  long long t;
+  bool on;
+  __device__ explicit Laps(bool on_) : t(stamp()), on(on_) {}
+  template <class T>
+  __device__ void lap(int slot, T dep) {
+    if (on) g_sink = (float)dep;
+    const long long now = stamp();
+    if (on) g_prof[slot] += now - t;
+    t = now;
+  }
+};
+__device__ __forceinline__ void span(int slot, bool end) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long now = (unsigned long long)gtimer();
+    if (end) atomicMax((unsigned long long*)&g_prof[slot], now);
+    else atomicMin((unsigned long long*)&g_prof[slot], now);
+  }
+}
+#else
+struct Laps {
+  __device__ explicit Laps(bool) {}
+  template <class T>
+  __device__ void lap(int, T) {}
+};
+__device__ __forceinline__ void span(int, bool) {}
+#endif
+
+// the first 64 threads' barrier (the two warps of a full tile's prefix)
+__device__ __forceinline__ void bar64() { asm volatile("bar.sync 1, 64;" ::: "memory"); }
 
 // entry (r, c) of a 3 x 3 product from row-major pointers
 __device__ __forceinline__ float mm_at(const float* A, const float* B, int r, int c) {
@@ -180,137 +259,228 @@ __device__ void compose_level(const float* src, float* dst, float* M, int m, int
   __syncthreads();
 }
 
-// One thread's leaf: sample s of the lane (a masked one, or one past K, has
-// dt = 0), its exclusive prefix rotation P; written into seg.
-__device__ void leaf(const float a[3], float dt, const float Rinc[3][3], const float Jr[3][3],
-                     const float P[3][3], const Args& g, float* seg) {
+// Part `part` of a leaf's segment from its inputs (a masked sample, or one
+// past K, has dt = 0): 0 the fields before A, 1 A, 2 Q's block rows 0 and 1,
+// 3 Q's block row 2.
+__device__ void leaf_part(int part, const float* in, const Args& g, float* seg) {
+  const float dt = in[iDt];
   const float h = mul(dt, dt);
+  if (part == 0) {
 #pragma unroll
-  for (int k = 0; k < 9; ++k) seg[oR + k] = Rinc[k / 3][k % 3];
+    for (int k = 0; k < 9; ++k) seg[oR + k] = in[iR + k];
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const float dv = mul(a[r], dt);
-    seg[oV + r] = dv;
-    seg[oP + r] = mul(mul(dv, dt), 0.5f);
-  }
-  seg[oT] = dt;
-  float Ra[3][3], Ah[3][3];  // P hat(a)
-  hat3(a, Ah);
-  mm(P, Ah, Ra);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int r = k / 3, c = k % 3;
-    const float I = r == c ? 1.0f : 0.0f;
-    seg[oRG + k] = -mul(Jr[r][c], dt);
-    seg[oVA + k] = -mul(I, dt);
-    seg[oVG + k] = 0.0f;
-    seg[oPA + k] = -mul(I, mul(h, 0.5f));
-    seg[oPG + k] = 0.0f;
-  }
-  // A: [[Rinc^T, 0, 0], [-(Ra dt), I, 0], [-((Ra h) 0.5), I dt, I]]
-  float* A = seg + oA;
-#pragma unroll
-  for (int k = 0; k < 81; ++k) A[k] = 0.0f;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float I = r == c ? 1.0f : 0.0f;
-      A[9 * r + c] = Rinc[c][r];
-      A[9 * (3 + r) + c] = -mul(Ra[r][c], dt);
-      A[9 * (3 + r) + 3 + c] = I;
-      A[9 * (6 + r) + c] = -mul(mul(Ra[r][c], h), 0.5f);
-      A[9 * (6 + r) + 3 + c] = mul(I, dt);
-      A[9 * (6 + r) + 6 + c] = I;
+    for (int r = 0; r < 3; ++r) {
+      const float dv = mul(in[iA + r], dt);
+      seg[oV + r] = dv;
+      seg[oP + r] = mul(mul(dv, dt), 0.5f);
     }
+    seg[oT] = dt;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const int r = k / 3, c = k % 3;
+      const float I = r == c ? 1.0f : 0.0f;
+      seg[oRG + k] = -mul(in[iJ + 3 * r + c], dt);
+      seg[oVA + k] = -mul(I, dt);
+      seg[oVG + k] = 0.0f;
+      seg[oPA + k] = -mul(I, mul(h, 0.5f));
+      seg[oPG + k] = 0.0f;
+    }
+    return;
+  }
+  float P[3][3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) P[k / 3][k % 3] = in[iP + k];
+  if (part == 1) {
+    // A: [[Rinc^T, 0, 0], [-(Ra dt), I, 0], [-((Ra h) 0.5), I dt, I]], Ra = P hat(a)
+    float a[3] = {in[iA], in[iA + 1], in[iA + 2]}, Ra[3][3], Ah[3][3];
+    hat3(a, Ah);
+    mm(P, Ah, Ra);
+    float* A = seg + oA;
+#pragma unroll
+    for (int k = 0; k < 81; ++k) A[k] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float I = r == c ? 1.0f : 0.0f;
+        A[9 * r + c] = in[iR + 3 * c + r];
+        A[9 * (3 + r) + c] = -mul(Ra[r][c], dt);
+        A[9 * (3 + r) + 3 + c] = I;
+        A[9 * (6 + r) + c] = -mul(mul(Ra[r][c], h), 0.5f);
+        A[9 * (6 + r) + 3 + c] = mul(I, dt);
+        A[9 * (6 + r) + 6 + c] = I;
+      }
+    }
+    return;
   }
   // B = [[Jr dt, 0], [0, P dt], [0, (P h) 0.5]], N = (sg2 / dt, sa2 / dt) (dt
   // <= 0: 1); Q = B N B^T blockwise, each entry (b0 n b0' + b1 n b1') + b2 n b2'
   const float sdt = dt > 0.0f ? dt : 1.0f;
-  const float ng = dvd(g.sg2, sdt), na = dvd(g.sa2, sdt);
-  float B1[3][3], B2[3][3], B3[3][3];
+  const float na = dvd(g.sa2, sdt);
+  float B2[3][3], B3[3][3];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      B1[r][c] = mul(Jr[r][c], dt);
       B2[r][c] = mul(P[r][c], dt);
       B3[r][c] = mul(mul(P[r][c], h), 0.5f);
     }
   float* Q = seg + oQ;
+#define BNB(X, Y, n) sum3(mul(mul(X[r][0], n), Y[c][0]), mul(mul(X[r][1], n), Y[c][1]), \
+                          mul(mul(X[r][2], n), Y[c][2]))
+  if (part == 2) {
+    const float ng = dvd(g.sg2, sdt);
+    float B1[3][3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) B1[r][c] = mul(in[iJ + 3 * r + c], dt);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        Q[9 * r + c] = BNB(B1, B1, ng);
+        Q[9 * r + 3 + c] = 0.0f;
+        Q[9 * r + 6 + c] = 0.0f;
+        Q[9 * (3 + r) + c] = 0.0f;
+        Q[9 * (3 + r) + 3 + c] = BNB(B2, B2, na);
+        Q[9 * (3 + r) + 6 + c] = BNB(B2, B3, na);
+      }
+    return;
+  }
   const float qi = mul(dt, g.si2);
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-#define BNB(X, Y, n) sum3(mul(mul(X[r][0], n), Y[c][0]), mul(mul(X[r][1], n), Y[c][1]), \
-                          mul(mul(X[r][2], n), Y[c][2]))
-      Q[9 * r + c] = BNB(B1, B1, ng);
-      Q[9 * r + 3 + c] = 0.0f;
-      Q[9 * r + 6 + c] = 0.0f;
-      Q[9 * (3 + r) + c] = 0.0f;
-      Q[9 * (3 + r) + 3 + c] = BNB(B2, B2, na);
-      Q[9 * (3 + r) + 6 + c] = BNB(B2, B3, na);
       Q[9 * (6 + r) + c] = 0.0f;
       Q[9 * (6 + r) + 3 + c] = BNB(B3, B2, na);
       Q[9 * (6 + r) + 6 + c] = add(BNB(B3, B3, na), r == c ? qi : 0.0f);
-#undef BNB
     }
+#undef BNB
+}
+
+// Sample s of lane b: a = acc - ba, dt (0 when masked or past K), so3_exp(w
+// dt) and Jr(w dt) for w = gyr - bg; returns whether the sample is valid.
+__device__ __forceinline__ bool leaf_rotation(const Args& g, long long b, long long s, float a[3],
+                                              float& dt, float Rinc[9], float Jr[3][3]) {
+  const long long K = g.K;
+  float ac[3] = {0.0f, 0.0f, 0.0f}, gy[3] = {0.0f, 0.0f, 0.0f};
+  bool valid = false;
+  dt = 0.0f;
+  if (s < K) {
+    const long long i = b * K + s;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      ac[m] = g.acc[3 * i + m];
+      gy[m] = g.gyr[3 * i + m];
+    }
+    valid = g.mask[i] != 0;
+    dt = valid ? g.dts[i] : 0.0f;
+  }
+  float w[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    a[m] = sub(ac[m], g.ba[3 * b + m]);
+    w[m] = mul(sub(gy[m], g.bg[3 * b + m]), dt);
+  }
+  Exp e;
+  exp_terms(w, e);
+  float W[3][3], W2[3][3];
+  hat3(w, W);
+  mm(W, W, W2);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      Rinc[3 * r + c] = add(add(r == c ? 1.0f : 0.0f, mul(e.A, W[r][c])), mul(e.B, W2[r][c]));
+  so3_right_jacobian(e, W, W2, Jr);
+  return valid;
 }
 
 __global__ void __launch_bounds__(kThreads, 1) preintegrate_kernel(Args g) {
   extern __shared__ float sh[];
+  __shared__ int s_last;
   float* X = sh + sX;
   float* Y = sh + sY;
   float* M = sh + sM;
+  float* In = sh + sIn;
   float* C = sh + sC;
   float* acc = sh + sAcc;
   float* tmp = sh + sTmp;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   const long long b = blockIdx.x;
   const long long K = g.K;
+  span(12, false);
+  Laps laps(b == 0 && tid == 0);
   if (tid < 9) C[tid] = (tid % 4 == 0) ? 1.0f : 0.0f;
-  const int tiles = (int)((K + kTile - 1) / kTile);
-  for (int t = 0; t < tiles; ++t) {
-    // the leaves' rotations: one thread a sample
-    float a[3] = {0.0f, 0.0f, 0.0f}, dt = 0.0f, Rinc[3][3], Jr[3][3];
+  if (tid == 0) s_last = 0;
+  __syncthreads();
+  // the window's end, the last valid sample, by a ballot a warp: the first
+  // two warps ballot the first tile's mask as they load its samples and
+  // form their rotations (which do not wait for it), the others the rest
+  float a[3] = {0.0f, 0.0f, 0.0f}, dt = 0.0f, Rinc[9] = {}, Jr[3][3] = {};
+  {
+    int last = -1;
     if (tid < kTile) {
-      const long long s = (long long)t * kTile + tid;
-      float ac[3] = {0.0f, 0.0f, 0.0f}, gy[3] = {0.0f, 0.0f, 0.0f};
-      if (s < K) {
-        const long long i = b * K + s;
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          ac[m] = g.acc[3 * i + m];
-          gy[m] = g.gyr[3 * i + m];
-        }
-        dt = g.mask[i] ? g.dts[i] : 0.0f;
+      const bool valid = leaf_rotation(g, b, tid, a, dt, Rinc, Jr);
+      const unsigned bal = __ballot_sync(kFull, valid);
+      if (bal) last = (tid - lane) + 31 - __clz((int)bal);
+    } else {
+      for (long long base = kTile + (long long)(tid - kTile - lane); base < K;
+           base += kThreads - kTile) {
+        const long long s = base + lane;
+        const unsigned bal = __ballot_sync(kFull, s < K && g.mask[b * K + s]);
+        if (bal) last = (int)(base + 31 - __clz((int)bal));
       }
-      float w[3];
-#pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        a[m] = sub(ac[m], g.ba[3 * b + m]);
-        w[m] = mul(sub(gy[m], g.bg[3 * b + m]), dt);
-      }
-      Exp e;
-      exp_terms(w, e);
-      float W[3][3], W2[3][3];
-      hat3(w, W);
-      mm(W, W, W2);
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          Rinc[r][c] = add(add(r == c ? 1.0f : 0.0f, mul(e.A, W[r][c])), mul(e.B, W2[r][c]));
-      so3_right_jacobian(e, W, W2, Jr);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) sh[sI0 + 9 * tid + k] = Rinc[k / 3][k % 3];
     }
-    __syncthreads();
-    // the inclusive prefix of the tile's rotations, Hillis-Steele doubling
-    int cur = sI0, nxt = sI1;
-    for (int d = 1; d < kTile; d *= 2) {
-      if (tid < kTile) {
+    if (lane == 0 && last > 0) atomicMax(&s_last, last);
+  }
+  __syncthreads();
+  const int last = s_last;
+  const int last_tile = last / kTile;
+  int cover = 1;
+  while (cover < last - last_tile * kTile + 1) cover *= 2;
+  laps.lap(0, last);
+
+  const float* win = acc;  // the window's segment
+  for (int t = 0; t <= last_tile; ++t) {
+    const int n = t < last_tile ? kTile : cover;  // the tile's leaves
+    // the leaves' rotations: one thread a sample (the first tile's are formed)
+    if (t > 0 && tid < n) leaf_rotation(g, b, (long long)t * kTile + tid, a, dt, Rinc, Jr);
+    laps.lap(1, Rinc[0]);
+    // the tile's inclusive rotation prefix (Hillis-Steele doubling), then
+    // the leaf's exclusive prefix P = C incl[i - 1] (C at i = 0)
+    float P[9];
+    int incl_at = sI0;  // where a full tile's inclusive prefix ends up
+    if (n <= 32) {
+      if (tid < 32) {  // one warp, registers and shuffles
+        float incl[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) incl[k] = Rinc[k];
+        for (int d = 1; d < n; d *= 2) {
+          float v[9], o[9];
+#pragma unroll
+          for (int k = 0; k < 9; ++k) v[k] = __shfl_up_sync(kFull, incl[k], d);
+#pragma unroll
+          for (int k = 0; k < 9; ++k) o[k] = mm_at(v, incl, k / 3, k % 3);
+          if (tid >= d) {
+#pragma unroll
+            for (int k = 0; k < 9; ++k) incl[k] = o[k];
+          }
+        }
+        float prev[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) prev[k] = __shfl_up_sync(kFull, incl[k], 1);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) P[k] = tid == 0 ? C[k] : mm_at(C, prev, k / 3, k % 3);
+      }
+    } else if (tid < kTile) {  // two warps, shared memory behind their own barrier
+      int cur = sI0, nxt = sI1;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) sh[cur + 9 * tid + k] = Rinc[k];
+      bar64();
+      for (int d = 1; d < kTile; d *= 2) {
         const float* in = sh + cur;
         float* o = sh + nxt;
         if (tid >= d) {
@@ -320,41 +490,61 @@ __global__ void __launch_bounds__(kThreads, 1) preintegrate_kernel(Args g) {
 #pragma unroll
           for (int k = 0; k < 9; ++k) o[9 * tid + k] = in[9 * tid + k];
         }
+        bar64();
+        const int x = cur;
+        cur = nxt;
+        nxt = x;
       }
-      __syncthreads();
-      const int x = cur;
-      cur = nxt;
-      nxt = x;
-    }
-    const float* incl = sh + cur;
-    // the leaves, each with its exclusive prefix C incl[i - 1] (C at i = 0)
-    if (tid < kTile) {
-      float P[3][3];
+      const float* incl = sh + cur;
+      incl_at = cur;
 #pragma unroll
       for (int k = 0; k < 9; ++k)
-        P[k / 3][k % 3] = tid == 0 ? C[k] : mm_at(C, incl + 9 * (tid - 1), k / 3, k % 3);
-      leaf(a, dt, Rinc, Jr, P, g, X + tid * kSeg);
+        P[k] = tid == 0 ? C[k] : mm_at(C, incl + 9 * (tid - 1), k / 3, k % 3);
+    }
+    if (tid < n) {
+      float* in = In + kIn * tid;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        in[iR + k] = Rinc[k];
+        in[iJ + k] = Jr[k / 3][k % 3];
+        in[iP + k] = P[k];
+      }
+#pragma unroll
+      for (int m = 0; m < 3; ++m) in[iA + m] = a[m];
+      in[iDt] = dt;
     }
     __syncthreads();
-    if (tid == 0) {
+    laps.lap(2, In[iP]);
+    if (tid == 0 && t < last_tile) {  // C carried on (every reader of C is past the barrier)
       float Cn[9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) Cn[k] = mm_at(C, incl + 9 * (kTile - 1), k / 3, k % 3);
+      for (int k = 0; k < 9; ++k) Cn[k] = mm_at(C, sh + incl_at + 9 * (kTile - 1), k / 3, k % 3);
 #pragma unroll
       for (int k = 0; k < 9; ++k) C[k] = Cn[k];
     }
-    // the tile's tree: X -> Y -> X ... until one segment, in X
+    // the leaf segments, four threads a leaf
+    for (int i = tid; i < n * kLeafParts; i += kThreads) {
+      const int part = i / n, leaf = i - part * n;
+      leaf_part(part, In + kIn * leaf, g, X + leaf * kSeg);
+    }
+    __syncthreads();
+    laps.lap(3, X[oQ]);
+    // the tile's tree: X -> Y -> X ... until one segment
     float* src = X;
     float* dst = Y;
-    for (int m = kTile / 2; m >= 1; m /= 2) {
+    for (int m = n / 2, lvl = 4; m >= 1; m /= 2, ++lvl) {
       compose_level(src, dst, M, m, tid);
+      laps.lap(lvl, dst[oQ]);
       float* x = src;
       src = dst;
       dst = x;
     }
     // src holds the tile's segment; onto the window's
-    if (t == 0) {
+    if (last_tile == 0) {
+      win = src;  // one tile: its segment is the window's
+    } else if (t == 0) {
       for (int k = tid; k < kSeg; k += kThreads) acc[k] = src[k];
+      __syncthreads();
     } else {
       for (int i = tid; i < kM; i += kThreads) compose_item(acc, src, tmp, M, i);
       __syncthreads();
@@ -362,55 +552,87 @@ __global__ void __launch_bounds__(kThreads, 1) preintegrate_kernel(Args g) {
         tmp[oQ + k] = add(mm9_at(M, src + oA, k / 9, k % 9, true), src[oQ + k]);
       __syncthreads();
       for (int k = tid; k < kSeg; k += kThreads) acc[k] = tmp[k];
+      __syncthreads();
     }
-    __syncthreads();
+    laps.lap(10, win[oQ]);
   }
   // the window's segment out (A stays behind)
-  for (int k = tid; k < 9; k += kThreads) {
-    g.oR_[9 * b + k] = acc[oR + k];
-    g.oRG_[9 * b + k] = acc[oRG + k];
-    g.oVA_[9 * b + k] = acc[oVA + k];
-    g.oVG_[9 * b + k] = acc[oVG + k];
-    g.oPA_[9 * b + k] = acc[oPA + k];
-    g.oPG_[9 * b + k] = acc[oPG + k];
+  if (tid < 9) {
+    g.oR_[9 * b + tid] = win[oR + tid];
+    g.oRG_[9 * b + tid] = win[oRG + tid];
+    g.oVA_[9 * b + tid] = win[oVA + tid];
+    g.oVG_[9 * b + tid] = win[oVG + tid];
+    g.oPA_[9 * b + tid] = win[oPA + tid];
+    g.oPG_[9 * b + tid] = win[oPG + tid];
   }
   if (tid < 3) {
-    g.oV_[3 * b + tid] = acc[oV + tid];
-    g.oP_[3 * b + tid] = acc[oP + tid];
+    g.oV_[3 * b + tid] = win[oV + tid];
+    g.oP_[3 * b + tid] = win[oP + tid];
   }
-  if (tid == 0) g.oT_[b] = acc[oT];
-  for (int k = tid; k < 81; k += kThreads) g.oCov[81 * b + k] = acc[oQ + k];
+  if (tid == 0) g.oT_[b] = win[oT];
+  if (tid < 81) g.oCov[81 * b + tid] = win[oQ + tid];
+  laps.lap(11, win[0]);
+  span(13, true);
 }
+
+// Kernels this library launched (host side): a caller counts a call's.
+long long g_launches = 0;
+// The opt-in to more than 48 KB of dynamic shared memory is per device
+// context: set once per device.
+bool g_opted_in[256] = {};
 
 }  // namespace
 
 extern "C" {
 
-// The preintegrated window of each of `lanes` lanes on `stream`. Pointers are
-// contiguous device arrays with a leading lane axis: acc, gyr [lanes, K, 3],
-// dts [lanes, K] (float), mask [lanes, K] (bool), ba, bg [lanes, 3]; then the
-// ten outputs of ops/preintegrate.py::FIELDS. sg2, sa2, si2: the gyro, accel
-// and integration noise densities squared.
-int liorf_preintegrate(const void* acc, const void* gyr, const void* dts, const void* mask,
-                       const void* ba, const void* bg, void* oR, void* oV, void* oP, void* oT,
-                       void* oRG, void* oVA, void* oVG, void* oPA, void* oPG, void* oCov,
-                       float sg2, float sa2, float si2, int K, int lanes, void* stream) {
-  if (lanes == 0) return 0;
-  if (K < 1) return (int)cudaErrorInvalidValue;
-  // the opt-in is per device context: set it on every call (the current
-  // device may change between calls), as csrc/pcg.cu does
-  const cudaError_t err = cudaFuncSetAttribute(
-      preintegrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSharedBytes);
+long long liorf_preintegrate_kernel_launches() { return g_launches; }
+
+#ifdef LIORF_PREINTEGRATE_PROFILE
+// The last launch's slots (kProfSlots), then every slot reset.
+int liorf_preintegrate_profile(long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(long long) * kProfSlots);
   if (err != cudaSuccess) return (int)err;
-  Args g;
-  g.acc = (const float*)acc; g.gyr = (const float*)gyr; g.dts = (const float*)dts;
-  g.mask = (const uint8_t*)mask; g.ba = (const float*)ba; g.bg = (const float*)bg;
-  g.oR_ = (float*)oR; g.oV_ = (float*)oV; g.oP_ = (float*)oP; g.oT_ = (float*)oT;
-  g.oRG_ = (float*)oRG; g.oVA_ = (float*)oVA; g.oVG_ = (float*)oVG; g.oPA_ = (float*)oPA;
-  g.oPG_ = (float*)oPG; g.oCov = (float*)oCov;
-  g.sg2 = sg2; g.sa2 = sa2; g.si2 = si2; g.K = K;
-  preintegrate_kernel<<<lanes, kThreads, kSharedBytes, (cudaStream_t)stream>>>(g);
-  return (int)cudaGetLastError();
+  long long reset[kProfSlots] = {};
+  reset[12] = 0x7fffffffffffffffLL;
+  return (int)cudaMemcpyToSymbol(g_prof, reset, sizeof(reset));
+}
+#endif
+
+// The preintegrated window of each of `lanes` lanes on `stream` of
+// `device`. `ptrs` holds 16 addresses of contiguous device arrays with a
+// leading lane axis: acc, gyr [lanes, K, 3], dts [lanes, K] (float), mask
+// [lanes, K] (bool), ba, bg [lanes, 3]; then the ten outputs of
+// ops/preintegrate.py::FIELDS. sg2, sa2, si2: the gyro, accel and
+// integration noise densities squared.
+int liorf_preintegrate(const long long* ptrs, float sg2, float sa2, float si2, int K, int lanes,
+                       int device, void* stream) {
+  if (lanes == 0) return 0;
+  if (K < 1 || device < 0 || device >= 256) return (int)cudaErrorInvalidValue;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!g_opted_in[device]) {
+    err = cudaFuncSetAttribute(preintegrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSharedBytes);
+    g_opted_in[device] = err == cudaSuccess;
+  }
+  if (err == cudaSuccess) {
+    Args g;
+    const float* const* f = reinterpret_cast<const float* const*>(ptrs);
+    g.acc = f[0]; g.gyr = f[1]; g.dts = f[2];
+    g.mask = reinterpret_cast<const uint8_t*>(ptrs[3]);
+    g.ba = f[4]; g.bg = f[5];
+    float* const* o = reinterpret_cast<float* const*>(ptrs + 6);
+    g.oR_ = o[0]; g.oV_ = o[1]; g.oP_ = o[2]; g.oT_ = o[3]; g.oRG_ = o[4]; g.oVA_ = o[5];
+    g.oVG_ = o[6]; g.oPA_ = o[7]; g.oPG_ = o[8]; g.oCov = o[9];
+    g.sg2 = sg2; g.sa2 = sa2; g.si2 = si2; g.K = K;
+    preintegrate_kernel<<<lanes, kThreads, kSharedBytes, (cudaStream_t)stream>>>(g);
+    ++g_launches;
+    err = cudaGetLastError();
+  }
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -6,10 +6,13 @@ Not a TPU kernel. The JAX package jits ``_build_normal_terms``
 factor's residual under ``vmap``, whitening, the Cauchy weight, the masks,
 then ``.at[].add`` of J^T r and J^T J per node) into a few fused XLA
 programs; op by op on the card it was thousands of launches a GN step. The
-kernel (``csrc/linearize.cu``) forms each factor's residual and Jacobians in
-closed form, weights and masks them, writes the J blocks the PCG kernel
-(``ops/pcg.py``) reads and each factor's J^T r and J^T J terms, then sums
-every node's terms in the order of the solve's ``SegmentPlan``.
+kernel (``csrc/linearize.cu``, one launch: a cluster of blocks a lane, a
+factor on a group of eight threads, the node sums after the cluster's
+barrier) forms each factor's residual and Jacobians in closed form, weights
+and masks them, writes the J blocks the PCG kernel (``ops/pcg.py``) reads
+and each factor's J^T r and J^T J terms, then sums every node's terms in
+the order of the solve's ``SegmentPlan`` (a node's rows where its sorted
+keys change value).
 
 * :func:`linearize_normal` — (rhs [B,K,6], diag [B,K,6,6], Ji, Jj [B,E,6,6],
   Jg [B,G,3,6], Jp [B,6,6]) of a graph: ``rhs = -J^T r`` and the block
@@ -49,17 +52,22 @@ there; the CPU's float32 ``sqrt`` (MKL) is off by an ulp now and then.
 Dispatch by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. The kernel is a
 ``torch.library`` custom op with a vmap rule, so the lane axis of
-``pipeline/multistream.py`` (``torch.func.vmap``) folds into the launch.
+``pipeline/multistream.py`` (``torch.func.vmap``) folds into the launch; a
+call with no vmap around it launches without the op's dispatch, its outputs
+and scratch views of one allocation, its 28 addresses one packed array.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from array import array
 from pathlib import Path
 
 import torch
+from torch._C import _functorch
 
-from ..core.build import build_cuda_library
+from ..core.build import build_cuda_library, raw_stream
 from ..core.se3 import hat
 from ..core.so3_jvp import hat_p, log_jvp, mtm, mtv, q_hat
 from .segment_sum import _fold_lanes, segment_sum_plain
@@ -80,8 +88,10 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.liorf_linearize.argtypes = [vp] * 28 + [ci] * 4 + [vp]
+    lib.liorf_linearize.argtypes = [vp, ci, ci, ci, ci, ci, vp]
     lib.liorf_linearize.restype = ci
+    lib.liorf_linearize_kernel_launches.argtypes = []
+    lib.liorf_linearize_kernel_launches.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -194,6 +204,8 @@ _BOOL = ("e_mask", "g_mask", "free_mask")
 ARGS = ("Rs", "ts", "e_i", "e_j", "e_Rm", "e_tm", "e_sqrt_info", "e_cauchy", "e_mask", "g_i",
         "g_t", "g_sqrt_info", "g_mask", "p_i", "prior_R", "prior_t", "prior_sqrt_info",
         "free_mask", "keys", "perm")
+_DTYPES = tuple(torch.float32 if n in _FLOAT else torch.bool if n in _BOOL else torch.int64
+                for n in ARGS)
 
 
 def _shapes(B, K, E, G):
@@ -205,36 +217,86 @@ def _shapes(B, K, E, G):
                 keys=(B, M), perm=(B, M))
 
 
-def _launch(*tensors, keep_rows: bool = False):
-    """The kernel on every lane: (rhs, diag, Ji, Jj, Jg, Jp), and with
-    ``keep_rows`` also phase A's rows [B, M, 42] (for checks)."""
-    args = dict(zip(ARGS, tensors))
-    dev = args["Rs"].device
-    B, K = args["Rs"].shape[:2]
-    E, G = args["e_i"].shape[1], args["g_i"].shape[1]
-    want = _shapes(B, K, E, G)
-    for name, t in args.items():
-        dtype = (torch.float32 if name in _FLOAT else torch.bool if name in _BOOL
-                 else torch.int64)
-        if t.dtype != dtype or tuple(t.shape) != want[name] or t.device != dev:
+def _out_shapes(B, K, E, G):
+    """(rhs, diag, Ji, Jj, Jg, Jp) and the scratch rows [B, M, 42], then the
+    flags [B, M] (int32, in the same float32 buffer)."""
+    M = 2 * E + G + 1
+    return ((B, K, 6), (B, K, 6, 6), (B, E, 6, 6), (B, E, 6, 6), (B, G, 3, 6), (B, 6, 6),
+            (B, M, ROW), (B, M))
+
+
+def _checked(tensors) -> list:
+    """The arguments as the kernel takes them (contiguous), or ValueError: a
+    dtype, shape or device it does not take."""
+    if len(tensors) != len(ARGS):
+        raise ValueError(f"linearize_normal: {len(tensors)} arguments, expected {len(ARGS)}")
+    Rs, e_i, g_i = tensors[0], tensors[2], tensors[9]
+    dev = Rs.device
+    if Rs.dim() != 4 or e_i.dim() != 2 or g_i.dim() != 2:
+        raise ValueError(f"linearize_normal: Rs {tuple(Rs.shape)}, e_i {tuple(e_i.shape)}, "
+                         f"g_i {tuple(g_i.shape)}: expected [B, K, 3, 3], [B, E], [B, G]")
+    want = _shapes(Rs.shape[0], Rs.shape[1], e_i.shape[1], g_i.shape[1])
+    out = []
+    for name, t, dtype in zip(ARGS, tensors, _DTYPES):
+        if t.dtype is not dtype or t.shape != want[name] or t.device != dev:
             raise ValueError(f"linearize_normal: {name} {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, expected {dtype} {want[name]} on {dev}")
-    args = {k: t.contiguous() for k, t in args.items()}
-    M = 2 * E + G + 1
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = [torch.empty(s, **f32) for s in ((B, K, 6), (B, K, 6, 6), (B, E, 6, 6), (B, E, 6, 6),
-                                             (B, G, 3, 6), (B, 6, 6))]
-    rows = torch.empty((B, M, ROW), **f32)
-    flags = torch.empty((B, M), dtype=torch.int32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.liorf_linearize(
-            *(t.data_ptr() for t in args.values()), *(t.data_ptr() for t in out),
-            rows.data_ptr(), flags.data_ptr(), B, K, E, G,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        out.append(t if t.is_contiguous() else t.contiguous())
+    return out
+
+
+_LAYOUTS: dict = {}  # (B, K, E, G) -> the outputs' and the scratch's places in one buffer
+
+
+def _layout(B, K, E, G):
+    """(size, stride, offset) of the six outputs, the rows and the flags in
+    one float32 buffer, one after the other, and the buffer's length."""
+    key = (B, K, E, G)
+    if key not in _LAYOUTS:
+        views, off = [], 0
+        for shape in _out_shapes(B, K, E, G):
+            views.append((shape, tuple(math.prod(shape[k + 1:]) for k in range(len(shape))), off))
+            off += math.prod(shape)
+        _LAYOUTS[key] = (tuple(views), off)
+    return _LAYOUTS[key]
+
+
+def _buffer(B, K, E, G, dev, outputs_apart: bool, keep_rows: bool = False):
+    """The outputs and the scratch in one allocation (the outputs views of
+    it), or (``outputs_apart``, a custom op's outputs may not alias) one
+    tensor an output and one for the scratch. Returns (outputs, the rows
+    [B, M, 42] when ``keep_rows``, the addresses of the eight)."""
+    views, total = _layout(B, K, E, G)
+    if outputs_apart:
+        out = [torch.empty(v[0], dtype=torch.float32, device=dev) for v in views[:6]]
+        scratch = torch.empty(total - views[6][2], dtype=torch.float32, device=dev)
+        at = scratch.data_ptr() - 4 * views[6][2]
+        rows = scratch.as_strided(views[6][0], views[6][1], 0) if keep_rows else None
+        return out, rows, [t.data_ptr() for t in out] + [at + 4 * v[2] for v in views[6:]]
+    buf = torch.empty(total, dtype=torch.float32, device=dev)
+    at = buf.data_ptr()
+    rows = buf.as_strided(*views[6]) if keep_rows else None
+    return [buf.as_strided(*v) for v in views[:6]], rows, [at + 4 * v[2] for v in views]
+
+
+def _run(lib, ptrs, B, K, E, G, dev) -> None:
+    """The ctypes call: the 28 addresses packed in one array."""
+    packed = array("q", ptrs)
+    err = lib.liorf_linearize(packed.buffer_info()[0], B, K, E, G, dev.index,
+                              raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"linearize_normal: CUDA launch failed with error {err}")
+
+
+def _launch(*tensors, keep_rows: bool = False, outputs_apart: bool = False):
+    """The kernel on every lane: (rhs, diag, Ji, Jj, Jg, Jp), and with
+    ``keep_rows`` also phase A's rows [B, M, 42] (for checks)."""
+    ins = _checked(tensors)
+    dev = ins[0].device
+    B, K = ins[0].shape[:2]
+    E, G = ins[2].shape[1], ins[9].shape[1]
+    out, rows, ptrs = _buffer(B, K, E, G, dev, outputs_apart, keep_rows)
+    _run(load_library(), [t.data_ptr() for t in ins] + ptrs, B, K, E, G, dev)
     linearize_normal.launches += 1
     return (*out, rows) if keep_rows else tuple(out)
 
@@ -258,7 +320,7 @@ def _linearize_op(Rs: torch.Tensor, ts: torch.Tensor, e_i: torch.Tensor, e_j: to
 
 @_linearize_op.register_kernel("cuda")
 def _linearize_cuda(*args):
-    return _launch(*args)
+    return _launch(*args, outputs_apart=True)
 
 
 @_linearize_op.register_vmap
@@ -279,6 +341,11 @@ def linearize_normal(Rs, ts, e_i, e_j, e_Rm, e_tm, e_sqrt_info, e_cauchy, e_mask
     [B, 2E+G+1], the stable sort of ``cat([e_i, e_j, g_i, p_i])``
     (``SegmentPlan.sorted_rows``), the order of every node's sums. One call
     on the card for every lane (a vmapped call's lanes included)."""
+    if Rs.device.type == "cuda" and _functorch.maybe_current_level() is None:
+        # no vmap around the call: the launch without the custom op's dispatch
+        return _launch(Rs, ts, e_i, e_j, e_Rm, e_tm, e_sqrt_info, e_cauchy, e_mask, g_i, g_t,
+                       g_sqrt_info, g_mask, p_i, prior_R, prior_t, prior_sqrt_info, free_mask,
+                       keys, perm)
     if Rs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"linearize_normal: unsupported device {Rs.device}")
     return _linearize_op(Rs, ts, e_i, e_j, e_Rm, e_tm, e_sqrt_info, e_cauchy, e_mask, g_i, g_t,
@@ -291,6 +358,11 @@ linearize_normal.launches = 0
 
 def launch_counts() -> dict[str, int]:
     return {"linearize_normal": linearize_normal.launches}
+
+
+def kernel_launches() -> int:
+    """Kernels the library has launched in this process (its own count)."""
+    return int(load_library().liorf_linearize_kernel_launches())
 
 
 def reset_launch_counts() -> None:

@@ -330,6 +330,49 @@ def test_preintegrate_kernel_vs_plain(dev, K, lanes):
         assert all(torch.equal(x[b:b + 1], y) for x, y in zip(got, one)), b
 
 
+def _windows_of_other_ends(seed, lanes, K, dev):
+    """Lanes of K slots, each with its own count of valid samples at its own
+    slots (of two or more lanes the first none, the last all), masked
+    samples in the middle."""
+    acc, gyr, dts, mask, ba, bg = _imu_windows(seed, lanes, K, "cpu")
+    rng = np.random.default_rng(seed)
+    for b in range(lanes):
+        n = (0 if b == 0 else K) if lanes > 1 and b in (0, lanes - 1) else int(rng.integers(1, K + 1))
+        keep = torch.zeros(K, dtype=torch.bool)
+        keep[torch.from_numpy(rng.permutation(K)[:n])] = True
+        mask[b] = keep
+    return [a.to(dev) for a in (acc, gyr, dts, mask, ba, bg)]
+
+
+def _bits_equal(x, y):
+    """The same 32-bit patterns (the signs of zeros included)."""
+    return torch.equal(x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 33])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 64, 65, 256, 300, 2048])
+def test_preintegrate_one_launch_any_window(dev, K, lanes):
+    """Bit for bit against the plain version on the card (every bit, signs of
+    zeros too) at windows of 1 to 2048 slots, lanes with other counts and
+    slots of valid samples (one all masked), one kernel launch a call (the
+    library's own count), the same lanes under torch.func.vmap alike; a
+    second call queued behind the first repeats."""
+    from liorf_tpu_torch.ops import preintegrate as pop
+
+    args = _windows_of_other_ends(3 * K + lanes, lanes, K, dev)
+    want = pop.preintegrate_plain(*args, *PREINT_NOISE)
+    k0 = pop.kernel_launches()
+    got = pop.preintegrate(*args, *PREINT_NOISE)
+    again = pop.preintegrate(*args, *PREINT_NOISE)
+    assert pop.kernel_launches() == k0 + 2
+    vmapped = torch.func.vmap(lambda *a: tuple(
+        x[0] for x in pop.preintegrate(*(t[None] for t in a), *PREINT_NOISE)))(*args)
+    assert pop.kernel_launches() == k0 + 3
+    for name, x, y, z, v in zip(pop.FIELDS, got, want, again, vmapped):
+        assert _bits_equal(x, y) and _bits_equal(x, z) and _bits_equal(x, v), (
+            name, float((x - y).abs().max()))
+
+
 def test_preintegrate_on_every_card(dev):
     """The kernel's ~100 KB of dynamic shared memory is an opt-in of each
     device's context: a process that launches on one card and then on

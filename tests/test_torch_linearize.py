@@ -344,3 +344,108 @@ def test_factor_bits_ignore_the_batch_around_them(dev):
             ref = cut
         for name, x, y in zip(NAMES, cut, ref):
             assert torch.equal(x, y), (name, E)
+
+
+def test_sorted_keys_give_each_node_its_plan_rows():
+    """The kernel finds a node's rows where the plan's sorted keys change
+    value (csrc/linearize.cu's key pass): the same rows, in the same order,
+    as the plan's offsets (``segment_offsets``), node 0 with hundreds of
+    unused slots included, and within a node the rows in their stable
+    order (index_add's order: Ji rows, Jj rows, GPS, the prior)."""
+    from liorf_tpu_torch.ops.segment_sum import segment_offsets
+    from test_torch_pcg import _random_graph
+
+    K, n, E, G = 256, 60, 512, 32
+    g = _random_graph(K, n, E, G, seed=3)
+    keys, perm = pg._plan(g).sorted_rows()
+    M = keys.shape[0]
+    assert M == 2 * E + G + 1
+    offsets = segment_offsets(keys[None], K)[0]
+    prev = torch.cat([torch.tensor([-1]), keys[:-1]])
+    nxt = torch.cat([keys[1:], torch.tensor([K])])
+    lo, hi = torch.zeros(K, dtype=torch.int64), torch.zeros(K, dtype=torch.int64)
+    first = torch.nonzero(keys != prev)[:, 0]
+    last = torch.nonzero(keys != nxt)[:, 0]
+    lo[keys[first]], hi[keys[last]] = first, last + 1
+    for k in range(K):
+        a, b = int(offsets[k]), int(offsets[k + 1])
+        if a == b:
+            assert lo[k] == hi[k] == 0, k
+            continue
+        assert (int(lo[k]), int(hi[k])) == (a, b), k
+        assert bool((perm[a:b][1:] > perm[a:b][:-1]).all()), k
+    assert int(offsets[1] - offsets[0]) > 2 * (E - n - 2)  # node 0: every unused slot's rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3, 33])
+@pytest.mark.parametrize("K", [16, 64, 256, 1024])
+def test_one_kernel_launch_a_call(dev, K, lanes):
+    """Bit for bit at every size and lane count, one kernel launch a call
+    (the library's own count), the public call and the same lanes under
+    torch.func.vmap alike, each lane with its own graph and frozen nodes."""
+    args = _random_args(K, K - K // 8, K + K // 8 + 3, max(4, K // 4), 7 * K + lanes, dev,
+                        lanes=lanes, free_from=K // 5)
+    want, rows = _plain_on_card(args)
+    k0 = lin.kernel_launches()
+    got = lin.linearize_normal(*args)
+    assert lin.kernel_launches() == k0 + 1
+    vmapped = torch.func.vmap(_one_lane)(*args)
+    assert lin.kernel_launches() == k0 + 2
+    assert torch.equal(lin._launch(*args, keep_rows=True)[-1], rows)
+    for name, x, y, z in zip(NAMES, got, want, vmapped):
+        assert torch.equal(x.cpu(), y) and torch.equal(x, z), name
+
+
+def _one_lane(*a):
+    """linearize_normal of one lane (its lane axis taken by vmap)."""
+    return tuple(x[0] for x in lin.linearize_normal(*(t[None] for t in a)))
+
+
+def _hub_args(dev, free_from=0):
+    """A graph whose node 1 ends 40 loop edges (80 rows with its chain's)."""
+    from test_torch_pcg import _random_graph
+
+    K, n, E, G = 256, 200, 300, 16
+    g = _random_graph(K, n, E, G, seed=21)
+    e_i, e_j, mask = g.e_i.clone(), g.e_j.clone(), g.e_mask.clone()
+    extra = torch.arange(n + 2, n + 42)
+    e_i[extra], e_j[extra] = 1, torch.arange(40, 200, 4)
+    mask[extra] = True
+    g = g._replace(e_i=e_i, e_j=e_j, e_mask=mask)
+    return [torch.stack([a]).to(dev) for a in _op_args(g, _free(g, free_from))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("free_from", [0, 256], ids=["free", "every_node_frozen"])
+def test_a_node_of_many_rows_and_frozen_graphs(dev, free_from):
+    """A node with more than 32 rows (its walk takes several rounds of
+    eight flags), and a graph whose every node is frozen (every row zero,
+    every sum +0.0): bit for bit, one launch."""
+    args = _hub_args(dev, free_from)
+    keys = args[18][0]
+    assert int((keys == 1).sum()) > 32
+    want, rows = _plain_on_card(args)
+    k0 = lin.kernel_launches()
+    got = lin.linearize_normal(*args)
+    assert lin.kernel_launches() == k0 + 1
+    assert torch.equal(lin._launch(*args, keep_rows=True)[-1], rows)
+    for name, x, y in zip(NAMES, got, want):
+        assert torch.equal(x.cpu(), y), name
+    if free_from:
+        assert all(bool((x == 0).all()) and not bool(torch.signbit(x).any()) for x in got[:2])
+
+
+@pytest.mark.gpu
+def test_back_to_back_calls(dev):
+    """Calls of two graphs queued back to back (no synchronisation between
+    them) and again: each bit for bit its plain version, one launch each."""
+    a = _random_args(256, 224, 290, 64, 5, dev, free_from=30)
+    b = _hub_args(dev)
+    k0 = lin.kernel_launches()
+    outs = [lin.linearize_normal(*x) for x in (a, b, a, b)]
+    assert lin.kernel_launches() == k0 + 4
+    for x, got in zip((a, b, a, b), outs):
+        want, _ = _plain_on_card(x)
+        for name, u, v in zip(NAMES, got, want):
+            assert torch.equal(u.cpu(), v), name

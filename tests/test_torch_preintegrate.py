@@ -2,7 +2,11 @@
 version against the JAX package's ``preintegrate`` and the port's
 sequential oracle (``imu/preintegration.py::preintegrate_sequential``, the
 Forster recursion on ``core/se3.py``'s own Rodrigues forms) at K = 13, 32, 64
-and 256, an empty window, the vmap rule, and the CPU path taking no kernel.
+and 256, an empty window, the vmap rule, and the CPU path taking no kernel;
+the window's end (the slots past the last valid sample left out, bit for
+bit, signed zeros and non-finite samples included; windows masked in the
+middle, empty, valid only in the first or the last slot; lanes of other
+ends in one call).
 The kernel against its plain version on the card is in
 ``tests/test_torch_gpu.py``.
 
@@ -50,6 +54,7 @@ EPS = 2.0**-24
 EPS64 = 2.0**-53
 ROUNDINGS = 19  # a form's roundings of a field's entry a sample, at most
 CASES = [(13, 13), (32, 21), (64, 21), (64, 64), (256, 230)]  # (K, valid samples)
+NOISE = (1.56e-3, 3.99e-3, 1e-4)  # acc, gyr, integration noise densities
 _jax_preintegrate = jax.jit(jpre.preintegrate, static_argnums=6)  # one program a K
 
 
@@ -173,3 +178,157 @@ def test_cpu_takes_the_plain_version_and_launches_nothing():
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     with pytest.raises(ValueError):
         pop.preintegrate_plain(*(a[:, :0] for a in arrays[:4]), *arrays[4:], 1.0, 1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the window's end: the slots past the last valid sample are left out
+# ---------------------------------------------------------------------------
+
+def _bits(x, y):
+    """Equal to the bit: values, signs of zeros, NaN where the other is NaN."""
+    same = (x == y) & (torch.signbit(x) == torch.signbit(y))
+    return bool((same | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+def _window(seed, K, last, variant):
+    """A window of K slots whose last valid sample is ``last`` (a masked
+    sample in the middle), with garbage in the masked slots after it;
+    ``signed_zeros``: some valid samples have a = 0, w = 0 and dt = -0.0;
+    ``non_finite``: a valid sample's acc is infinite and another's gyr NaN."""
+    acc, gyr, dts, mask, ba, bg = _imu_case(seed, K, last + 1)
+    rng = np.random.default_rng(seed + 1)
+    tail = np.arange(K) > last
+    acc[tail] = rng.normal(0, 50, (int(tail.sum()), 3))
+    gyr[tail] = rng.normal(0, 50, (int(tail.sum()), 3))
+    if last > 7:
+        mask[7] = False
+    if variant == "signed_zeros":
+        for s in range(0, last + 1, 3):
+            acc[s], gyr[s] = ba, bg
+        dts[1: last + 1: 4] = -0.0
+        ba[0], bg[1] = -0.0, 0.0
+    elif variant == "non_finite":
+        acc[last // 2, 1] = np.inf
+        gyr[last, 0] = np.nan
+    return acc, gyr, dts, mask, ba, bg
+
+
+@pytest.mark.parametrize("variant", ["finite", "signed_zeros", "non_finite"])
+@pytest.mark.parametrize("K, last", [(64, 9), (64, 0), (64, 63), (130, 70), (300, 200)])
+def test_trailing_masked_slots_are_cut_bit_for_bit(K, last, variant):
+    """A window padded with masked slots after its last valid sample gives
+    the bits of the same window cut to the power of two of its last tile
+    that covers that sample: the padding is left out, not composed in (a
+    composed identity segment keeps the values but not every sign of a zero,
+    and x 0 of an infinite x is NaN)."""
+    arrays = [torch.from_numpy(a) for a in _window(K + last, K, last, variant)]
+    tile, cover = (int(x) for x in pop.window_cut(arrays[3][None]))
+    start, n = pop.TILE * tile, last - pop.TILE * tile + 1  # the last tile, its slots to cover
+    assert 0 < n <= cover < 2 * n or cover == n == 1
+    cut = start + cover
+    got = pop.preintegrate_plain(*(a[None] for a in arrays), *NOISE)
+    short = [a[:cut] if a.dim() and a.shape[0] == K else a for a in arrays]
+    want = pop.preintegrate_plain(*(a[None] for a in short), *NOISE)
+    for name, x, y in zip(pop.FIELDS, got, want):
+        assert _bits(x, y), name
+
+
+@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("kind", ["masked_in_the_middle", "all_masked", "only_slot_0",
+                                  "only_the_last_slot"])
+def test_edge_windows_match_jax_and_the_oracle(K, kind):
+    """Windows whose end the kernel finds by its ballot: masked samples in
+    the middle, none valid, only slot 0, only slot K - 1; against the JAX
+    package at its bounds (as ``test_plain_matches_jax``) and against the
+    sequential oracle in float64 at the float32 bound."""
+    acc, gyr, dts, mask, ba, bg = _imu_case(40 + K, K, K)
+    if kind == "masked_in_the_middle":
+        mask[K // 4: K // 2] = False
+        mask[K - 5:] = False
+    else:
+        mask[:] = False
+        if kind == "only_slot_0":
+            mask[0] = True
+        elif kind == "only_the_last_slot":
+            mask[K - 1] = True
+    arrays = (acc, gyr, dts, mask, ba, bg)
+    args = tuple(torch.from_numpy(a) for a in arrays)
+    n_valid = int(mask.sum())
+    c = dict(K=K, n_valid=max(n_valid, 1))
+    got = tpre.preintegrate(*args, tpre.ImuParams())
+    jax_out = _jax_preintegrate(*(jnp.asarray(a) for a in arrays), jpre.ImuParams())
+    _hold(got, {f: np.asarray(getattr(jax_out, f)) for f in pop.FIELDS}, c)
+    seq = tpre.preintegrate_sequential(*(a.double() if a.is_floating_point() else a
+                                         for a in args), tpre.ImuParams())
+    theta = ((args[1] - args[5]) * torch.where(args[3], args[2], 0.0)[:, None]).double().norm(dim=1)
+    leaf = float(torch.minimum(EPS / (2 * theta), theta / 2).max())
+    _hold_scaled(got, seq, ROUNDINGS * c["n_valid"] * EPS + 3 * leaf)
+    if n_valid == 0:
+        assert torch.equal(got.dR, torch.eye(3))
+
+
+def test_lanes_of_other_window_ends_in_one_call():
+    """Lanes whose windows end in other slots and other tiles, in one call:
+    each lane has the bits of its own call."""
+    ends = (0, 9, 40, 63, 64, 130, 199)
+    lanes = [[torch.from_numpy(a) for a in _window(3 + e, 200, e, "signed_zeros")]
+             for e in ends]
+    stacked = [torch.stack(x) for x in zip(*lanes)]
+    got = pop.preintegrate_plain(*stacked, *NOISE)
+    for b, one in enumerate(lanes):
+        want = pop.preintegrate_plain(*(a[None] for a in one), *NOISE)
+        for name, x, y in zip(pop.FIELDS, got, want):
+            assert _bits(x[b:b + 1], y), (ends[b], name)
+
+
+def _old_order(arrays):
+    """The same windows with every slot of the last tile composed in (the
+    order before the cut): padded with zero slots to whole tiles, the last
+    slot made valid with dt = 0, which is the identity segment a masked slot
+    is."""
+    acc, gyr, dts, mask, ba, bg = arrays
+    K = dts.shape[1]
+    pad = -(-K // pop.TILE) * pop.TILE - K + 1
+    f = torch.nn.functional.pad
+    mask = f(mask, (0, pad))
+    mask[:, -1] = True
+    return f(acc, (0, 0, 0, pad)), f(gyr, (0, 0, 0, pad)), f(dts, (0, pad)), mask, ba, bg
+
+
+def test_leaving_out_the_trailing_slots_moves_only_signs_of_zeros():
+    """Against the order that composed every slot of the last tile in, the
+    cut changes no value, only now and then the sign of a zero: 200 seeded
+    windows (lanes) of 1 to 130 slots, some with zero rates and
+    accelerations, dt = -0.0, rotations about one axis, or garbage in the
+    masked slots."""
+    rng = np.random.default_rng(16)
+    for K in (1, 5, 13, 31, 32, 33, 64, 65, 100, 130):
+        B = 20
+        acc = (rng.normal(0, 0.5, (B, K, 3)) + [0.3, -0.2, 9.8]).astype(np.float32)
+        gyr = rng.normal(0, 0.3, (B, K, 3)).astype(np.float32)
+        dts = rng.uniform(0.002, 0.006, (B, K)).astype(np.float32)
+        mask = np.zeros((B, K), bool)
+        ba = rng.normal(0, 0.02, (B, 3)).astype(np.float32)
+        bg = rng.normal(0, 0.002, (B, 3)).astype(np.float32)
+        for b in range(B):
+            mask[b, :rng.integers(0, K + 1)] = True
+            mask[b] &= rng.uniform(size=K) > rng.choice([0.0, 0.1, 0.5])
+            kind = b % 4
+            if kind == 1:  # signed zeros
+                sel = rng.uniform(size=K) < 0.3
+                acc[b, sel] = ba[b]
+                gyr[b, rng.uniform(size=K) < 0.3] = bg[b]
+                dts[b, rng.uniform(size=K) < 0.2] = -0.0
+                acc[b, rng.uniform(size=K) < 0.1] = -0.0
+            elif kind == 2:  # rotations about z, no acceleration along y
+                gyr[b, :, :2] = bg[b, :2]
+                acc[b, :, 1] = ba[b, 1]
+            elif kind == 3:  # garbage in the masked slots
+                acc[b, ~mask[b]] = rng.normal(0, 100, (int((~mask[b]).sum()), 3))
+                gyr[b, ~mask[b]] = rng.normal(0, 100, (int((~mask[b]).sum()), 3))
+                dts[b, ~mask[b]] = -1.0
+        arrays = [torch.from_numpy(x) for x in (acc, gyr, dts, mask, ba, bg)]
+        got = pop.preintegrate_plain(*arrays, *NOISE)
+        before = pop.preintegrate_plain(*_old_order(arrays), *NOISE)
+        for name, x, y in zip(pop.FIELDS, got, before):
+            assert bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all()), (K, name)
