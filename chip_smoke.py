@@ -6,8 +6,9 @@
 Builds the CUDA kernels from ``liorf_tpu_torch/csrc`` (one nvcc a source,
 started together), holds each against its plain PyTorch version on the card
 at the shapes the pipeline gives it (the k-NN kernels bit for bit; the
-voxel filter's reduction, and the whole filter, bit for bit against their
-plain versions on the CPU; the fixed-order segment sum, at the
+voxel filter, one kernel call for cells, sort and reduction, bit for bit
+against its plain version and the CPU's route on a CPU copy; the
+fixed-order segment sum, at the
 distributed solver's matvec, against a float64 reduction and the CPU's
 index_add; the pose graph's PCG kernel bit for bit against its plain version
 on the CPU; its linearization kernel bit for bit against its plain version
@@ -35,7 +36,7 @@ registration, the sharded loop search and ``ShardedResidentPipeline``, over
 NCCL on every visible card and over 4 gloo ranks sharing card 0, against the
 single-device port), and checks the outputs. K1 (``knn_grid_topk``) is timed
 at the main path's shapes on the main path's own final grid, and the voxel
-filter's reduction, the PCG kernel and the linearization on the arguments
+filter, the PCG kernel and the linearization on the arguments
 the main path gave them, right after that path (the PCG and the
 linearization also on the resident full solve's), and on the 8-lane
 launches of multistream_path; the fusion and the preintegration kernels on
@@ -48,7 +49,7 @@ lane axis at N = 8 in the kernels phase; the scan matcher's two kernels (one
 kernel launch a call) on the last launches of the main path, the resident path
 and the 8-lane multistream path, ICP's alignment kernel on the last launch of the resident
 loop path and the multistream loop course. A single-device path launches no
-segment sum, one voxel_reduce a voxel filter call, one fusion_step a fusion
+segment sum, one voxel_filter a voxel filter call, one fusion_step a fusion
 call, one preintegrate a preintegration call, one deskew a deskew call and one
 make_descriptor a descriptor call (at most one of each a multistream tick but
 the bootstrap's, where each lane bootstraps alone), one scan_linearize and one scan_update a K1 launch (a GN iteration)
@@ -67,6 +68,7 @@ Options (for shorter runs while developing):
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
              [,profile][,profile_resident][,pcg_profile][,fusion_profile][,scan_gn_profile]
              [,scan_gn_parent][,linearize_profile][,preintegrate_profile][,kernels_parent]
+             [,voxel_parent][,voxel_profile]
              [,edge_floor][,repair_cost]
                       not run by default: "profile" traces 8 warm frames with
                       torch.profiler (device-busy share, kernel time by name,
@@ -85,14 +87,20 @@ Options (for shorter runs while developing):
                       preintegration on their last launches (with
                       main_path; profiling builds of csrc/linearize.cu and
                       csrc/preintegrate.cu, with ptxas' and the SASS's
-                      sizes); "edge_floor" holds a factor's linearization bits over
+                      sizes), "voxel_profile" the voxel filter's time by
+                      part on the main path's scan and map clouds (with
+                      main_path; a profiling build of csrc/voxel_filter.cu);
+                      "edge_floor" holds a factor's linearization bits over
                       256 to 4096 edge slots; "repair_cost" times
                       resident_path here and in the --parent checkout, in turns
     --parent DIR      the checkout repair_cost, scan_gn_parent (with main_path:
                       the scan matcher's calls of DIR on this tree's arguments,
                       bit for bit and timed in turns) and kernels_parent (with
                       main_path: DIR's linearize_normal and preintegrate calls
-                      the same way) compare with
+                      the same way) and voxel_parent (with main_path: DIR's
+                      voxel filter on the main path's scan and map clouds and
+                      on seeded 8-lane scans, bit for bit and timed in turns)
+                      compare with
     --ptxas           print ptxas' register / shared-memory report
 """
 
@@ -138,7 +146,7 @@ from liorf_tpu_torch.ops import scan_gn as sgn  # noqa: E402
 from liorf_tpu_torch.ops import scan_match as tmatch  # noqa: E402
 from liorf_tpu_torch.ops import scancontext as tsc  # noqa: E402
 from liorf_tpu_torch.ops import segment_sum as segsum  # noqa: E402
-from liorf_tpu_torch.ops import voxel_reduce as vred  # noqa: E402
+from liorf_tpu_torch.ops import voxel_filter as vfil  # noqa: E402
 from liorf_tpu_torch.core import voxel as tvoxel  # noqa: E402
 from liorf_tpu_torch.pipeline import LiorfPipeline, SlamConfig, make_pipeline  # noqa: E402
 from liorf_tpu_torch.pipeline import resident as tres  # noqa: E402
@@ -163,7 +171,7 @@ KERNEL_SOURCE = "liorf_tpu_torch/csrc/knn_kernels.cu"
 SEGSUM_SOURCE = "liorf_tpu_torch/csrc/segment_sum.cu"
 PCG_SOURCE = "liorf_tpu_torch/csrc/pcg.cu"
 LINEARIZE_SOURCE = "liorf_tpu_torch/csrc/linearize.cu"
-VOXEL_SOURCE = "liorf_tpu_torch/csrc/voxel_reduce.cu"
+VOXEL_SOURCE = "liorf_tpu_torch/csrc/voxel_filter.cu"
 FUSION_SOURCE = "liorf_tpu_torch/csrc/fusion.cu"
 SCAN_GN_SOURCE = "liorf_tpu_torch/csrc/scan_gn.cu"
 ICP_ALIGN_SOURCE = "liorf_tpu_torch/csrc/icp_align.cu"
@@ -203,7 +211,7 @@ MULTI_CAPS = dict(
 MULTI_ICP_CAP = 16384  # ResidentParams.loop_icp_cap: K2's shape in the ICP
 
 
-KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vred, fstep, sgn, ialign, tpop, tdsk, tsc)
+KERNEL_MODULES = (knn_cuda, segsum, pcg, lin, vfil, fstep, sgn, ialign, tpop, tdsk, tsc)
 
 
 def reset_counts() -> None:
@@ -341,7 +349,7 @@ def phase_device(ptxas: bool) -> str:
         kernel_build_seconds=dict(knn_kernels=knn_cuda.build_seconds,
                                   segment_sum=segsum.build_seconds,
                                   pcg=pcg.build_seconds, linearize=lin.build_seconds,
-                                  voxel_reduce=vred.build_seconds,
+                                  voxel_filter=vfil.build_seconds,
                                   fusion=fstep.build_seconds,
                                   scan_gn=sgn.build_seconds, icp_align=ialign.build_seconds,
                                   preintegrate=tpop.build_seconds,
@@ -1038,6 +1046,7 @@ def phase_split(pipe: LiorfPipeline, lin_args, resident=None) -> None:
         "normal_terms_kernel": lambda: lin.linearize_normal(*lin_args),
         "preintegrate_kernel": lambda: preintegration.preintegrate(acc, gyr, dts, imask, z3, z3,
                                                                    fp.fusion.imu),
+        "voxel_filter_kernel": lambda: voxel_downsample_xyz(raw, raw_mask, fp.leaf, fp.scan_cap),
     }
     d2, idx = knn.knn_grid(grid, world, mask, 5, fp.match.knn_bucket)
     launched, attempts = device_kernels(lambda: [fn() for fn in one_kernel.values()])
@@ -1050,7 +1059,8 @@ def phase_split(pipe: LiorfPipeline, lin_args, resident=None) -> None:
     check(len(launched) == len(one_kernel) and all(
         any(k in e["name"] and e["calls"] == 1 for e in launched) for k in one_kernel),
         f"one knn_grid, one deskew, one make_descriptor, one scan_linearize, one scan_update, "
-        f"one linearize_normal and one preintegrate call must be one launch each of "
+        f"one linearize_normal, one preintegrate and one voxel filter call must be one launch "
+        f"each of "
         f"{list(one_kernel)}, got {launched}")
 
 
@@ -1791,7 +1801,7 @@ def phase_multistream_path() -> dict:
         sc_args or seeded_clouds(max(MULTI_LANES)),
         f"multistream_path_{max(MULTI_LANES)}" if sc_args
         else f"seeded {max(MULTI_LANES)} lanes (no {max(MULTI_LANES)}-lane keyframe tick)")
-    vr_lanes = phase_voxel_reduce(lane_cases, max(MULTI_LANES))
+    vr_lanes = phase_voxel_filter(lane_cases, max(MULTI_LANES))
     sg_lanes = phase_scan_gn(lane_cases, f"multistream_path_{max(MULTI_LANES)}")
     ia_lanes = phase_icp_align(icp_cases, f"multistream_loop_course_{MULTI_PARITY_LANES}")
     del lane_cases, icp_cases
@@ -1967,8 +1977,8 @@ def ply_vertices(path: str) -> int:
 def capture_kernel_args(cases: dict, lanes: int = 1):
     """Keep, by reference (no device work), the arguments of the block's
     last launch over ``lanes`` lanes (vmapped calls fold their lanes into
-    the launch's leading axis) of: the voxel filter's reduction, by output
-    size (``voxel_reduce_out<S>``); the PCG for each iteration count
+    the launch's leading axis) of: the voxel filter, by output size
+    (``voxel_filter_out<S>``); the PCG for each iteration count
     (``pcg_iters<n>``: the window and the full solves); the linearization
     (``linearize``); of the fusion step (``fusion_step``); of the IMU
     preintegration (``preintegrate``); of the deskew (``deskew``) and the
@@ -1979,7 +1989,7 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
     scan (``transform``); and of ICP's
     alignment (``icp_align``; with ``lanes`` None the widest launch, the last
     of equals)."""
-    real, real_pcg, real_lin, real_vred = segsum._launch, pcg._launch, lin._launch, vred._launch
+    real, real_pcg, real_lin, real_vfil = segsum._launch, pcg._launch, lin._launch, vfil._launch
     real_fus, real_sl, real_su, real_ia = (fstep._launch, sgn._launch_linearize, sgn._launch_update,
                                            ialign._launch_align)
     real_tf, real_pre = sgn._launch_transform, tpop._launch
@@ -1999,10 +2009,10 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases["linearize"] = args
         return real_lin(*args, **kw)
 
-    def spy_vred(*args):
+    def spy_vfil(*args, **kw):
         if args[0].shape[0] == lanes:
-            cases[f"voxel_reduce_out{args[5]}"] = args
-        return real_vred(*args)
+            cases[f"voxel_filter_out{args[4]}"] = args
+        return real_vfil(*args, **kw)
 
     def spy_fus(*args):
         if args[0].shape[0] == lanes:
@@ -2045,7 +2055,7 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
             cases["icp_align"] = args
         return real_ia(*args)
 
-    segsum._launch, pcg._launch, lin._launch, vred._launch = spy, spy_pcg, spy_lin, spy_vred
+    segsum._launch, pcg._launch, lin._launch, vfil._launch = spy, spy_pcg, spy_lin, spy_vfil
     fstep._launch, sgn._launch_linearize, sgn._launch_update = spy_fus, spy_sl, spy_su
     ialign._launch_align, sgn._launch_transform, tpop._launch = spy_ia, spy_tf, spy_pre
     tdsk._launch, tsc._launch = spy_dsk, spy_sc
@@ -2053,7 +2063,7 @@ def capture_kernel_args(cases: dict, lanes: int = 1):
         yield cases
     finally:
         tdsk._launch, tsc._launch = real_dsk, real_sc
-        segsum._launch, pcg._launch, lin._launch, vred._launch = real, real_pcg, real_lin, real_vred
+        segsum._launch, pcg._launch, lin._launch, vfil._launch = real, real_pcg, real_lin, real_vfil
         fstep._launch, sgn._launch_linearize, sgn._launch_update = real_fus, real_sl, real_su
         ialign._launch_align, sgn._launch_transform, tpop._launch = real_ia, real_tf, real_pre
 
@@ -3779,106 +3789,260 @@ def phase_segment_sum() -> dict:
     return out
 
 
-def voxel_targets(xyz, intensity, mask, cell, order, S: int):
-    """What one index_put adds for the voxel filter: each point's slot in
-    sorted order (lane b's at b (S + 1), dropped points in the lane's dump
-    slot b (S + 1) + S) and its row [x, y, z, intensity, 1] in that order."""
-    B, M = mask.shape
-    cell_s = torch.gather(cell, 1, order[..., None].expand(B, M, 3))
-    mask_s = torch.gather(mask, 1, order)
-    same = (cell_s[:, 1:] == cell_s[:, :-1]).all(-1) & mask_s[:, 1:] & mask_s[:, :-1]
-    seg = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=DEV),
-                     (~same).to(torch.int64)], 1).cumsum(1)
-    tgt = torch.where(mask_s & (seg < S), seg, S) + torch.arange(B, device=DEV)[:, None] * (S + 1)
-    rows = torch.cat([xyz, intensity[..., None], torch.ones_like(intensity)[..., None]], -1)
-    return tgt.reshape(-1), torch.gather(rows, 1, order[..., None].expand(B, M, 5)).reshape(-1, 5)
+def voxel_sort_key(cell, mask):
+    """The library yardstick's key: one int64 a point, the cell's (z, y, x)
+    packed 21 bits an axis (wrapping where a cell is wider) under the
+    invalid bit."""
+    c = cell.to(torch.int64) & ((1 << 21) - 1)
+    return ((~mask).to(torch.int64) << 63) | (c[..., 2] << 42) | (c[..., 1] << 21) | c[..., 0]
 
 
-def bench_voxel_reduce(args, leaves=()) -> dict:
-    """The voxel filter's reduction on the arguments a path gave it: its
-    outputs against the plain version on a CPU copy (np.array_equal:
-    centroids, intensity, mask, rep) and against itself; timed three ways
-    and by device time alone, beside the plain version on the card (its
-    index_add is atomic there) and one index_put(accumulate=True) of the
-    same rows at their slots. With ``leaves`` (one lane: the leaf sizes the
-    path filters with), the whole voxel_downsample call from the cloud, with
-    the leaf whose cells are the captured ones: against the same call on a
-    CPU copy of the cloud (its sort and the plain version), and timed with
-    its parts."""
-    xyz, intensity, mask, cell, order, S = args
+def bench_voxel_filter(args) -> dict:
+    """The voxel filter on the arguments a path gave it (one kernel call for
+    every lane): its sorted permutation and outputs against its plain
+    version on a CPU copy (np.array_equal), each lane against the same
+    voxel_downsample call on a CPU copy (its route: _cells, lexsort,
+    voxel_reduce_plain), against itself; the library's own count of kernel
+    launches around one call and around the lanes under torch.func.vmap (1
+    each), the lanes' counters back at 0; timed three ways and by device
+    time alone, beside its bound, the plain version on the card (its
+    index_add is atomic there), the parts of the eager filter it replaced
+    (the cells, lexsort's four stable argsorts) and one torch.sort of an
+    int64 key of the same length (the library yardstick)."""
+    xyz, intensity, mask, leaf, S = args  # intensity None: the kernel reads zeros
     B, M = mask.shape
 
     def kernel():
-        return vred.voxel_reduce(xyz, intensity, mask, cell, order, S)
+        return vfil.voxel_filter(xyz, intensity, mask, leaf, S)
 
     out, again = kernel(), kernel()
-    cpu = vred.voxel_reduce_plain(*(t.cpu() for t in args[:5]), S)
-    tgt, rows = voxel_targets(xyz, intensity, mask, cell, order, S)
-
-    def index_put():
-        acc = torch.zeros((B * (S + 1), 5), device=DEV).index_put_((tgt,), rows, accumulate=True)
-        return acc.reshape(B, S + 1, 5)[:, :S]
-
+    order = vfil._launch(xyz, intensity, mask, leaf, S, keep_order=True)[4]
+    zeros = torch.zeros((B, M), device=DEV)
+    cpu_args = [t.cpu() for t in (xyz, zeros if intensity is None else intensity, mask)]
+    cell_cpu = vfil.cells_plain(cpu_args[0], cpu_args[2], leaf)
+    want_order = vfil.filter_order_plain(cell_cpu, cpu_args[2])
+    cpu = vfil.voxel_filter_plain(*cpu_args, leaf, S)
+    lanes_cpu = [tvoxel.voxel_downsample(tvoxel.PointCloud(*(t[b] for t in cpu_args)), leaf, S)
+                 for b in range(B)]
+    k0 = vfil.kernel_launches()
+    kernel()
+    k1 = vfil.kernel_launches()
+    torch.func.vmap(lambda x, i, m: tvoxel.voxel_downsample(tvoxel.PointCloud(x, i, m), leaf, S))(
+        xyz, zeros if intensity is None else intensity, mask)
+    k2 = vfil.kernel_launches()
+    torch.cuda.synchronize()
+    counters_zero = int(vfil.lane_counters(DEV, B).abs().sum()) == 0
+    cell = vfil.cells_plain(xyz, mask, leaf)
+    key = voxel_sort_key(cell, mask)
     valid_points = int(mask.sum())
     voxels = int(out[2].sum())
-    # what the function must move: 37 B a point read (xyz, intensity, mask,
-    # cell, order), 25 B a slot written (centroid, intensity, valid, rep);
-    # 5 adds a valid point and 4 divisions a voxel
-    bytes_moved = B * (37 * M + 25 * S)
+    # what the function must move: 17 B a point read (xyz, intensity, mask),
+    # 25 B a slot written (centroid, intensity, valid, rep); 3 multiplies a
+    # point, 5 adds a valid point and 4 divisions a voxel
+    bytes_moved = B * (17 * M + 25 * S)
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = (5 * valid_points + 4 * voxels) / FP32_FLOP_PER_S
+    t_ops = (3 * B * M + 5 * valid_points + 4 * voxels) / FP32_FLOP_PER_S
     res = dict(
-        shape=[M, S], lanes=B, valid_points=valid_points, voxels=voxels,
+        shape=[M, S], lanes=B, leaf=leaf, valid_points=valid_points, voxels=voxels,
         max_abs_err=max(float((g.cpu().double() - w.double()).abs().max()) for g, w in
                         zip(out[:2], cpu[:2])),
         equal_to_cpu_plain=all(np.array_equal(g.cpu().numpy(), w.numpy()) for g, w in zip(out, cpu)),
+        order_equal_to_plain=bool(torch.equal(order.cpu(), want_order)),
+        call_equal_to_cpu=all(np.array_equal(g[b].cpu().numpy(), w.numpy())
+                              for b, r in enumerate(lanes_cpu)
+                              for g, w in zip(out, (*r.cloud, r.rep_idx))),
         repeats=all(torch.equal(g, a) for g, a in zip(out, again)),
+        kernel_launches_per_call=k1 - k0, kernel_launches_per_vmapped_call=k2 - k1,
+        counters_zero=counters_zero,
         **kernel_ms(kernel), device_ms=device_only_ms(kernel),
-        plain_ms=cuda_ms(lambda: vred.voxel_reduce_plain(xyz, intensity, mask, cell, order, S),
-                         reps=10, batch=20),
-        library_ms=cuda_ms(index_put, reps=10, batch=20), library_ms_single_call=cuda_ms(index_put),
-        library_call="torch.zeros(B (S + 1), 5).index_put_((slot,), rows, accumulate=True)",
+        plain_ms=cuda_ms(lambda: vfil.voxel_filter_plain(xyz, intensity, mask, leaf, S),
+                         reps=10, batch=5),
+        # the eager filter's parts on the card: the cells and lexsort's four
+        # stable argsorts, one lane at a time (single calls)
+        cells_ms=cuda_ms(lambda: vfil.cells_plain(xyz, mask, leaf)),
+        lexsort_ms=sum(cuda_ms(lambda b=b: tvoxel.lexsort(
+            (cell[b, :, 0], cell[b, :, 1], cell[b, :, 2], (~mask[b]).to(torch.uint8))))
+            for b in range(B)),
+        library_ms=cuda_ms(lambda: torch.sort(key, dim=-1), reps=10, batch=20),
+        library_ms_single_call=cuda_ms(lambda: torch.sort(key, dim=-1)),
+        library_call="torch.sort of an int64 key [B, M] (the packed cell under the invalid bit)",
         bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=bytes_moved,
     )
-    if leaves:
-        cloud = tvoxel.PointCloud(xyz=xyz[0], intensity=intensity[0], mask=mask[0])
-        leaf = next((f for f in leaves if torch.equal(tvoxel._cells(cloud, f), cell[0])), None)
-        check(leaf is not None, f"voxel_reduce {res['shape']}: no leaf of {leaves} gives its cells")
-        new = tvoxel.voxel_downsample(cloud, leaf, S)
-        ref = tvoxel.voxel_downsample(tvoxel.PointCloud(*(t.cpu() for t in cloud)), leaf, S)
-        res.update(
-            leaf=leaf,
-            call_equal_to_cpu=all(np.array_equal(a.cpu().numpy(), b.numpy()) for a, b in zip(
-                (*new.cloud, new.rep_idx), (*ref.cloud, ref.rep_idx))),
-            call_ms=cuda_ms(lambda: tvoxel.voxel_downsample(cloud, leaf, S)),
-            # the call's parts: the cells, the sort (lexsort's four stable
-            # argsorts), and voxel_reduce is ms_single_call
-            cells_ms=cuda_ms(lambda: tvoxel._cells(cloud, leaf)),
-            sort_ms=cuda_ms(lambda: tvoxel.lexsort(
-                (cell[0, :, 0], cell[0, :, 1], cell[0, :, 2], (~mask[0]).to(torch.uint8)))))
     return res
 
 
-def phase_voxel_reduce(cases: dict, lanes: int = 1, leaves=()) -> dict:
-    """The voxel filter's reduction held on the arguments a path gave it
+def phase_voxel_filter(cases: dict, lanes: int = 1) -> dict:
+    """The voxel filter held on the arguments a path gave it
     (capture_kernel_args), over ``lanes`` lanes, one line a path; and no
     segment sum launched on the path."""
-    kinds = sorted(k for k in cases if k.startswith("voxel_reduce_out"))
-    check(kinds, f"no {lanes}-lane voxel_reduce launch captured: {sorted(cases)}")
+    kinds = sorted(k for k in cases if k.startswith("voxel_filter_out"))
+    check(kinds, f"no {lanes}-lane voxel_filter launch captured: {sorted(cases)}")
     check("segment_sum" not in cases, f"a segment sum was launched on a single-device path "
           f"({lanes} lanes)")
-    out = {kind: bench_voxel_reduce(cases[kind], leaves) for kind in kinds}
+    out = {kind: bench_voxel_filter(cases[kind]) for kind in kinds}
     emit("kernels_voxel_reduce" if lanes == 1 else f"kernels_voxel_reduce_lanes{lanes}",
-         lanes=lanes, tolerance="bit for bit (np.array_equal)", **out)
+         lanes=lanes, kernel="voxel_filter", tolerance="bit for bit (np.array_equal)", **out)
     for kind, r in out.items():
-        what = f"voxel_reduce {kind} x {lanes} lanes"
+        what = f"voxel_filter {kind} x {lanes} lanes"
         check(r["lanes"] == lanes, f"{what}: captured with {r['lanes']} lanes")
         check(r["equal_to_cpu_plain"], f"{what}: differs from its plain version on the CPU")
+        check(r["order_equal_to_plain"], f"{what}: its order differs from the plain version's")
         check(r["repeats"], f"{what}: two launches differ")
-        check(r.get("call_equal_to_cpu", True),
-              f"{what}: voxel_downsample differs from the same call on the CPU")
+        check(r["call_equal_to_cpu"], f"{what}: differs from voxel_downsample on the CPU")
+        check(r["kernel_launches_per_call"] == 1 and r["kernel_launches_per_vmapped_call"] == 1,
+              f"{what}: {r['kernel_launches_per_call']} / {r['kernel_launches_per_vmapped_call']} "
+              f"kernel launches a call / a vmapped call")
+        check(r["counters_zero"], f"{what}: the lanes' counters are not back at 0")
     return out
+
+
+VOXEL_SEEDED = (8, 16384, 8192)  # lanes, points, slots: the multistream operating point's scans
+
+
+def voxel_seeded_lanes(lanes: int, n: int, S: int):
+    """voxel_filter's arguments for ``lanes`` seeded city-like scans of ``n``
+    points (+-60 m around the sensor, -2 to 8 m of height, 15 % padded), each
+    lane shifted by its own offset, at leaf 0.3 into S slots."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    xyz = (torch.rand((lanes, n, 3), generator=gen, device=DEV) - 0.5) * 120.0
+    xyz[..., 2] = xyz[..., 2] / 12.0 + 3.0
+    xyz += torch.arange(lanes, device=DEV, dtype=torch.float32)[:, None, None] * 37.0
+    mask = torch.rand((lanes, n), generator=gen, device=DEV) > 0.15
+    xyz = torch.where(mask[..., None], xyz, tvoxel.PAD_COORD)
+    return xyz, torch.rand((lanes, n), generator=gen, device=DEV), mask, 0.3, S
+
+
+def parent_voxel_downsample(parent: str):
+    """The parent checkout's voxel filter on the card (``--parent DIR``):
+    ``_cells``, ``lexsort`` (their code is this tree's) and DIR's
+    ``ops/voxel_reduce.py`` kernels, vmapped over the lanes as the parent's
+    multistream path ran it."""
+    old = parent_module(parent, "voxel_reduce")
+
+    def one(xyz, intensity, mask, leaf, S):
+        if intensity is None:  # voxel_downsample_xyz's zeros
+            intensity = torch.zeros(mask.shape, device=mask.device)
+        cell = tvoxel._cells(tvoxel.PointCloud(xyz, intensity, mask), leaf)
+        order = tvoxel.lexsort((cell[:, 0], cell[:, 1], cell[:, 2], (~mask).to(torch.uint8)))
+        return tuple(t[0] for t in old.voxel_reduce(
+            xyz[None], intensity[None], mask[None], cell[None], order[None], S))
+
+    def call(xyz, intensity, mask, leaf, S):
+        if xyz.shape[0] == 1:
+            return tuple(t[None] for t in one(
+                xyz[0], None if intensity is None else intensity[0], mask[0], leaf, S))
+        if intensity is None:
+            return torch.func.vmap(lambda x, m: one(x, None, m, leaf, S))(xyz, mask)
+        return torch.func.vmap(lambda x, i, m: one(x, i, m, leaf, S))(xyz, intensity, mask)
+    return call
+
+
+VOXEL_PROFILE = ("cells", "keys", "offsets", "scatter", "segments", "slots", "barriers", "passes")
+
+
+def phase_voxel_profile(cases: dict, label: str) -> None:
+    """Not in the default run: the voxel filter's time by part on the
+    arguments a path gave it (a profiling build of csrc/voxel_filter.cu,
+    -DLIORF_VOXEL_PROFILE: block 0's thread 0 adds the global timer's ns a
+    part, its waits at the lane's barriers apart, and counts the passes),
+    the medians of 5 launches, each bit for bit against the plain build's;
+    then ptxas' and the SASS's sizes of the plain build."""
+    import ctypes
+
+    kinds = sorted(k for k in cases if k.startswith("voxel_filter_out"))
+    want = {k: vfil.voxel_filter(*cases[k]) for k in kinds}
+    out = {}
+    vfil._lib = None
+    vfil._SCRATCH.clear()
+    try:
+        read = vfil.load_library(("-DLIORF_VOXEL_PROFILE",)).liorf_voxel_filter_profile
+        read.argtypes = [ctypes.c_void_p]
+        read.restype = ctypes.c_int
+        buf = (ctypes.c_longlong * len(VOXEL_PROFILE))()
+        for k in kinds:
+            def call(a=cases[k]):
+                return vfil.voxel_filter(*a)
+            check(all(torch.equal(g, w) for g, w in zip(call(), want[k])),
+                  f"voxel_profile {k}: the profiling build differs from the plain build")
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                check(read(ctypes.addressof(buf)) == 0, "reading the profile failed")  # resets it
+                call()
+                torch.cuda.synchronize()
+                check(read(ctypes.addressof(buf)) == 0, "reading the profile failed")
+                runs.append(list(buf))
+            out[k] = dict(device_ms=device_only_ms(call), **{
+                name: statistics.median(r[j] for r in runs) for j, name in enumerate(VOXEL_PROFILE)})
+    finally:
+        vfil._lib = None  # the next user builds the library without the profile
+        vfil._SCRATCH.clear()
+    emit("voxel_profile", path=label, ns_by_part=out, build=nvcc_report(VOXEL_SOURCE),
+         note="ns by part of block 0's thread 0 (barriers: its waits for the lane's other blocks); "
+              "device_ms of the profiling build")
+
+
+def phase_voxel_parent(cases: dict, parent: str, pipe: LiorfPipeline) -> None:
+    """Not in the default run. The parent checkout's voxel filter (``--parent
+    DIR``) beside this tree's on the same clouds (``cases``: name -> (label,
+    args)): every output bit for bit, then device time, the call back to back
+    and one call from an idle device (``split``'s method), in turns (parent,
+    this, this, parent); the kernels one parent scan call launches (one
+    profiler trace, the process's only one); and ``pipe``'s local-map rebuild
+    (split's stage) with each filter, its grid bit for bit, in turns."""
+    from liorf_tpu_torch.mapping import keyframes
+
+    old = parent_voxel_downsample(parent)
+    res = {}
+    for name, (label, args) in cases.items():
+        def new(a=args):
+            return vfil.voxel_filter(*a)
+
+        def prev(a=args):
+            return old(*a)
+        equal = all(torch.equal(x, y) for x, y in zip(new(), prev()))
+        turns = [dict(who=who, device_ms=device_only_ms(fn), **kernel_ms(fn))
+                 for who, fn in (("parent", prev), ("this", new), ("this", new), ("parent", prev))]
+        res[name] = dict(
+            path=label, shape=[args[2].shape[1], args[4]], lanes=args[2].shape[0],
+            equal_to_parent=equal, turns=turns,
+            **{f"{who}_{k}": statistics.median(t[k] for t in turns if t["who"] == who)
+               for who in ("parent", "this") for k in ("device_ms", "ms", "ms_single_call")})
+    scan = min((k for k in cases if cases[k][1][2].shape[0] == 1), key=lambda k: cases[k][1][4])
+    launched, _ = device_kernels(lambda: old(*cases[scan][1]))
+
+    def old_xyz(xyz, mask, leaf, cap=None):
+        out = old(xyz[None], None, mask[None], leaf, xyz.shape[0] if cap is None else cap)
+        return out[0][0], out[2][0]
+
+    stamp, kf_pose = pipe.last_scan_stamp, pipe.store.poses[pipe.store.count - 1].copy()
+    real = keyframes.voxel_downsample_xyz
+    grids, rebuild = {}, []
+    try:
+        for who in ("parent", "this", "this", "parent"):
+            keyframes.voxel_downsample_xyz = old_xyz if who == "parent" else real
+            pipe._rebuild_grid(kf_pose, stamp)
+            grids[who] = tuple(t.clone() for t in pipe.grid)
+            rebuild.append(dict(who=who, ms=cuda_ms(lambda: pipe._rebuild_grid(kf_pose, stamp),
+                                                    reps=10, warm=1)))
+    finally:
+        keyframes.voxel_downsample_xyz = real
+    emit("kernels_voxel_parent", parent=parent, **res,
+         parent_scan_call_device_launches=sum(e["calls"] for e in launched),
+         parent_scan_call_kernels=launched,
+         local_map_rebuild=dict(
+             turns=rebuild, grid_equal_to_parent=all(
+                 torch.equal(a, b) for a, b in zip(grids["this"], grids["parent"])),
+             **{f"{who}_ms": statistics.median(t["ms"] for t in rebuild if t["who"] == who)
+                for who in ("parent", "this")}),
+         note="device_ms: device_only_ms; ms: 20 calls back to back; ms_single_call: one call "
+              "from an idle device; the medians of each side's two turns; the rebuild: one "
+              "_rebuild_grid from an idle device, median of 10, each side's two turns")
+    for name, r in res.items():
+        check(r["equal_to_parent"], f"kernels_voxel_parent: {name} differs from the parent's")
+    check(all(torch.equal(a, b) for a, b in zip(grids["this"], grids["parent"])),
+          "kernels_voxel_parent: the local map's grid differs from the parent's")
 
 
 # ---------------------------------------------------------------------------
@@ -4019,7 +4183,7 @@ def phase_gps_path() -> dict:
         ate_rmse_m=ate, ate_rmse_without_gps_m=ate_rmse(plain_poses[:, 3:6].astype(np.float64), gt),
         max_dist_to_without_gps_m=float(np.linalg.norm(poses[:, 3:6] - plain_poses[:, 3:6], axis=1).max()),
         gn_iters_total=gn, k1_launches=counts["knn_grid_topk"],
-        voxel_reduce_launches=counts["voxel_reduce"],
+        voxel_filter_launches=counts["voxel_filter"],
         ms_per_frame_p50=percentile(ms[1:], 50), ms_per_frame_p99=percentile(ms[1:], 99),
         host_reads=rp.host_reads(),
     )
@@ -4482,7 +4646,7 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
             gn_iters_per_rank=[p["gn_iters"] for p in pipe],
             k1_launches_per_rank=[p["k1_launches"] for p in pipe],
             k2_launches_per_rank=[p["k2_launches"] for p in pipe],
-            voxel_reduce_launches_per_rank=[p["voxel_reduce_launches"] for p in pipe],
+            voxel_filter_launches_per_rank=[p["voxel_filter_launches"] for p in pipe],
             segment_sum_launches_per_rank=[p["segment_sum_launches"] for p in pipe],
             single_gn_iters=ref["pipeline"]["gn_iters"], keyframes=pipe[0]["keyframes"],
             loop_factors=pipe[0]["loop_factors"], host_reads=pipe[0]["host_reads"]),
@@ -4530,7 +4694,7 @@ def dist_run(label: str, world: int, backend: str, device: str | None, ref: dict
     check(loop[0]["loop_factors"] >= 1, f"{label}: no loop closed on the loop course")
     return {**{k: pipe[0][f"{n}_launches"] + loop[0][f"{n}_launches"]
                for k, n in (("knn_grid_topk", "k1"), ("knn_bruteforce", "k2"),
-                            ("voxel_reduce", "voxel_reduce"))},
+                            ("voxel_filter", "voxel_filter"))},
             # the segment sum (the local matvec): one sharded solve and one
             # inner-outer solve on rank 0
             "segment_sum": m0["solve"]["segment_sum_launches_per_solve"]
@@ -4619,8 +4783,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                                              "transform") if k in cases}
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
-            kern["voxel_reduce"] = phase_voxel_reduce(
-                cases, leaves=(pipe.frame_params.leaf, pipe.cfg.surroundingKeyframeMapLeafSize))
+            kern["voxel_filter"] = phase_voxel_filter(cases)
             kern["segment_sum"] = phase_segment_sum()
             kern["pcg_solve"] = phase_pcg(pcg_main, "main_path")
             kern["linearize_normal"] = phase_linearize(lin_main, "main_path")
@@ -4646,6 +4809,13 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
             phase_linearize_profile(lin_main, "main_path")
         if "preintegrate_profile" in phases:
             phase_preintegrate_profile(pre_main, "main_path")
+        if "voxel_parent" in phases:
+            phase_voxel_parent({
+                **{k: ("main_path", cases[k]) for k in cases if k.startswith("voxel_filter_out")},
+                "lanes8": (f"seeded {VOXEL_SEEDED[0]} lanes", voxel_seeded_lanes(*VOXEL_SEEDED))},
+                args.parent, pipe)
+        if "voxel_profile" in phases:
+            phase_voxel_profile(cases, "main_path")
         if "kernels_parent" in phases:
             phase_kernels_parent({
                 "linearize_normal": ("linearize", "main_path", lin_main),
@@ -4795,21 +4965,21 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                                         "library_ms", "bound_ms", "max_abs_err",
                                         "index_put_repeats")}
                  for k, v in seg.items()}))
-    vox = kern["voxel_reduce"]
-    scan_voxel = vox[f"voxel_reduce_out{BENCH_CAPS['scan_capacity']}"]
+    vox = kern["voxel_filter"]
+    scan_voxel = vox[f"voxel_filter_out{BENCH_CAPS['scan_capacity']}"]
     vox_fields = ("shape", "lanes", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
-                  "library_ms", "bound_ms", "bound_by", "max_abs_err")
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err", "lexsort_ms", "cells_ms",
+                  "kernel_launches_per_call")
     kernels.append(row(
-        "voxel_reduce",
-        "none (not a TPU kernel): the eager ops after the sort in liorf_tpu_torch/core/voxel.py "
-        "and their segment sum (the JAX package's .at[].add / .at[].min at "
-        "liorf_tpu/core/voxel.py:57-61)",
-        main_counts["voxel_reduce"], r=scan_voxel, source=VOXEL_SOURCE,
+        "voxel_filter",
+        "none (not a TPU kernel): the eager filter of liorf_tpu_torch/core/voxel.py on the card "
+        "(_cells, lexsort's four stable argsorts, and the voxel_reduce kernels after them; the "
+        "JAX package's lexsort and .at[].add / .at[].min at liorf_tpu/core/voxel.py:38-69)",
+        main_counts["voxel_filter"], r=scan_voxel, source=VOXEL_SOURCE,
         shape=scan_voxel["shape"], device_ms=scan_voxel["device_ms"],
-        launches_by_path=by_path("voxel_reduce"),
+        launches_by_path=by_path("voxel_filter"),
         voxel_filter_calls_by_path=by_path("voxel_filter_calls"),
-        by_site={k: {f: v[f] for f in vox_fields + ("call_ms", "sort_ms", "cells_ms")}
-                 for k, v in vox.items()},
+        by_site={k: {f: v[f] for f in vox_fields} for k, v in vox.items()},
         lanes8={k: {f: v[f] for f in vox_fields} for k, v in vr_lanes.items()}))
     # the PCG row: the main path's last launch shape (its window solves)
     pcg_main = max(kern["pcg_solve"].values(), key=lambda r: r["shape"]["iters"])
@@ -4973,11 +5143,11 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
           "K1 never launched on the multistream path")
     check(all(c["knn_grid_topk"] > 0 and c["knn_bruteforce"] > 0 for c in dist_counts.values()),
           "K1 or K2 never launched on the dist path")
-    check(all(c["segment_sum"] > 0 and c["voxel_reduce"] > 0 for c in dist_counts.values()),
-          "the segment sum or the voxel filter's reduction never launched on the dist path")
-    check(all(c["knn_grid_topk"] > 0 and c["voxel_reduce"] > 0 and c["pcg_solve"] > 0
+    check(all(c["segment_sum"] > 0 and c["voxel_filter"] > 0 for c in dist_counts.values()),
+          "the segment sum or the voxel filter never launched on the dist path")
+    check(all(c["knn_grid_topk"] > 0 and c["voxel_filter"] > 0 and c["pcg_solve"] > 0
               for c in new_counts.values()),
-          "K1, the voxel filter's reduction or the PCG kernel never launched on repeat, gps_path, "
+          "K1, the voxel filter or the PCG kernel never launched on repeat, gps_path, "
           "growth_path or faults")
     check(new_counts["growth_path"]["knn_bruteforce"] > 0, "K2 never launched on growth_path")
     for path, c in single_device.items():
@@ -4986,8 +5156,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         check(c["linearize_normal"] == c["pose_graph_gn_steps"],
               f"{path}: {c['linearize_normal']} linearize launches for "
               f"{c['pose_graph_gn_steps']} GN steps")
-        check(c["voxel_reduce"] > 0 and c["voxel_reduce"] == c["voxel_filter_calls"],
-              f"{path}: {c['voxel_reduce']} voxel_reduce launches for "
+        check(c["voxel_filter"] > 0 and c["voxel_filter"] == c["voxel_filter_calls"],
+              f"{path}: {c['voxel_filter']} voxel_filter launches for "
               f"{c['voxel_filter_calls']} voxel filter calls")
         check(c["segment_sum"] == 0,
               f"{path}: {c['segment_sum']} segment sum launches on a single-device path")

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.voxel_filter import voxel_filter
 from ..ops.voxel_reduce import voxel_reduce
 from .pointcloud import PAD_COORD, PointCloud
 
@@ -29,7 +30,9 @@ def lexsort(keys) -> torch.Tensor:
     The three cell coordinates do not pack into one 64-bit key (up to
     +-3.3e7 each at leaf 0.3), so the order is built by successive stable
     sorts, least significant key first (replaces ``jnp.lexsort``,
-    voxel.py:44 and keyframes.py:188 of the JAX package).
+    voxel.py:44 and keyframes.py:188 of the JAX package). The CPU route of
+    the voxel filter; on the card the filter sorts compact keys in its
+    kernel (``ops/voxel_filter.py``).
     """
     order = None
     for key in keys:
@@ -54,16 +57,22 @@ def voxel_downsample(
     """Centroid voxel filter. Output has `out_capacity` slots (default: input
     capacity); voxels beyond capacity are dropped deterministically in cell
     sort order. Points are lex-sorted by (z, y, x) cell with invalid points
-    last, so identical cells are contiguous, then ``ops/voxel_reduce.py``
-    sums each run of equal cells into a slot: one kernel call on the card."""
+    last, so identical cells are contiguous, then each run of equal cells is
+    summed into a slot. On the CPU: ``_cells``, ``lexsort`` and
+    ``ops/voxel_reduce.py``; on the card one kernel call for all of it
+    (``ops/voxel_filter.py``, the same order and bits)."""
     if out_capacity is None:
         out_capacity = cloud.capacity
     voxel_downsample.calls += 1
-    cell = _cells(cloud, leaf_size)
-    order = lexsort((cell[:, 0], cell[:, 1], cell[:, 2], (~cloud.mask).to(torch.uint8)))
-    xyz, intensity, valid, rep = voxel_reduce(
-        cloud.xyz[None], cloud.intensity[None], cloud.mask[None], cell[None], order[None],
-        out_capacity)
+    if cloud.xyz.device.type == "cuda":
+        xyz, intensity, valid, rep = voxel_filter(
+            cloud.xyz[None], cloud.intensity[None], cloud.mask[None], leaf_size, out_capacity)
+    else:
+        cell = _cells(cloud, leaf_size)
+        order = lexsort((cell[:, 0], cell[:, 1], cell[:, 2], (~cloud.mask).to(torch.uint8)))
+        xyz, intensity, valid, rep = voxel_reduce(
+            cloud.xyz[None], cloud.intensity[None], cloud.mask[None], cell[None], order[None],
+            out_capacity)
     return VoxelResult(cloud=PointCloud(xyz=xyz[0], intensity=intensity[0], mask=valid[0]),
                        rep_idx=rep[0])
 
@@ -74,7 +83,13 @@ voxel_downsample.calls = 0
 def voxel_downsample_xyz(
     xyz: torch.Tensor, mask: torch.Tensor, leaf_size: float, out_capacity: int | None = None
 ):
-    """Convenience wrapper over raw arrays; returns (xyz, mask)."""
+    """Convenience wrapper over raw arrays; returns (xyz, mask). On the card
+    the kernel reads no intensity (zeros) and this is its one launch."""
+    if xyz.device.type == "cuda":
+        voxel_downsample.calls += 1
+        out = voxel_filter(xyz[None], None, mask[None], leaf_size,
+                           xyz.shape[0] if out_capacity is None else out_capacity)
+        return out[0][0], out[2][0]
     pc = PointCloud(
         xyz=xyz,
         intensity=torch.zeros(xyz.shape[0], dtype=torch.float32, device=xyz.device),

@@ -7,7 +7,7 @@
 // Not a TPU kernel: it takes the place of the card's atomic scatter-add
 // (index_add) in the distributed pose-graph solver's matvec
 // (dist/shard_map_solver.py), whose accumulation order changed from run to
-// run (the voxel filter's sums moved into csrc/voxel_reduce.cu, the
+// run (the voxel filter's sums moved into csrc/voxel_filter.cu, the
 // single-device solve's into csrc/linearize.cu and csrc/pcg.cu). Here every
 // output element is summed by ONE thread, in the order of its rows, starting
 // from 0.0f: the result is the same on every run, and equal to the CPU's

@@ -34,7 +34,7 @@ import torch.distributed as tdist
 
 from .. import convert
 from ..graph import pose_graph as pg
-from ..ops import knn_cuda, segment_sum, voxel_reduce
+from ..ops import knn_cuda, segment_sum, voxel_filter
 from ..ops.scan_match import ScanMatchParams
 from . import multihost
 from .resident_sharded import ShardedResidentPipeline
@@ -127,7 +127,7 @@ def case_pipeline(mesh: GraphMesh, case: dict, arrays: dict):
     imu = syn.imu_stream()
     ii = 0
     frame_ms = []
-    for counted in (knn_cuda, segment_sum, voxel_reduce):
+    for counted in (knn_cuda, segment_sum, voxel_filter):
         counted.reset_launch_counts()
     for f in range(case["frames"]):
         scan = syn.scan(f)
@@ -153,7 +153,7 @@ def case_pipeline(mesh: GraphMesh, case: dict, arrays: dict):
     meta = {
         "frame_ms": frame_ms, "gn_iters": pipe.gn_iters_total(),
         "k1_launches": launches["knn_grid_topk"], "k2_launches": launches["knn_bruteforce"],
-        "voxel_reduce_launches": voxel_reduce.launch_counts()["voxel_reduce"],
+        "voxel_filter_launches": voxel_filter.launch_counts()["voxel_filter"],
         "segment_sum_launches": segment_sum.launch_counts()["segment_sum"],
         "growth_events": pipe.growth_events, "host_reads": pipe.host_reads(),
         "icp_runs": pipe.tally["icp_runs"],

@@ -1,10 +1,10 @@
 """The voxel filter's reduction (``ops/voxel_reduce.py``) and its sort
-(``core/voxel.py::lexsort``): the sort against ``numpy.lexsort``, the filter
-against the JAX package's, the plain version against a sequential float32
-sum of each voxel in numpy, the vmap rule, the segment sum's offsets; on
-the card (marker ``gpu``) the kernel against its plain version on a CPU
-copy, bit for bit, and the whole filter against the same call on the CPU.
-Without JAX on the card:
+(``core/voxel.py::lexsort``), the CPU route of the filter: the sort against
+``numpy.lexsort``, the filter against the JAX package's, the plain version
+against a sequential float32 sum of each voxel in numpy, the vmap rule, the
+segment sum's offsets; on the card (marker ``gpu``) the filter's one kernel
+call (``ops/voxel_filter.py``) against this route on a CPU copy, bit for
+bit, and the segment sum at the dist shapes. Without JAX on the card:
 
     python -m pytest tests/test_torch_voxel_reduce.py -m gpu -q --noconftest
 """
@@ -16,6 +16,7 @@ import torch
 from liorf_tpu_torch.core import voxel as tvoxel
 from liorf_tpu_torch.core.pointcloud import PAD_COORD, PointCloud
 from liorf_tpu_torch.ops import segment_sum as ss
+from liorf_tpu_torch.ops import voxel_filter as vf
 from liorf_tpu_torch.ops import voxel_reduce as vr
 
 I32 = np.iinfo(np.int32)
@@ -213,15 +214,15 @@ def _gpu_case(kind: str, n: int, seed: int):
 
 
 def _check_kernel(dev, lanes, S, leaf):
-    """The kernel on the card against the plain version on a CPU copy (bit
-    for bit) and against itself."""
+    """The filter's kernel on the card against the CPU route (_cells, lexsort,
+    voxel_reduce_plain) on a CPU copy, bit for bit, and against itself."""
     args = [torch.cat(parts) for parts in zip(*(_reduce_args(c, leaf) for c in lanes))]
     want = vr.voxel_reduce_plain(*args, S)
-    card = [a.to(dev) for a in args]
-    before = vr.voxel_reduce.launches
-    got = vr.voxel_reduce(*card, S)
-    again = vr.voxel_reduce(*card, S)
-    assert vr.voxel_reduce.launches == before + 2
+    card = [a.to(dev) for a in args[:3]]
+    before = vf.voxel_filter.launches
+    got = vf.voxel_filter(*card, leaf, S)
+    again = vf.voxel_filter(*card, leaf, S)
+    assert vf.voxel_filter.launches == before + 2
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         assert torch.equal(g.cpu(), w)
@@ -250,9 +251,9 @@ def test_kernel_edge_cases(dev, kind, n, S):
 @pytest.mark.gpu
 def test_voxel_downsample_on_the_card_is_one_call(dev):
     cloud = PointCloud(*(t.to(dev) for t in _gpu_case("site", 32768, 9)))
-    before_k, before_s = vr.voxel_reduce.launches, ss.segment_sum.launches
+    before_k, before_s = vf.kernel_launches(), ss.segment_sum.launches
     new = tvoxel.voxel_downsample(cloud, 0.3, 16384)
-    assert vr.voxel_reduce.launches == before_k + 1 and ss.segment_sum.launches == before_s
+    assert vf.kernel_launches() == before_k + 1 and ss.segment_sum.launches == before_s
     cpu = tvoxel.voxel_downsample(PointCloud(*(t.cpu() for t in cloud)), 0.3, 16384)
     for g, w in zip((*new.cloud, new.rep_idx), (*cpu.cloud, cpu.rep_idx)):
         assert torch.equal(g.cpu(), w)
