@@ -68,8 +68,8 @@ Options (for shorter runs while developing):
              repeat,gps_path,growth_path,faults,multistream_path,cli,dist
              [,profile][,profile_resident][,pcg_profile][,fusion_profile][,scan_gn_profile]
              [,scan_gn_parent][,linearize_profile][,preintegrate_profile][,kernels_parent]
-             [,voxel_parent][,voxel_profile]
-             [,edge_floor][,repair_cost]
+             [,voxel_parent][,voxel_profile][,front_profile]
+             [,edge_floor][,repair_cost][,first_frames]
                       not run by default: "profile" traces 8 warm frames with
                       torch.profiler (device-busy share, kernel time by name,
                       host operators by their own time), "profile_resident"
@@ -92,15 +92,21 @@ Options (for shorter runs while developing):
                       main_path; a profiling build of csrc/voxel_filter.cu);
                       "edge_floor" holds a factor's linearization bits over
                       256 to 4096 edge slots; "repair_cost" times
-                      resident_path here and in the --parent checkout, in turns
+                      resident_path here and in the --parent checkout, in turns;
+                      "front_profile" the deskew's and the descriptor's
+                      phases (with main_path; profiling builds of
+                      csrc/deskew.cu and csrc/scancontext.cu); "first_frames"
+                      a fresh process's first frames on the main, resident
+                      and multistream pipelines (here, and in turns with the
+                      --parent checkout where one is given)
     --parent DIR      the checkout repair_cost, scan_gn_parent (with main_path:
                       the scan matcher's calls of DIR on this tree's arguments,
                       bit for bit and timed in turns) and kernels_parent (with
-                      main_path: DIR's linearize_normal and preintegrate calls
-                      the same way) and voxel_parent (with main_path: DIR's
+                      main_path: DIR's linearize_normal, preintegrate,
+                      deskew and descriptor calls the same way) and voxel_parent (with main_path: DIR's
                       voxel filter on the main path's scan and map clouds and
                       on seeded 8-lane scans, bit for bit and timed in turns)
-                      compare with
+                      and first_frames compare with
     --ptxas           print ptxas' register / shared-memory report
 """
 
@@ -1241,6 +1247,111 @@ def phase_repair_cost(parent: str, turns=("parent", "this", "this", "parent")) -
     emit("repair_cost", nvidia_smi=nvidia_smi_line(), frames=REPAIR_FRAMES, turns=runs, **summary)
 
 
+FIRST_FRAMES = 3  # frames (ticks) a fresh process runs in first_frames
+
+# One fresh process's first frames on one path (argv: main, resident or
+# multistream, and the frames), driven by its checkout's own chip_smoke.py:
+# the imports', the construction's and each frame's time (host clock, the
+# card synchronized around each), and where torch._dynamo, which a
+# process's first torch.library custom-op call imports, came in.
+FIRST_RUN = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import chip_smoke as cs
+t2 = time.perf_counter()
+path, n = sys.argv[1], int(sys.argv[2])
+def dynamo(where):
+    return where if "torch._dynamo" in sys.modules else None
+at = dynamo("import")
+if path == "multistream":
+    from liorf_tpu_torch.pipeline.multistream import MultiStreamPipeline
+    courses = [cs.course("multi", b) for b in range(max(cs.MULTI_LANES))]
+    t3 = time.perf_counter()
+    mp = MultiStreamPipeline(cs.multi_config(), n_streams=len(courses))
+    ii = [0] * len(courses)
+    def frame(f):
+        scans = [c.scan(f) for c in courses]
+        for b, c in enumerate(courses):
+            ii[b] = cs.feed_imu(lambda s, b=b: mp.push_imu(b, s), scans[b], c.imu, ii[b])
+        return lambda: mp.step(scans)
+else:
+    syn = cs.main_dataset(n)
+    imu, ii = syn.imu_stream(), [0]
+    t3 = time.perf_counter()
+    pipe = (cs.LiorfPipeline if path == "main" else cs.make_pipeline)(cs.main_config())
+    def frame(f):
+        scan = syn.scan(f)
+        ii[0] = cs.feed_imu(pipe.push_imu, scan, imu, ii[0])
+        return lambda: pipe.process_scan(scan)
+t4 = time.perf_counter()
+at = at or dynamo("construction")
+ms = []
+for f in range(n):
+    step = frame(f)
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - a) * 1e3)
+    at = at or dynamo(f"frame {f}")
+print(json.dumps(dict(torch_import_s=t1 - t0, package_import_s=t2 - t1, construction_s=t4 - t3,
+                      frame_ms=ms, dynamo_imported_at=at)))
+"""
+
+# every kernel library of a checkout built at once, in a process of its own
+FIRST_BUILD = ("import chip_smoke as cs; from concurrent.futures import ThreadPoolExecutor; "
+               "ex = ThreadPoolExecutor(len(cs.KERNEL_MODULES)); "
+               "[f.result() for f in [ex.submit(m.load_library) for m in cs.KERNEL_MODULES]]")
+
+
+def phase_first_frames(parent: str | None,
+                       turns=("parent", "this", "this", "parent")) -> None:
+    """A fresh process's first FIRST_FRAMES frames on main_path's,
+    resident_path's and multistream_path's (8 lanes) pipelines and courses,
+    each run a process of its own in its own checkout (and build directory),
+    in turns with the ``--parent DIR`` checkout's where one is given; every
+    checkout's kernels built first, in a process of their own, so that no
+    frame builds one. Fails if a frame of this checkout imports
+    torch._dynamo. Not in the default run:
+    ``--phases device,first_frames [--parent DIR]``."""
+    roots = {"this": os.path.dirname(os.path.abspath(__file__))}
+    if parent is None:
+        turns = ("this", "this")
+    else:
+        check(os.path.isfile(os.path.join(parent, "chip_smoke.py")),
+              f"first_frames: {parent} holds no chip_smoke.py")
+        roots["parent"] = os.path.abspath(parent)
+    env = {k: v for k, v in os.environ.items() if k not in ("LIORF_TORCH_BUILD_DIR", "PYTHONPATH")}
+
+    def run(turn, *argv):
+        r = subprocess.run([sys.executable, "-c", *argv], cwd=roots[turn], env=env,
+                           capture_output=True, text=True, timeout=900)
+        check(r.returncode == 0, f"first_frames: the {turn} run exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        return r.stdout
+
+    build_s = {}
+    for turn in roots:
+        t0 = time.perf_counter()
+        run(turn, FIRST_BUILD)
+        build_s[turn] = time.perf_counter() - t0
+    runs = []
+    for path in ("main", "resident", "multistream"):
+        for turn in turns:
+            t0 = time.perf_counter()
+            out = json.loads(run(turn, FIRST_RUN, path, str(FIRST_FRAMES)).strip().splitlines()[-1])
+            runs.append(dict(path=path, checkout=turn, process_s=time.perf_counter() - t0, **out))
+    emit("first_frames", nvidia_smi=nvidia_smi_line(), frames=FIRST_FRAMES, build_s=build_s,
+         runs=runs, note="frame_ms: host clock around each frame (tick), the card synchronized; "
+                         "frame 0 the bootstrap")
+    for r in runs:
+        if r["checkout"] == "this":
+            check(r["dynamo_imported_at"] in ("import", "construction"),
+                  f"first_frames: {r['path']}'s {r['dynamo_imported_at']} imported torch._dynamo")
+
+
 EDGE_SLOTS = (256, 320, 384, 448, 512, 768, 1024, 1152, 1536, 2048, 4096)
 
 
@@ -1793,10 +1904,12 @@ def phase_multistream_path() -> dict:
     fus_lanes = phase_fusion(fusion_case(lane_cases), f"multistream_path_{max(MULTI_LANES)}")
     pre_lanes = phase_preintegrate(preintegrate_case(lane_cases),
                                    f"multistream_path_{max(MULTI_LANES)}")
+    front_tick = dict(deskew=lane_cases["deskew"])
     dsk_lanes = phase_deskew(front_case(lane_cases, "deskew"), f"multistream_path_{max(MULTI_LANES)}")
     # the descriptor runs at a tick with a keyframe in any lane; without one
     # in the run, seeded clouds of as many lanes
     sc_args = lane_cases.pop("make_descriptor", None)
+    front_tick["make_descriptor"] = sc_args
     sc_lanes = phase_descriptor(
         sc_args or seeded_clouds(max(MULTI_LANES)),
         f"multistream_path_{max(MULTI_LANES)}" if sc_args
@@ -1840,7 +1953,7 @@ def phase_multistream_path() -> dict:
                   f"N={n}: {row[f'{k}_launches_per_tick_max']} {k} launches in one tick, "
                   f"{row[f'{k}_launches_bootstrap_tick']} in the bootstrap tick")
     return (out, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes, pre_lanes,
-            dsk_lanes, sc_lanes)
+            dsk_lanes, sc_lanes, front_tick)
 
 
 def multistream_loop_course(n: int, captured: dict) -> dict:
@@ -2910,8 +3023,13 @@ def bench_deskew(args) -> dict:
     def kernel():
         return tdsk.deskew(*args)
 
-    out = tdsk._launch(*args)
+    k0 = tdsk.kernel_launches()
+    out = kernel()
+    per_call = tdsk.kernel_launches() - k0
     again = kernel()
+    k0 = tdsk.kernel_launches()
+    vmapped = torch.func.vmap(tdsk.deskew_frame)(*args)
+    per_vmapped_call = tdsk.kernel_launches() - k0
     plain = tdsk.deskew_plain(*args)
     alone = torch.cat([tdsk.deskew(*(t[b:b + 1] for t in args)) for b in range(B)])
     cpu = tdsk.deskew_plain(*(t.cpu() for t in args))
@@ -2920,6 +3038,8 @@ def bench_deskew(args) -> dict:
     return dict(
         shape=dict(lanes=B, points=N, points_masked_in=n_in, K=times.shape[1],
                    valid_samples=n_valid), lanes=B,
+        kernel_launches_per_call=per_call, kernel_launches_per_vmapped_call=per_vmapped_call,
+        vmapped_call_equal=same_bits(out, vmapped),
         max_abs_err=max_abs_err([out], [plain]),
         equal_to_plain=same_bits(out, plain), repeats=same_bits(out, again),
         lanes_equal_one_lane_launches=same_bits(out, alone),
@@ -2928,6 +3048,7 @@ def bench_deskew(args) -> dict:
         **kernel_ms(kernel),
         # the kernel's own time on the card, apart from the wrapper's host time
         device_ms=device_only_ms(kernel),
+        host_parts_us=call_host_parts_us(deskew_host_steps(args), tdsk.deskew, args),
         plain_ms=cuda_ms(lambda: tdsk.deskew_plain(*args), reps=5, warm=1),
         library_ms=None,
         **bound(nbytes([mask, xyz, out, start, times, gyr, imask]) + 4 * n_in,
@@ -2944,6 +3065,7 @@ def phase_deskew(args, label: str) -> dict:
                    f"one-lane launches; within {DESKEW_CPU_M} m of the plain version on a CPU copy "
                    "(the CPU's sin and cos)")
     what = f"deskew on {label} {res['shape']}"
+    check_one_launch(res, what)
     check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
     check(res["repeats"], f"{what}: two launches differ")
     check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
@@ -2951,6 +3073,17 @@ def phase_deskew(args, label: str) -> dict:
     check(res["cpu_max_abs_diff"] <= DESKEW_CPU_M,
           f"{what}: {res['cpu_max_abs_diff']} m from the plain version on the CPU")
     return res
+
+
+def check_one_launch(res: dict, what: str) -> None:
+    """One kernel launch a call and a vmapped call, by the library's own
+    count, the vmapped call's result the direct one's."""
+    check(res["kernel_launches_per_call"] == 1,
+          f"{what}: {res['kernel_launches_per_call']} kernel launches a call, not one")
+    check(res["kernel_launches_per_vmapped_call"] == 1,
+          f"{what}: {res['kernel_launches_per_vmapped_call']} kernel launches a vmapped call, "
+          f"not one")
+    check(res["vmapped_call_equal"], f"{what}: the vmapped call differs from the direct one")
 
 
 def seeded_clouds(lanes: int = 8, n: int = BENCH_CAPS["raw_capacity"]):
@@ -2982,8 +3115,13 @@ def bench_descriptor(args) -> dict:
     def kernel():
         return tsc.descriptors(xyz, mask)
 
-    out = tsc._launch(xyz, mask)
+    k0 = tsc.kernel_launches()
+    out = kernel()
+    per_call = tsc.kernel_launches() - k0
     again = kernel()
+    k0 = tsc.kernel_launches()
+    vmapped = torch.func.vmap(tsc.make_descriptor)(xyz, mask)
+    per_vmapped_call = tsc.kernel_launches() - k0
     plain = tsc.make_descriptor_plain(xyz, mask)
     alone = torch.cat([tsc.descriptors(xyz[b:b + 1], mask[b:b + 1]) for b in range(B)])
     cpu = tsc.make_descriptor_plain(xyz.cpu(), mask.cpu())
@@ -2993,6 +3131,8 @@ def bench_descriptor(args) -> dict:
     n_binned = int((flat % tsc.BINS != tsc.BINS - 1).sum())
     return dict(
         shape=dict(lanes=B, points=N, points_masked_in=n_in, points_binned=n_binned), lanes=B,
+        kernel_launches_per_call=per_call, kernel_launches_per_vmapped_call=per_vmapped_call,
+        vmapped_call_equal=same_bits(out, vmapped),
         max_abs_err=max_abs_err([out], [plain]),
         equal_to_plain=same_bits(out, plain), repeats=same_bits(out, again),
         lanes_equal_one_lane_launches=same_bits(out, alone),
@@ -3000,6 +3140,7 @@ def bench_descriptor(args) -> dict:
         finite=bool(torch.isfinite(out).all()),
         **kernel_ms(kernel),
         device_ms=device_only_ms(kernel),
+        host_parts_us=call_host_parts_us(descriptor_host_steps(args), tsc.descriptors, args),
         plain_ms=cuda_ms(lambda: tsc.make_descriptor_plain(xyz, mask), reps=5, warm=1),
         library_ms=cuda_ms(lambda: base.scatter_reduce(0, flat, height, "amax", include_self=True),
                            reps=10, batch=20),
@@ -3017,6 +3158,7 @@ def phase_descriptor(args, label: str) -> dict:
                    f"one-lane launches; under {SC_CPU_BINS} of the bins differ from the plain "
                    "version on a CPU copy (the CPU's atan2)")
     what = f"make_descriptor on {label} {res['shape']}"
+    check_one_launch(res, what)
     check(res["equal_to_plain"], f"{what}: differs from its plain version by {res['max_abs_err']}")
     check(res["repeats"], f"{what}: two launches differ")
     check(res["lanes_equal_one_lane_launches"], f"{what}: a lane differs from its launch alone")
@@ -3502,6 +3644,43 @@ def preintegrate_host_steps(args) -> dict:
                 direct=lambda: tpop._launch(*args))
 
 
+def deskew_host_steps(args) -> dict:
+    """The deskew's host steps on ``args``, as linearize_host_steps, from
+    ops/deskew.py's helpers."""
+    ins = tdsk._checked(*args)
+    B, N = args[0].shape[:2]
+    K = args[4].shape[1]
+    dev = args[0].device
+    lib = tdsk.load_library()
+    out = torch.empty((B, N, 3), dtype=torch.float32, device=dev)  # held: the launches write it
+    ptrs = tdsk._addresses(ins, out)
+    return dict(checks=lambda: tdsk._checked(*args),
+                allocation=lambda: torch.empty((B, N, 3), dtype=torch.float32, device=dev),
+                addresses=lambda: tdsk._addresses(ins, out),
+                ctypes_call_and_launch=lambda: tdsk._run(lib, ptrs, N, K, B, dev),
+                direct=lambda: tdsk._launch(*args))
+
+
+def descriptor_host_steps(args) -> dict:
+    """The descriptor's host steps on ``args``, as linearize_host_steps,
+    from ops/scancontext.py's helpers (the addresses with the lanes'
+    scratch)."""
+    ins = tsc._checked(*args)
+    B, N = args[1].shape
+    dev = args[0].device
+    lib = tsc.load_library()
+    out = torch.empty((B, tsc.NUM_RING, tsc.NUM_SECTOR), dtype=torch.float32, device=dev)
+    stream = build.raw_stream(dev.index)
+    ptrs = [t.data_ptr() for t in ins] + [out.data_ptr(), *tsc.lane_scratch(dev, B, stream)]
+    return dict(checks=lambda: tsc._checked(*args),
+                allocation=lambda: torch.empty((B, tsc.NUM_RING, tsc.NUM_SECTOR),
+                                               dtype=torch.float32, device=dev),
+                addresses=lambda: [t.data_ptr() for t in ins]
+                + [*tsc.lane_scratch(dev, B, build.raw_stream(dev.index))],
+                ctypes_call_and_launch=lambda: tsc._run(lib, ptrs, N, B, dev, stream),
+                direct=lambda: tsc._launch(*args))
+
+
 def call_host_parts_us(steps: dict, public, args) -> dict:
     """A wrapper's host time on these arguments split into its ``steps``
     (linearize_host_steps, preintegrate_host_steps), beside the public
@@ -3590,6 +3769,32 @@ def phase_preintegrate_profile(args, label: str) -> None:
                          lambda: tpop.preintegrate_plain(*args), label)
 
 
+# csrc/deskew.cu's and csrc/scancontext.cu's profile slots, by phase
+DESKEW_PROFILE = dict(point_loads_issued=0, timeline_loads=1, prefix=2, r0_on_warp0=3, barrier=4,
+                      point=6, point_thread_wait=5, point_thread_math=7)
+DESKEW_SPANS = dict(launch=(8, 9), blocks_starting=(8, 10), blocks_ending=(11, 9))
+SC_PROFILE = dict(load_issued_bins_set=0, point_loads=1, point_bin=2, shared_atomic=3,
+                  block_barrier=4, merge=5, arrival=6, last_block=7)
+SC_SPANS = dict(launch=(8, 9))
+
+
+def phase_front_profile(deskew_cases: dict, descriptor_cases: dict) -> None:
+    """Not in the default run: the deskew's and the descriptor's cycles a
+    phase (profiling builds of csrc/deskew.cu and csrc/scancontext.cu) on
+    each of their cases (label -> args: the main path's last launches and
+    seeded ones), each held bit for bit against its plain version."""
+    for case, args in deskew_cases.items():
+        phase_kernel_profile("deskew_profile", tdsk, DESKEW_SOURCE, "-DLIORF_DESKEW_PROFILE",
+                             "liorf_deskew_profile", DESKEW_PROFILE, DESKEW_SPANS,
+                             lambda: (tdsk._launch(*args),), lambda: (tdsk.deskew_plain(*args),),
+                             case)
+    for case, args in descriptor_cases.items():
+        phase_kernel_profile("descriptor_profile", tsc, SC_SOURCE, "-DLIORF_SCANCONTEXT_PROFILE",
+                             "liorf_scancontext_profile", SC_PROFILE, SC_SPANS,
+                             lambda: (tsc._launch(*args),),
+                             lambda: (tsc.make_descriptor_plain(*args),), case)
+
+
 _PARENT_MODULES = {}
 
 
@@ -3613,19 +3818,29 @@ def parent_module(parent: str, name: str):
     return mod
 
 
+# the public call of each ops module that kernels_parent compares
+PARENT_CALLS = {"linearize": "linearize_normal", "preintegrate": "preintegrate",
+                "deskew": "deskew", "scancontext": "descriptors"}
+
+
+def _outputs_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
 def phase_kernels_parent(cases: dict, parent: str) -> None:
-    """Not in the default run. The linearization's and the preintegration's
-    public calls of an older checkout (``--parent DIR``) beside this tree's,
-    on the arguments of ``cases`` (name -> (ops module name, label, args)):
-    every output against this tree's (bit for bit; the signs of zeros apart),
-    then device time and the call back to back and from an idle device, in
-    turns (parent, this, this, parent)."""
+    """Not in the default run. The linearization's, the preintegration's,
+    the deskew's and the descriptor's public calls of an older checkout
+    (``--parent DIR``) beside this tree's, on the arguments of ``cases``
+    (name -> (ops module name, label, args)): every output against this
+    tree's (bit for bit; the signs of zeros apart), then device time and the
+    call back to back and from an idle device, in turns (parent, this, this,
+    parent)."""
+    this = {"linearize": lin, "preintegrate": tpop, "deskew": tdsk, "scancontext": tsc}
     res = {}
     for name, (mod_name, label, args) in cases.items():
-        old = getattr(parent_module(parent, mod_name), mod_name if mod_name != "linearize"
-                      else "linearize_normal")
-        new = lin.linearize_normal if mod_name == "linearize" else tpop.preintegrate
-        got, want = new(*args), old(*args)
+        old = getattr(parent_module(parent, mod_name), PARENT_CALLS[mod_name])
+        new = getattr(this[mod_name], PARENT_CALLS[mod_name])
+        got, want = _outputs_tuple(new(*args)), _outputs_tuple(old(*args))
         turns = []
         for who, fn in (("parent", old), ("this", new), ("this", new), ("parent", old)):
             f = (lambda fn=fn: fn(*args))
@@ -4768,6 +4983,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
     smi = phase_device(args.ptxas)
     kern = phase_kernels("main_path" not in phases) if "kernels" in phases else None
     main_counts = loop_counts = res_counts = res_loop_counts = multi_counts = dist_counts = None
+    front_tick = {}
     vr_lanes = pcg_lanes = lin_lanes = fus_lanes = sg_lanes = ia_lanes = pre_lanes = None
     dsk_lanes = sc_lanes = pcg_main_args = None
     res_loop_run, new_counts = None, {}
@@ -4781,6 +4997,7 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         fus_case = fusion_case(cases)
         sg_case = {k: cases.pop(k) for k in ("scan_linearize", "scan_update_first", "scan_update",
                                              "transform") if k in cases}
+        dsk_main, sc_main = cases.get("deskew"), cases.get("make_descriptor")
         if kern is not None:
             kern["knn_grid_topk"] = phase_k1_main_grid(pipe)
             kern["voxel_filter"] = phase_voxel_filter(cases)
@@ -4816,13 +5033,26 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
                 args.parent, pipe)
         if "voxel_profile" in phases:
             phase_voxel_profile(cases, "main_path")
+        if "front_profile" in phases:
+            lanes, raw = max(MULTI_LANES), MULTI_CAPS["raw_capacity"]
+            phase_front_profile(
+                {"main_path": dsk_main,
+                 **{f"seeded K={K}": deskew_seeded_case(K, n_valid)
+                    for K, n_valid in DESKEW_SEEDED},
+                 f"seeded {lanes} lanes x {raw}": deskew_seeded_case(64, 12, lanes, raw)},
+                {"main_path": sc_main, f"seeded {lanes} lanes x {raw}": seeded_clouds(lanes, raw)})
         if "kernels_parent" in phases:
             phase_kernels_parent({
                 "linearize_normal": ("linearize", "main_path", lin_main),
                 "preintegrate": ("preintegrate", "main_path", pre_main),
                 "preintegrate_k256": ("preintegrate", "seeded K=256 window",
-                                      preint_seeded_case())}, args.parent)
-        del lin_main, pre_main, fus_case, sg_case, cases
+                                      preint_seeded_case()),
+                "deskew": ("deskew", "main_path", dsk_main),
+                **{f"deskew_k{K}": ("deskew", f"seeded K={K} ({n_valid} valid), 4 lanes",
+                                    deskew_seeded_case(K, n_valid))
+                   for K, n_valid in DESKEW_SEEDED},
+                "make_descriptor": ("scancontext", "main_path", sc_main)}, args.parent)
+        del lin_main, pre_main, fus_case, sg_case, cases, dsk_main, sc_main
         resident = None
         if "resident_path" in phases:
             res_cases = {}
@@ -4865,6 +5095,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         phase_edge_floor()
     if "repair_cost" in phases:
         phase_repair_cost(args.parent)
+    if "first_frames" in phases:
+        phase_first_frames(args.parent)
     if "loop_path" in phases:
         loop_counts = phase_loop_path()
     if "resident_loop_path" in phases:
@@ -4886,7 +5118,21 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         new_counts["faults"] = phase_faults()
     if "multistream_path" in phases:
         (multi_counts, vr_lanes, pcg_lanes, lin_lanes, fus_lanes, sg_lanes, ia_lanes,
-         pre_lanes, dsk_lanes, sc_lanes) = phase_multistream_path()
+         pre_lanes, dsk_lanes, sc_lanes, front_tick) = phase_multistream_path()
+    if "kernels_parent" in phases:
+        # the 8-lane tick's deskew and descriptor launches (multistream_path's
+        # last), or seeded ones of the tick's shape when multistream_path did
+        # not run (or had no keyframe tick)
+        lanes, raw = max(MULTI_LANES), MULTI_CAPS["raw_capacity"]
+        tick, seeded = f"multistream_path_{lanes}", f"seeded {lanes} lanes x {raw} points"
+        dsk_tick = front_tick.get("deskew")
+        sc_tick = front_tick.get("make_descriptor")
+        phase_kernels_parent({
+            "deskew_lanes8": ("deskew", tick if dsk_tick else seeded,
+                              dsk_tick or deskew_seeded_case(64, 12, lanes, raw)),
+            "make_descriptor_lanes8": ("scancontext", tick if sc_tick else seeded,
+                                       sc_tick or seeded_clouds(lanes, raw))},
+            args.parent)
     # The closing phases wait on processes of their own (cli runs, dist
     # ranks), so those run side by side in threads; this process's own
     # torch work stays on this thread (torch.func's forward-AD levels are
@@ -5108,7 +5354,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         lanes=({f: ia_lanes[f] for f in gn_fields} | {"correspondences": ia_lanes["correspondences"]})))
     # the front end's rows: the main path's last launches (one lane)
     front_fields = ("shape", "ms", "ms_cold_l2", "ms_single_call", "device_ms", "plain_ms",
-                    "library_ms", "bound_ms", "bound_by", "bytes", "flops", "max_abs_err")
+                    "library_ms", "bound_ms", "bound_by", "bytes", "flops", "max_abs_err",
+                    "kernel_launches_per_call", "host_parts_us")
     dsk = kern["deskew"]
     kernels.append(row(
         "deskew",
@@ -5117,6 +5364,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         "liorf_tpu/ops/deskew.py:35-108)",
         main_counts["deskew"], r=dsk, source=DESKEW_SOURCE, shape=dsk["shape"],
         device_ms=dsk["device_ms"], cpu_max_abs_diff=dsk["cpu_max_abs_diff"],
+        kernel_launches_per_call=dsk["kernel_launches_per_call"],
+        host_parts_us=dsk["host_parts_us"],
         launches_by_path=by_path("deskew"), deskew_calls_by_path=by_path("deskew_calls"),
         resident={f: kern["deskew_resident"][f] for f in front_fields},
         lanes8={f: dsk_lanes[f] for f in front_fields},
@@ -5130,6 +5379,8 @@ def run_phases(args, phases, full, t_start, scan_pool) -> None:
         "make_descriptor at liorf_tpu/ops/scancontext.py:34-53)",
         main_counts["make_descriptor"], r=sc, source=SC_SOURCE, shape=sc["shape"],
         device_ms=sc["device_ms"], library_call=sc["library_call"],
+        kernel_launches_per_call=sc["kernel_launches_per_call"],
+        host_parts_us=sc["host_parts_us"],
         cpu_bins_differing=sc["cpu_bins_differing"],
         launches_by_path=by_path("make_descriptor"),
         descriptor_calls_by_path=by_path("descriptor_calls"),

@@ -17,10 +17,16 @@ time a frame for ~70 floating-point operations a point. The kernel
 (``csrc/deskew.cu``) does all of it in one launch for every lane. What bounds
 it on the card is the points' bytes (~29 a point: xyz in and out, the time,
 the mask) and, behind them, the float64 sine and cosine of three angles a
-point; the timeline is a few hundred samples. So each thread block rebuilds
-the timeline and the scan-start rotation in shared memory (a Hillis-Steele
-prefix, log2 K rounds) and then takes one point a thread: a binary search
-in the shared times, a lerp, and the rotation from registers.
+point (the compiler runs each such call after the one before); the timeline
+is a few hundred samples. At the main path's 32768 points all of it is
+below a launch's latency, so the kernel shortens each block's chain: every
+thread issues its point's loads first; one warp builds a window of up to 64
+samples in its registers (a Hillis-Steele prefix by shuffles in the plain
+version's order, cut where the last valid sample is covered), a longer one
+the whole block; one barrier publishes it; then a binary search in the
+shared times, a lerp, and the rotations, their trigonometry three lanes a
+point up to 65536 points a launch (a lane a point past that, where the
+card's float64 pipe is the limit).
 
 * :func:`deskew` — the deskewed points of every lane: xyz [B, N, 3], rel_t
   [B, N], mask [B, N], scan_start [B], dk_times [B, K], dk_gyr [B, K, 3],
@@ -42,26 +48,33 @@ the card the kernel and the plain version agree bit for bit.
 Dispatch by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. The kernel is a
 ``torch.library`` custom op with a vmap rule, so the lane axis of
-``pipeline/multistream.py`` (``torch.func.vmap``) folds into the launch.
+``pipeline/multistream.py`` (``torch.func.vmap``) folds into the launch; a
+call with no vmap around it launches without the op's dispatch, its
+addresses one packed array. The kernel reads each input's lanes wherever
+they lie (a tick's inputs are slices of its packed frame buffer), so the
+call copies none of them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from array import array
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch._C import _functorch
 
-from ..core.build import build_cuda_library
+from ..core.build import build_cuda_library, raw_stream
 from .plane_fit import dot3
 from .scan_gn import rot_f32
 from .segment_sum import _fold_lanes
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "deskew.cu"
 
-# The longest gyro window the kernel takes (csrc/deskew.cu::kMaxK): the
-# timeline's prefix and samples in shared memory, 64 bytes a sample.
+# The longest gyro window the kernel takes (csrc/deskew.cu::kMaxK): past 64
+# samples the prefix's two buffers, the times and the angles in shared
+# memory, 64 bytes a sample.
 MAX_K = 2048
 
 _lib = None
@@ -75,9 +88,11 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _lib
     so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
     lib = ctypes.CDLL(str(so))
-    vp = ctypes.c_void_p
-    lib.liorf_deskew.argtypes = [vp] * 8 + [ctypes.c_int] * 3 + [vp]
-    lib.liorf_deskew.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.liorf_deskew.argtypes = [vp, ci, ci, ci, ci, vp]
+    lib.liorf_deskew.restype = ci
+    lib.liorf_deskew_kernel_launches.argtypes = []
+    lib.liorf_deskew_kernel_launches.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -178,8 +193,22 @@ def deskew_plain(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
 ARGS = ("xyz", "rel_t", "mask", "scan_start", "dk_times", "dk_gyr", "dk_mask")
 
 
-def _launch(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
-    """The kernel on every lane: the arguments as :func:`deskew` takes them."""
+def _lanes_apart(t) -> bool:
+    """Whether each lane's block of t [B, ...] is contiguous, the lanes any
+    stride apart (a slice of a packed frame buffer, or a lane a vmap
+    broadcast): the kernel reads such a tensor as it is."""
+    stride, expect = t.stride(), 1
+    for d in range(t.dim() - 1, 0, -1):
+        if t.shape[d] != 1 and stride[d] != expect:
+            return False
+        expect *= t.shape[d]
+    return True
+
+
+def _checked(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask) -> list:
+    """The tensors as the kernel takes them (each lane's block contiguous),
+    or ValueError: a dtype, shape or device it does not take, or a window it
+    cannot hold."""
     dev = xyz.device
     if xyz.dim() != 3 or dk_times.dim() != 2:
         raise ValueError(f"deskew: xyz {tuple(xyz.shape)}, dk_times {tuple(dk_times.shape)}: "
@@ -188,24 +217,40 @@ def _launch(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
     K = dk_times.shape[1]
     if not 1 <= K <= MAX_K:
         raise ValueError(f"deskew: a window of {K} samples (1 to {MAX_K})")
-    want = dict(xyz=(B, N, 3), rel_t=(B, N), mask=(B, N), scan_start=(B,), dk_times=(B, K),
-                dk_gyr=(B, K, 3), dk_mask=(B, K))
-    checked = []
-    for name, t in zip(ARGS, (xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)):
+    want = ((B, N, 3), (B, N), (B, N), (B,), (B, K), (B, K, 3), (B, K))
+    out = []
+    for name, t, shape in zip(ARGS, (xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask),
+                              want):
         dtype = torch.bool if name in ("mask", "dk_mask") else torch.float32
-        if t.dtype != dtype or tuple(t.shape) != want[name] or t.device != dev:
+        if t.dtype is not dtype or t.shape != shape or t.device != dev:
             raise ValueError(f"deskew: {name} {t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"expected {dtype} {want[name]} on {dev}")
-        checked.append(t.contiguous())
+                             f"expected {dtype} {shape} on {dev}")
+        out.append(t if t.is_contiguous() or _lanes_apart(t) else t.contiguous())
+    return out
+
+
+def _addresses(ins, out) -> list:
+    """The inputs' and the output's addresses, then the inputs' lane strides."""
+    return [t.data_ptr() for t in ins] + [out.data_ptr()] + [t.stride(0) for t in ins]
+
+
+def _run(lib, ptrs, N, K, B, dev) -> None:
+    """The ctypes call: the 8 addresses and 7 lane strides packed in one array."""
+    packed = array("q", ptrs)
+    err = lib.liorf_deskew(packed.buffer_info()[0], N, K, B, dev.index, raw_stream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"deskew: CUDA launch failed with error {err}")
+
+
+def _launch(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
+    """The kernel on every lane: the arguments as :func:`deskew` takes them."""
+    ins = _checked(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
+    B, N = xyz.shape[:2]
+    dev = xyz.device
     out = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     if B == 0 or N == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.liorf_deskew(*(t.data_ptr() for t in checked), out.data_ptr(), N, K, B,
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"deskew: CUDA launch failed with error {err}")
+    _run(load_library(), _addresses(ins, out), N, dk_times.shape[1], B, dev)
     deskew.launches += 1
     return out
 
@@ -239,6 +284,9 @@ def deskew(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask):
     (bool). Masked-out points come back as they are. One call on the card
     for every lane (a vmapped call's lanes included)."""
     dev = xyz.device
+    if dev.type == "cuda" and _functorch.maybe_current_level() is None:
+        # no vmap around the call: the launch without the custom op's dispatch
+        return _launch(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"deskew: unsupported device {dev}")
     return _deskew_op(xyz, rel_t, mask, scan_start, dk_times, dk_gyr, dk_mask)
@@ -262,6 +310,11 @@ deskew_frame.calls = 0
 
 def launch_counts() -> dict[str, int]:
     return {"deskew": deskew.launches}
+
+
+def kernel_launches() -> int:
+    """Kernels the library has launched in this process (its own count)."""
+    return int(load_library().liorf_deskew_kernel_launches())
 
 
 def reset_launch_counts() -> None:

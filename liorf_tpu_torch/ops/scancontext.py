@@ -14,9 +14,13 @@ TPU kernel: the JAX package jits ``make_descriptor``
 (``liorf_tpu/ops/scancontext.py:34-53``) into its frame program; op by op on
 the card it was ~15 eager launches, ~0.8 ms of host time a call, for a dozen
 operations a point. What bounds the kernel is the points' bytes (13 a point)
-and ``atan2f``; one cluster of thread blocks a lane reduces into shared
-bins by an integer atomic max (exact, so in any order the same bits) and
-merges them through distributed shared memory, in one launch for every lane.
+and ``atan2f``, both far below a launch's latency at the main path's 32768
+points; so the kernel spreads a lane over the card (a point a thread, 128
+blocks there), reduces into each block's shared bins by an integer atomic
+max (exact, so in any order the same bits), and merges the blocks' bins
+into a per-lane scratch (:func:`lane_scratch`, one a stream) by global
+atomics, the lane's last block writing the descriptor; one launch for every
+lane.
 
 * :func:`make_descriptor` — one scan's descriptor (no lane axis), what the
   pipelines call; under ``torch.func.vmap`` the lanes are one launch.
@@ -29,7 +33,9 @@ merges them through distributed shared memory, in one launch for every lane.
   keeps the NaN, and a non-finite bin is 0), as one that +inf reaches.
 
 Dispatch by the tensor's device and nothing else: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel or raises.
+plain version, a CUDA tensor launches the kernel or raises. A call with no
+vmap around it launches without the custom op's dispatch, its addresses one
+packed array.
 
 Constants follow the reference (``Scancontext.h:80-99``).
 """
@@ -38,12 +44,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+from array import array
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch._C import _functorch
 
-from ..core.build import build_cuda_library
+from ..core.build import build_cuda_library, raw_stream
 from .segment_sum import _fold_lanes
 
 NUM_RING = 20
@@ -69,8 +77,10 @@ def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     so, build_seconds = build_cuda_library(_SOURCE, extra_flags)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.liorf_scancontext.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+    lib.liorf_scancontext.argtypes = [vp, ci, ci, ci, vp]
     lib.liorf_scancontext.restype = ci
+    lib.liorf_scancontext_kernel_launches.argtypes = []
+    lib.liorf_scancontext_kernel_launches.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -114,26 +124,62 @@ def make_descriptor_plain(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     return torch.where(torch.isfinite(desc), desc, 0.0)
 
 
-def _launch(xyz, mask):
-    """The kernel on every lane: the arguments as :func:`descriptors` takes them."""
+# the empty bin's key in the kernel's merge scratch: the order-preserving
+# image of -inf (csrc/scancontext.cu::key)
+EMPTY_KEY = 0x007FFFFF
+_scratch: dict = {}
+
+
+def lane_scratch(dev: torch.device, lanes: int, stream: int) -> tuple[int, int]:
+    """The addresses of at least ``lanes`` lanes' merge scratch for launches
+    on ``stream`` (a raw stream address, ``core/build.py::raw_stream``) of
+    ``dev``: 1200 keys a lane (:data:`EMPTY_KEY` between launches), then an
+    arrival counter a lane (0 between launches). The lane's last block sets
+    both back, so the buffer is filled once, when it is made. Each stream
+    has its own: launches on one stream run one at a time, so two never
+    share a scratch, on whatever streams they are made."""
+    have = _scratch.get((dev.index, stream))
+    if have is None or have[1] < lanes:
+        cap = max(lanes, 8)
+        t = torch.full((cap * (BINS - 1) + cap,), EMPTY_KEY, dtype=torch.int32, device=dev)
+        t[cap * (BINS - 1):] = 0
+        have = _scratch[(dev.index, stream)] = (t, cap)
+    t, cap = have
+    return t.data_ptr(), t.data_ptr() + 4 * cap * (BINS - 1)
+
+
+def _checked(xyz, mask) -> list:
+    """The tensors as the kernel takes them (contiguous), or ValueError."""
     dev = xyz.device
-    if xyz.dim() != 3 or xyz.shape[2] != 3 or xyz.dtype != torch.float32:
+    if xyz.dim() != 3 or xyz.shape[2] != 3 or xyz.dtype is not torch.float32:
         raise ValueError(f"descriptors: xyz {xyz.dtype} {tuple(xyz.shape)}, expected float32 "
                          "[B, N, 3]")
-    B, N = xyz.shape[:2]
-    if mask.dtype != torch.bool or tuple(mask.shape) != (B, N) or mask.device != dev:
+    if mask.dtype is not torch.bool or mask.shape != xyz.shape[:2] or mask.device != dev:
         raise ValueError(f"descriptors: mask {mask.dtype} {tuple(mask.shape)} on {mask.device}, "
-                         f"expected bool {(B, N)} on {dev}")
-    xyz, mask = xyz.contiguous(), mask.contiguous()
+                         f"expected bool {tuple(xyz.shape[:2])} on {dev}")
+    return [t if t.is_contiguous() else t.contiguous() for t in (xyz, mask)]
+
+
+def _run(lib, ptrs, N, B, dev, stream) -> None:
+    """The ctypes call on ``stream``: the 5 addresses packed in one array."""
+    packed = array("q", ptrs)
+    err = lib.liorf_scancontext(packed.buffer_info()[0], N, B, dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"descriptors: CUDA launch failed with error {err}")
+
+
+def _launch(xyz, mask):
+    """The kernel on every lane: the arguments as :func:`descriptors` takes them."""
+    ins = _checked(xyz, mask)
+    B, N = mask.shape
+    dev = xyz.device
     out = torch.empty((B, NUM_RING, NUM_SECTOR), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.liorf_scancontext(xyz.data_ptr(), mask.data_ptr(), out.data_ptr(), N, B,
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"descriptors: CUDA launch failed with error {err}")
+    stream = raw_stream(dev.index)
+    _run(load_library(),
+         [t.data_ptr() for t in ins] + [out.data_ptr(), *lane_scratch(dev, B, stream)],
+         N, B, dev, stream)
     make_descriptor.launches += 1
     return out
 
@@ -162,6 +208,9 @@ def descriptors(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The descriptor of every lane: xyz [B, N, 3] + mask [B, N] (bool) ->
     [B, 20, 60]. One call on the card for every lane."""
     dev = xyz.device
+    if dev.type == "cuda" and _functorch.maybe_current_level() is None:
+        # no vmap around the call: the launch without the custom op's dispatch
+        return _launch(xyz, mask)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"descriptors: unsupported device {dev}")
     return _descriptor_op(xyz, mask)
@@ -181,6 +230,11 @@ make_descriptor.launches = 0
 
 def launch_counts() -> dict[str, int]:
     return {"make_descriptor": make_descriptor.launches}
+
+
+def kernel_launches() -> int:
+    """Kernels the library has launched in this process (its own count)."""
+    return int(load_library().liorf_scancontext_kernel_launches())
 
 
 def reset_launch_counts() -> None:

@@ -532,3 +532,109 @@ def test_descriptor_on_every_card(dev):
         assert torch.equal(got, sc.make_descriptor_plain(xyz, mask)), d
         first = got.cpu() if first is None else first
         assert torch.equal(got.cpu(), first), d
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("K, N", [(300, 255), (300, 33001), (2048, 257), (2048, 16385)])
+def test_deskew_long_windows_one_launch(dev, K, N, lanes):
+    """Windows of 300 and 2048 samples (the timeline on the whole block, a
+    barrier a step) over point counts that are not multiples of the block:
+    bit for bit against the plain version, one kernel launch a call by the
+    library's own count, each lane as its own launch."""
+    from liorf_tpu_torch.ops import deskew as dk
+
+    args = _deskew_lanes(K + N, lanes, K, N, dev)
+    want = dk.deskew_plain(*args)
+    k0 = dk.kernel_launches()
+    got = dk.deskew(*args)
+    assert dk.kernel_launches() == k0 + 1
+    assert torch.equal(got, want), float((got - want).abs().max())
+    for b in range(lanes):
+        assert torch.equal(got[b:b + 1], dk.deskew(*(a[b:b + 1] for a in args))), b
+
+
+def test_descriptor_every_point_in_one_bin(dev):
+    """Every point of every lane in one bin: every point's atomic on one
+    shared word, every block's on one word of its lane's scratch; bit for
+    bit against the plain version."""
+    from liorf_tpu_torch.ops import scancontext as sc
+
+    gen = torch.Generator().manual_seed(9)
+    n, lanes = 40001, 3
+    r = 10.5 + torch.rand((lanes, n), generator=gen)
+    th = torch.deg2rad(1.0 + 4.0 * torch.rand((lanes, n), generator=gen))
+    z = -2.0 + 8.0 * torch.rand((lanes, n), generator=gen)
+    xyz = torch.stack([r * torch.cos(th), r * torch.sin(th), z], -1).to(dev)
+    mask = (torch.rand((lanes, n), generator=gen) > 0.1).to(dev)
+    got = sc.descriptors(xyz, mask)
+    assert torch.equal(got, sc.make_descriptor_plain(xyz, mask))
+    assert int((got != 0).sum()) == lanes
+
+
+def test_descriptor_calls_in_a_row_leave_the_scratch_clean(dev):
+    """Three calls in a row at 8, 1 and 8 lanes, each bit for bit against the
+    plain version, one kernel launch a call: a merge scratch or an arrival
+    counter left dirty by a call would show in the next."""
+    from liorf_tpu_torch.ops import scancontext as sc
+
+    for i, lanes in enumerate((8, 1, 8)):
+        xyz, mask = _clouds(40 + i, lanes, 32768 if i != 1 else 1000, dev)
+        k0 = sc.kernel_launches()
+        got = sc.descriptors(xyz, mask)
+        assert sc.kernel_launches() == k0 + 1, i
+        assert torch.equal(got, sc.make_descriptor_plain(xyz, mask)), i
+
+
+def test_descriptor_scratch_a_stream(dev):
+    """Descriptor calls on two streams at once, interleaved with nothing
+    between them: each stream merges into a scratch of its own, so every
+    call is bit for bit the plain version's."""
+    from liorf_tpu_torch.ops import scancontext as sc
+
+    clouds = [_clouds(60 + i, 8, 32768, dev) for i in range(2)]
+    want = [sc.make_descriptor_plain(*c) for c in clouds]
+    cur = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        s.wait_stream(cur)
+    got = [[], []]
+    for _ in range(4):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(sc.descriptors(*clouds[i]))
+    for s in streams:
+        cur.wait_stream(s)
+    scratch = [sc.lane_scratch(dev, 8, s.cuda_stream) for s in streams]
+    assert scratch[0] != scratch[1]
+    for i in range(2):
+        for g in got[i]:
+            assert torch.equal(g, want[i]), i
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_deskew_reads_packed_lanes_where_they_lie(dev, lanes):
+    """Inputs as a multistream tick hands them over, slices of one packed
+    frame buffer a lane (each lane's block contiguous, the lanes apart) and a
+    window mask broadcast over the lanes: bit for bit against the plain
+    version on contiguous copies, one launch, nothing copied."""
+    from liorf_tpu_torch.ops import deskew as dk
+
+    N, K = 16384, 64
+    xyz, rel, mask, start, times, gyr, imask = _deskew_lanes(lanes + 11, lanes, K, N, dev)
+    F = 4 * N + 1 + 4 * K + 5
+    buf = torch.zeros((lanes, F), device=dev)
+    buf[:, :3 * N] = xyz.reshape(lanes, -1)
+    buf[:, 3 * N:4 * N] = rel
+    buf[:, 4 * N] = start
+    buf[:, 4 * N + 1:4 * N + 1 + K] = times
+    buf[:, 4 * N + 1 + K:4 * N + 1 + 4 * K] = gyr.reshape(lanes, -1)
+    g0 = 4 * N + 1 + K
+    packed = (buf[:, :3 * N].view(lanes, N, 3), buf[:, 3 * N:4 * N], mask, buf[:, 4 * N],
+              buf[:, 4 * N + 1:g0], buf[:, g0:g0 + 3 * K].view(lanes, K, 3),
+              imask[-1:].expand(lanes, K))
+    assert all(a is b for a, b in zip(dk._checked(*packed), packed))
+    want = dk.deskew_plain(*(t.contiguous() for t in packed))
+    k0 = dk.kernel_launches()
+    got = dk.deskew(*packed)
+    assert dk.kernel_launches() == k0 + 1
+    assert torch.equal(got, want), float((got - want).abs().max())
